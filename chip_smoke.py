@@ -21,9 +21,24 @@ Phases, each printed as it ends; any failure exits non-zero:
    decisions and pair histograms;
 7. kernel and plain-version times (CUDA events: the median of 20 samples,
    each 10 back-to-back calls), and each kernel's device time from the
-   profiler.
+   profiler;
+8. the flash-attention kernel against its plain version (atol 2e-5 in f32,
+   2e-2 in bf16, rtol 1e-2): MQA, GQA and MHA, D = 32, 64 and 128, f32 and
+   bf16, no mask beyond causal, window 64 and softcap 30, ragged S;
+9. the flash-decode kernel against its plain version at the same bar, with
+   lengths 1, T and random, T not a multiple of 256;
+10. the LLM face's main path at full published width: ``EcoreService``
+    over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
+    backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
+    of 1024, 16 new tokens each, with both attention kernels' launch
+    counts set to 0 just before and read just after;
+11. a two-layer llama3-8b at full width in f32 on the GPU (the kernels)
+    and on the CPU (their plain versions), same parameters: logits within
+    1e-3 and equal tokens;
+12. attention kernel, plain-version and ``scaled_dot_product_attention``
+    times at the main path's shapes.
 
-It then prints one JSON line per kernel, the card line, and last
+It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 JAX package ``repro``.
 """
@@ -42,6 +57,17 @@ SRC = ROOT / "src"
 #: f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+
+#: dense bf16 tensor-core FLOP/s of the same data sheet
+BF16_FLOP_PER_S = 989e12
+
+#: the dense members of launch/serve.py's default pool, and dispatch settings
+LLM_ARCHS = ("qwen2.5-3b", "llama3-8b")
+MAX_BATCH, MAX_SEQ, MAX_NEW = 8, 1280, 16
+#: prompt length -> the backend Algorithm 1 picks at δ = 10: in bucket 0
+#: qwen2.5-3b's capability 62.33 is within 10 of llama3-8b's capped 72.0;
+#: in bucket 1 llama3-8b's 72.86 is not
+ROUTES = {256: "qwen2.5-3b", 1024: "llama3-8b"}
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -98,19 +124,29 @@ def median_ms(fn, reps: int = 20, inner: int = 10) -> float:
 
 def device_ms(fn, kernel: str, reps: int = 10):
     """Device time per call of the kernel whose name contains ``kernel``,
-    from the profiler's trace of ``reps`` calls (None when the trace has
-    no such kernel)."""
+    from the profiler's trace of ``reps`` calls (None when the trace does
+    not hold one such kernel per call).  The calls run twice, a warm-up
+    step that the profiler traces and discards, then the traced step:
+    short traces on the H100 machine lost the first kernels of a window
+    (up to all five flash-attention calls of one)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if kernel in e.key]
-    return sum(us) / reps / 1e3 if us else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    if sum(e.count for e in events) != reps:
+        print(f"profiler: {sum(e.count for e in events)} {kernel!r} kernels "
+              f"in the trace of {reps} calls; device time not measured")
+        return None
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
 def synced(fn):
@@ -127,6 +163,350 @@ def bound_ms(n_px: int, bytes_per_px: int, ops_per_px: int):
     t_bytes = n_px * bytes_per_px / HBM_BYTES_PER_S * 1e3
     t_ops = n_px * ops_per_px / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_close(name: str, got, want) -> float:
+    """Max |got - want|; fails unless every element is within the JAX
+    kernel tests' bar (atol 2e-5 in f32 or 2e-2 in bf16, rtol 1e-2)."""
+    import torch
+    atol = 2e-2 if want.dtype == torch.bfloat16 else 2e-5
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= atol + 1e-2 * want.float().abs()).all()):
+        fail(f"{name}: kernel and plain version differ by up to "
+             f"{float(err.max())} (atol {atol}, rtol 1e-2)")
+    return float(err.max())
+
+
+def randn(shapes, dtype, seed, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        dev, dtype) for s in shapes]
+
+
+def attention_grids(dev) -> None:
+    """Phases 8 and 9: both attention kernels against their plain
+    versions over the JAX tests' grid and the shapes that grid misses."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+    dtypes = (torch.float32, torch.bfloat16)
+    t0 = time.perf_counter()
+    errs = {dt: 0.0 for dt in dtypes}
+    n = 0
+    # MQA, GQA, MHA d=128 (tests/test_kernels.py), then a ragged S and d=32
+    for shape in [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
+                  (2, 8, 2, 300, 128), (1, 4, 2, 37, 32)]:
+        b, h, kv, s, d = shape
+        for dt in dtypes:
+            q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                            dt, sum(shape), dev)
+            for kw in ({}, {"window": 64}, {"softcap": 30.0}):
+                errs[dt] = max(errs[dt], attention_close(
+                    f"flash {shape} {dt} {kw}", fl_ops.attention(q, k, v, **kw),
+                    fl_ref.mha_reference(q, k, v, **kw)))
+                n += 1
+    q, cache = randn([(2, 100, 8, 128), (2, 2, 160, 128)], torch.bfloat16, 1,
+                     dev)
+    got = fl_ops.attention(q.transpose(1, 2), cache[:, :, :100],
+                           cache[:, :, :100])
+    attention_close("flash on strided views", got, fl_ref.mha_reference(
+        q.transpose(1, 2), cache[:, :, :100], cache[:, :, :100]))
+    print(f"flash attention: kernel == plain version within tolerance on "
+          f"{n} cases + strided views; max err f32 {errs[dtypes[0]]:.3g}, "
+          f"bf16 {errs[dtypes[1]]:.3g}")
+    phase("8 flash attention kernel", t0)
+
+    t0 = time.perf_counter()
+    errs = {dt: 0.0 for dt in dtypes}
+    n = 0
+    rng = np.random.default_rng(3)
+    for shape in [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
+                  (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32)]:
+        b, h, kv, t, d = shape
+        for dt in dtypes:
+            q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], dt,
+                            sum(shape), dev)
+            for kw in ({}, {"window": 128}, {"softcap": 25.0}):
+                for lengths in (rng.integers(1, t + 1, b), np.ones(b),
+                                np.full(b, t)):
+                    lens = torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev)
+                    errs[dt] = max(errs[dt], attention_close(
+                        f"decode {shape} {dt} {kw} {lengths}",
+                        dec_ops.decode(q, k, v, lens, **kw),
+                        dec_ref.decode_reference(q, k, v, lens, **kw)))
+                    n += 1
+    print(f"flash decode: kernel == plain version within tolerance on {n} "
+          f"cases; max err f32 {errs[dtypes[0]]:.3g}, bf16 "
+          f"{errs[dtypes[1]]:.3g}")
+    phase("9 flash decode kernel", t0)
+
+
+def llm_service():
+    """Phase 10: the LLM face's main path at full width.  Returns the
+    attention launches of the counted run and the two backends."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PoolPolicy, RouteRequest
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.serving.engine import Backend
+    from repro_torch.serving.pool import ServingPool, synthetic_pool_table
+    from repro_torch.serving.service import EcoreService
+
+    t0 = time.perf_counter()
+    backends = {}
+
+    def factory(decision):
+        arch = decision.backend
+        if arch not in backends:
+            backends[arch] = Backend(arch, get_config(arch),
+                                     max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                                     seed=LLM_ARCHS.index(arch))
+        return backends[arch]
+
+    policy = PoolPolicy(ServingPool(synthetic_pool_table(LLM_ARCHS),
+                                    delta=10.0))
+    rng = np.random.default_rng(13)
+
+    def requests(uid0, lens, max_new):
+        return [RouteRequest(uid=uid0 + i, payload=rng.integers(0, 100_000, n),
+                             complexity=n, max_new_tokens=max_new)
+                for i, n in enumerate(lens)]
+
+    # warm-up (not counted): builds both backends, loads the kernels, warms
+    # cuBLAS and the allocator
+    with EcoreService(policy, factory) as svc:
+        svc.submit_batch(requests(1000, [256, 256, 1024, 1024], 2))
+    torch.cuda.synchronize()
+    print(f"built {sorted(backends)} at full width with seeded weights and "
+          f"warmed up in {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+
+    lens = [n for n in ROUTES for _ in range(MAX_BATCH)]
+    fl_ops.launches = 0
+    dec_ops.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with EcoreService(policy, factory) as svc:
+        futs = svc.submit_batch(requests(0, lens, MAX_NEW))
+        served = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"flash_attention": fl_ops.launches,
+                "decode_attention": dec_ops.launches}
+    print(f"LLM service: {len(served)} requests in {wall:.3f} s; launches "
+          f"{launches}")
+    for sv in served:
+        n = sv.request.complexity
+        tok = sv.result.tokens
+        if sv.decision.backend != ROUTES[n]:
+            fail(f"a {n}-token prompt went to {sv.decision.backend}")
+        vocab = get_config(sv.decision.backend).vocab_size
+        if tok.shape != (MAX_NEW,) or tok.min() < 0 or tok.max() >= vocab:
+            fail(f"request {sv.request.uid} returned tokens {tok}")
+    expect = {"flash_attention": sum(get_config(a).num_layers
+                                     for a in LLM_ARCHS)}
+    expect["decode_attention"] = expect["flash_attention"] * (MAX_NEW - 1)
+    if launches != expect:
+        fail(f"the service's attention launches {launches} are not one "
+             f"flash per layer per batch and one decode per layer per step "
+             f"({expect})")
+    for n, arch in ROUTES.items():
+        r = next(sv.result for sv in served if sv.decision.backend == arch)
+        print(f"  {arch}: batch {r.batch_size} x {n} tokens: prefill {r.prefill_s * 1e3:.2f} ms, decode "
+              f"{r.decode_s / (MAX_NEW - 1) * 1e3:.3f} ms per step, "
+              f"{r.batch_size * MAX_NEW / (r.prefill_s + r.decode_s):.0f} "
+              f"generated tokens/s")
+    phase("10 LLM service", t0)
+    return launches, backends
+
+
+def llm_profile(backends) -> None:
+    """Where one serve_batch's device time goes, per backend (outside the
+    counted run)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(17)
+    for n, arch in ROUTES.items():
+        reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
+                        max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                (res, *_), wall = synced(
+                    lambda: backends[arch].serve_batch(reqs))
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6
+            attn = sum(e.self_device_time_total for e in kernels
+                       if "flash_kernel" in e.key
+                       or "decode_kernel" in e.key) / 1e6
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+            per = {name: [(e.self_device_time_total / e.count / 1e3, e.count)
+                          for e in kernels if name in e.key]
+                   for name in ("flash_kernel", "decode_kernel")}
+            print(f"profile {arch} serve_batch ({wall * 1e3:.1f} ms under "
+                  f"the profiler; prefill {res.prefill_s * 1e3:.1f} ms, "
+                  f"decode {res.decode_s * 1e3:.1f} ms): "
+                  f"{sum(e.count for e in kernels)} device ops, per "
+                  f"attention launch (ms, count) {per}; device busy "
+                  f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, attention "
+                  f"kernels {attn * 1e3:.1f} ms = {attn / busy:.1%} of busy;"
+                  f" top: " + "; ".join(
+                      f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+                      f"x{e.count}" for e in top))
+        except Exception as exc:  # the profiler is untried on this machine
+            print(f"profile {arch}: not measured ({type(exc).__name__}: "
+                  f"{exc})")
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def llm_cuda_vs_cpu() -> None:
+    """Phase 11: a two-layer llama3-8b at full width in f32, on the GPU
+    through the kernels and on the CPU through their plain versions."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.models import decode_step, init_params, prefill
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                              activ_dtype="float32")
+    params = {"cuda": init_params(cfg, seed=7, device="cuda")}
+    params["cpu"] = to_device(params["cuda"], "cpu")
+    prompt = np.random.default_rng(19).integers(0, cfg.vocab_size, (2, 64))
+    logits, tokens = {}, {}
+    before = (fl_ops.launches, dec_ops.launches)
+    for dev, p in params.items():
+        lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
+                            max_seq=68)
+        outs, toks = [lg.cpu()], [lg.argmax(-1)]
+        for _ in range(3):
+            lg, cache = decode_step(p, cfg, toks[-1], cache)
+            outs.append(lg.cpu())
+            toks.append(lg.argmax(-1))
+        logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
+    if (fl_ops.launches - before[0], dec_ops.launches - before[1]) != (2, 6):
+        fail("the GPU run of the two-layer model did not go through the "
+             "attention kernels")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(logits["cuda"], logits["cpu"]))
+    print(f"llama3-8b, 2 layers, f32, batch 2, 64-token prompt, 4 new "
+          f"tokens: cuda vs cpu logits max err {err:.3g} (tolerance 1e-3); "
+          f"tokens {tokens['cuda'].tolist()} (cpu equal: "
+          f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
+    if err > 1e-3 or not torch.equal(tokens["cuda"], tokens["cpu"]):
+        fail("the two-layer llama3-8b differs between cuda and cpu")
+    phase("11 LLM cuda vs cpu", t0)
+
+
+def attention_timing(dev):
+    """Phase 12: both attention kernels at the main path's shapes.  Returns
+    the JSON fields of the llama3-8b shapes (the larger backend)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def bound(flops, nbytes):
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    for arch, shape in (("llama3-8b", (8, 32, 8, 1024, 128)),
+                        ("qwen2.5-3b", (8, 16, 2, 256, 128))):
+        b, h, kv, s, d = shape
+        q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
+                        23, dev)
+        err = attention_close(f"flash at {shape}", fl_ops.attention(q, k, v),
+                              fl_ref.mha_reference(q, k, v))
+        kern = median_ms(lambda: fl_ops.attention(q, k, v), reps=10, inner=5)
+        dk = device_ms(lambda: fl_ops.attention(q, k, v), "flash_kernel",
+                       reps=5)
+        plain = median_ms(lambda: fl_ref.mha_reference(q, k, v), reps=5,
+                          inner=2)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10, inner=5)
+        # causal: row i sees i + 1 columns; 4 flops per (row, col, d)
+        flops = 4 * b * h * d * s * (s + 1) // 2
+        bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * s * d))
+        print(f"time flash {arch} prefill {shape} bf16: kernel {kern:.4f} ms "
+              f"(device time {dk} ms), plain {plain:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP)")
+        rows.setdefault("flash_attention", (kern, plain, bnd, by, lib, err))
+
+    rng = np.random.default_rng(29)
+    for arch, shape, lo in (("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024),
+                            ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256)):
+        b, h, kv, t, d = shape
+        q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], bf16, 31,
+                        dev)
+        lens = torch.tensor(rng.integers(lo, lo + MAX_NEW + 1, b),
+                            dtype=torch.int32, device=dev)
+        err = attention_close(f"decode at {shape}",
+                              dec_ops.decode(q, k, v, lens),
+                              dec_ref.decode_reference(q, k, v, lens))
+        kern = median_ms(lambda: dec_ops.decode(q, k, v, lens), reps=10,
+                         inner=5)
+        dk = device_ms(lambda: dec_ops.decode(q, k, v, lens),
+                       "decode_kernel", reps=5)
+        # the same work against every layer's cache in turn, as the
+        # service reads it (this layer's K/V not left in L2 by the last call)
+        n_layers = get_config(arch).num_layers
+        caches = torch.empty((n_layers, 2) + k.shape, dtype=bf16, device=dev)
+        caches[:] = torch.stack([k, v])
+        layer = iter(range(10 ** 6))
+        dk_cold = device_ms(lambda: dec_ops.decode(
+            q, *caches[next(layer) % n_layers], lens), "decode_kernel",
+            reps=n_layers)
+        del caches
+        plain = median_ms(lambda: dec_ref.decode_reference(q, k, v, lens),
+                          reps=5, inner=2)
+        mask = (torch.arange(t, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps=10,
+            inner=5)
+        n_keys = int(lens.sum())
+        flops = 4 * h * d * n_keys
+        bnd, by = bound(flops, 2 * (2 * kv * d * n_keys + 2 * b * h * d)
+                        + 4 * b)
+        print(f"time decode {arch} {shape} bf16, lengths "
+              f"{lens.tolist()}: kernel {kern:.4f} ms (device time {dk} "
+              f"ms; {dk_cold} ms over {n_layers} layers' caches), plain {plain:.4f} ms, scaled_dot_product_attention "
+              f"{lib:.4f} ms, bound {bnd:.5f} ms ({by}: "
+              f"{(2 * kv * d * n_keys * 2) / 1e6:.1f} MB of K/V)")
+        rows.setdefault("decode_attention", (kern, plain, bnd, by, lib, err))
+    phase("12 attention timing", t0)
+    return rows
 
 
 def main() -> None:
@@ -365,6 +745,14 @@ def main() -> None:
              f"pixels, sobel {sobel_err}")
     phase("7 timing", t0)
 
+    attention_grids(dev)
+    llm_launches, backends = llm_service()
+    llm_profile(backends)
+    del backends
+    torch.cuda.empty_cache()
+    llm_cuda_vs_cpu()
+    attn_rows = attention_timing(dev)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
@@ -386,6 +774,15 @@ def main() -> None:
          "plain_ms": rows["sobel"][1], "bound_ms": rows["sobel"][2],
          "bound_by": rows["sobel"][3], "library_ms": None},
     ]
+    for name, line in (("flash_attention", 102), ("decode_attention", 92)):
+        kern, plain, bnd, by, lib, err = attn_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
+            "launches": llm_launches[name], "max_abs_err": err, "ms": kern,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,6 @@ from .router import (GreedyEstimateRouter, OracleRouter,  # noqa: F401
 from .closed_loop import (ScanDecisions, StreamMeasurements,  # noqa: F401
                           scan_stream)
 from .estimators import EdgeDetectionEstimator, OracleEstimator  # noqa: F401
-from .policy import (DetectionPolicy, Observation, RouteDecision,  # noqa: F401
-                     RouteRequest)
+from .policy import (DetectionPolicy, Observation, PoolPolicy,  # noqa: F401
+                     RouteDecision, RouteRequest)
 from .gateway import EpisodeStats, Gateway  # noqa: F401

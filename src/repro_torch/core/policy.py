@@ -14,10 +14,12 @@ first, second and fourth stages:
 
 A policy turns requests into decisions (``decide`` / ``decide_batch`` /
 ``decide_scan``) and folds observations back into its profile
-(``observe``).  ``DetectionPolicy`` is the detection face's: estimator +
-router + explore/adapt closed loop; ``EcoreService``
-(repro_torch.serving.service) dispatches over it.  The LLM face's
-``PoolPolicy`` waits for a later slice of the port.
+(``observe``).  Two implementations cover both faces:
+
+  * ``DetectionPolicy`` — estimator + router + explore/adapt closed loop
+  * ``PoolPolicy``      — ``ServingPool`` over profiled LLM backends
+
+``EcoreService`` (repro_torch.serving.service) dispatches over either.
 """
 from __future__ import annotations
 
@@ -323,3 +325,46 @@ class DetectionPolicy:
         if self.estimator is not None:
             self.estimator.reset()
         self.router.reset()
+
+
+class PoolPolicy:
+    """The LLM serving face behind the policy API: wraps a ``ServingPool``
+    (Algorithm 1 over prompt-length buckets).  ``decide_batch`` is the
+    tensorized one-call path; ``observe`` EWMA-folds measured serving
+    signals through ``ServingPool.observe``."""
+
+    batchable = True  # decisions depend only on prompt length
+
+    def __init__(self, pool, alpha: float = 0.1):
+        self.pool = pool
+        self.alpha = alpha
+
+    def _decision(self, req: RouteRequest, d) -> RouteDecision:
+        return RouteDecision(uid=req.uid, pair=(d.arch, d.device),
+                             group=d.bucket, time_ms=d.time_ms,
+                             energy_mwh=d.energy_mwh, score=d.score)
+
+    def decide(self, req: RouteRequest) -> RouteDecision:
+        return self._decision(req, self.pool.route(int(req.complexity)))
+
+    def decide_batch(self, reqs: Sequence[RouteRequest]
+                     ) -> List[RouteDecision]:
+        reqs = list(reqs)
+        if not reqs:
+            return []
+        pool_decisions = self.pool.route_batch(
+            [int(r.complexity) for r in reqs])
+        return [self._decision(r, d) for r, d in zip(reqs, pool_decisions)]
+
+    def observe(self, obs: Observation) -> None:
+        bucket = obs.group
+        if bucket is None and obs.true_complexity is not None:
+            # lazy: serving.pool imports the core package
+            from repro_torch.serving.pool import bucket_of
+            bucket = bucket_of(int(obs.true_complexity))
+        self.pool.observe(obs.pair[0], time_ms=obs.time_ms,
+                          energy_mwh=obs.energy_mwh, map_pct=obs.map_pct,
+                          bucket=bucket, alpha=self.alpha)
+
+    def reset(self) -> None:
+        pass

@@ -1,0 +1,5 @@
+"""The LLM face's models: the dense family so far."""
+from .base import ModelConfig  # noqa: F401
+from .kvcache import AttnCache, init_cache  # noqa: F401
+from .model import (decode_step, forward, init_params,  # noqa: F401
+                     params_from_jax, prefill)

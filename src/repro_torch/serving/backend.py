@@ -17,12 +17,16 @@ anything with:
 
 ``EcoreService`` dispatches over any of them through its per-pair
 ``DispatchQueue``s; a new workload implements this protocol (and registers
-a factory) instead of forking another serving loop.  ``DetectorBackend``
-is the detection fleet face: it runs a detector over a batch of frames on
-the GPU and charges the profiled edge-device cost (optionally through a
-``DriftingFleet``, using each request's ``uid`` as the fleet timestep) —
-registered as ``"detector"``.  The LLM backend and the fault-injection
-wrapper of ``repro.serving`` wait for a later slice of the port.
+a factory) instead of forking another serving loop.  Two faces ship here:
+
+  * the LLM ``engine.Backend`` (prefill + decode over a dense model
+    config) — registered as ``"llm"``
+  * ``DetectorBackend`` — the detection fleet face: runs a detector over a
+    batch of frames on the GPU and charges the profiled edge-device cost
+    (optionally through a ``DriftingFleet``, using each request's ``uid``
+    as the fleet timestep) — registered as ``"detector"``
+
+The fault-injection wrapper of ``repro.serving`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Protocol, runtime_checkable
 import numpy as np
 
 from repro_torch.device import resolve_device
-from repro_torch.serving.engine import Request, Result
+from repro_torch.serving.engine import Backend, Request, Result
 
 
 @runtime_checkable
@@ -86,6 +90,9 @@ def make_backend(kind: str, *args, **kwargs) -> ExecutionBackend:
         raise KeyError(f"unknown backend kind {kind!r}; registered: "
                        f"{backend_kinds()}") from None
     return ensure_backend(factory(*args, **kwargs))
+
+
+register_backend("llm", Backend)
 
 
 def null_run(params, images) -> List[tuple]:

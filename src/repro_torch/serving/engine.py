@@ -1,15 +1,18 @@
-"""Dispatch plane: the queued request, its result, and the per-backend
+"""Batched serving engine: the LLM ``Backend`` (prefill + greedy decode
+over a dense model), the queued request, its result, and the per-backend
 ``DispatchQueue`` that batches requests into ``serve_batch`` calls.
-
-The LLM ``Backend`` of ``repro.serving.engine`` waits for a later slice of
-the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import ModelConfig, decode_step, init_params, prefill
 
 
 @dataclasses.dataclass
@@ -37,13 +40,88 @@ class Result:
     energy_mwh: Optional[float] = None
 
 
+class Backend:
+    """One (model x device) pair exposing an inference API.
+
+    Implements the ``ExecutionBackend`` protocol (serving/backend.py);
+    registered under kind ``"llm"``.  The model runs on ``device`` (CUDA
+    unless the caller asks for the CPU); ``params`` default to seeded
+    random weights drawn there."""
+
+    def __init__(self, name: str, cfg: ModelConfig, params=None, *,
+                 max_batch: int = 8, max_seq: int = 256, seed: int = 0,
+                 device="cuda"):
+        self.name = name
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = params if params is not None else init_params(
+            cfg, seed, self.device)
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def serve_batch(self, requests: List[Request]) -> List[Result]:
+        """Greedy-decode a batch of requests (one batch at a time).
+
+        Prompts should share ONE length: shorter prompts are right-padded
+        and the first generated token comes from the batch-wide last
+        position (prefill only returns last-position logits), so mixed
+        lengths corrupt the shorter requests' outputs — ``DispatchQueue``
+        groups by length automatically.  The prompt and the generated
+        tokens must fit ``max_seq``."""
+        if not requests:
+            raise ValueError("serve_batch needs at least one request")
+        b = len(requests)
+        max_prompt = max(len(r.prompt) for r in requests)
+        max_new = max(r.max_new_tokens for r in requests)
+        if max_prompt + max(max_new, 1) - 1 > self.max_seq:
+            raise ValueError(
+                f"{max_prompt} prompt + {max_new} new tokens do not fit "
+                f"max_seq={self.max_seq}")
+        tokens = np.zeros((b, max_prompt), np.int64)
+        for i, r in enumerate(requests):  # right-padded
+            tokens[i, :len(r.prompt)] = (np.asarray(r.prompt, np.int64)
+                                         % self.cfg.vocab_size)
+        tokens = torch.from_numpy(tokens).to(self.device)
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(self.params, self.cfg, tokens,
+                                max_seq=self.max_seq)
+        next_tok = logits[:, -1:].argmax(dim=-1)
+        self._sync()
+        t1 = time.perf_counter()
+
+        out = [next_tok]
+        for _ in range(max_new - 1):
+            logits, cache = decode_step(self.params, self.cfg, next_tok,
+                                        cache)
+            next_tok = logits.argmax(dim=-1)
+            out.append(next_tok)
+        gen = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+        t2 = time.perf_counter()
+        return [Result(uid=r.uid, tokens=gen[i], prefill_s=t1 - t0,
+                       decode_s=t2 - t1, backend=self.name, batch_size=b)
+                for i, r in enumerate(requests)]
+
+    def profile_row(self) -> Dict[str, object]:
+        return {"kind": "llm", "model": self.name,
+                "num_layers": self.cfg.num_layers, "d_model": self.cfg.d_model,
+                "max_batch": self.max_batch, "max_seq": self.max_seq}
+
+
 class DispatchQueue:
     """Per-backend request queue with batched flush.
 
     Requests accumulate until ``backend.max_batch`` is reached, then go out
     batched.  Each flush makes one ``serve_batch`` call per distinct
-    payload LENGTH (``len`` of the payload: the frame height for the
-    detection face), so every call receives payloads it can stack.  The
+    payload LENGTH (``len`` of the payload: the prompt length for the LLM
+    face, the frame height for the detection face), so every call
+    receives payloads it can stack.  The
     JAX package's ``max_wait_ms`` deadline waits for the traffic plane's
     slice of the port."""
 
