@@ -31,12 +31,17 @@ Phases, each printed as it ends; any failure exits non-zero:
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
     backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
     of 1024, 16 new tokens each, with both attention kernels' launch
-    counts set to 0 just before and read just after;
+    counts set to 0 just before and read just after; then, outside that
+    run, where each backend's device time goes (profiler), and its decode
+    step per token with the decode kernel's cache split and in one piece;
 11. a two-layer llama3-8b at full width in f32 on the GPU (the kernels)
     and on the CPU (their plain versions), same parameters: logits within
     1e-3 and equal tokens;
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
-    times at the main path's shapes.
+    times at the main path's shapes, the decode kernel's split sizing
+    against one piece and against splits sized from the whole cache, and
+    both kernels against their plain versions computed in f32 (within
+    the bf16 rounding of the output, 2^-8 relative, plus 1e-4).
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -163,6 +168,18 @@ def bound_ms(n_px: int, bytes_per_px: int, ops_per_px: int):
     t_bytes = n_px * bytes_per_px / HBM_BYTES_PER_S * 1e3
     t_ops = n_px * ops_per_px / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_close_f32(name: str, got, want32) -> float:
+    """Max |got - want32| of a bf16 kernel output against the plain
+    version computed in f32; fails unless every element is within the
+    output's rounding to bf16 (2^-8 relative) plus 1e-4.  A kernel that
+    drops one K tile or one cache split misses it by far more."""
+    err = (got.float() - want32).abs()
+    if not bool((err <= 1e-4 + 2 ** -8 * want32.abs()).all()):
+        fail(f"{name}: kernel and f32 plain version differ by up to "
+             f"{float(err.max())} (bar 1e-4 + 2^-8 |want|)")
+    return float(err.max())
 
 
 def attention_close(name: str, got, want) -> float:
@@ -340,34 +357,55 @@ def llm_profile(backends) -> None:
     for n, arch in ROUTES.items():
         reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
                         max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            (res, *_), wall = synced(
+                lambda: backends[arch].serve_batch(reqs))
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        attn = sum(e.self_device_time_total for e in kernels
+                   if "flash_kernel" in e.key
+                   or "decode_kernel" in e.key) / 1e6
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        per = {name: [(e.self_device_time_total / e.count / 1e3, e.count)
+                      for e in kernels if name in e.key]
+               for name in ("flash_kernel", "decode_kernel")}
+        print(f"profile {arch} serve_batch ({wall * 1e3:.1f} ms under "
+              f"the profiler; prefill {res.prefill_s * 1e3:.1f} ms, "
+              f"decode {res.decode_s * 1e3:.1f} ms): "
+              f"{sum(e.count for e in kernels)} device ops, per "
+              f"attention launch (ms, count) {per}; device busy "
+              f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, attention "
+              f"kernels {attn * 1e3:.1f} ms = {attn / busy:.1%} of busy;"
+              f" top: " + "; ".join(
+                  f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+                  f"x{e.count}" for e in top))
+
+
+def decode_splits_ab(backends) -> None:
+    """The decode step per token of each backend with the decode kernel's
+    cache cut into splits (the wrapper's sizing) and in one piece per
+    (batch, KV head) (``BLOCKS_PER_SM = 0``), alternated one, split,
+    split, one (outside the counted run)."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(37)
+    default = dec_ops.BLOCKS_PER_SM
+    for n, arch in ROUTES.items():
+        reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
+                        max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
+        ms = {"one": [], "split": []}
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                (res, *_), wall = synced(
-                    lambda: backends[arch].serve_batch(reqs))
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in kernels) / 1e6
-            attn = sum(e.self_device_time_total for e in kernels
-                       if "flash_kernel" in e.key
-                       or "decode_kernel" in e.key) / 1e6
-            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-            per = {name: [(e.self_device_time_total / e.count / 1e3, e.count)
-                          for e in kernels if name in e.key]
-                   for name in ("flash_kernel", "decode_kernel")}
-            print(f"profile {arch} serve_batch ({wall * 1e3:.1f} ms under "
-                  f"the profiler; prefill {res.prefill_s * 1e3:.1f} ms, "
-                  f"decode {res.decode_s * 1e3:.1f} ms): "
-                  f"{sum(e.count for e in kernels)} device ops, per "
-                  f"attention launch (ms, count) {per}; device busy "
-                  f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, attention "
-                  f"kernels {attn * 1e3:.1f} ms = {attn / busy:.1%} of busy;"
-                  f" top: " + "; ".join(
-                      f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-                      f"x{e.count}" for e in top))
-        except Exception as exc:  # the profiler is untried on this machine
-            print(f"profile {arch}: not measured ({type(exc).__name__}: "
-                  f"{exc})")
+            for mode in ("one", "split", "split", "one"):
+                dec_ops.BLOCKS_PER_SM = default if mode == "split" else 0
+                res = backends[arch].serve_batch(reqs)[0]
+                ms[mode].append(res.decode_s / (MAX_NEW - 1) * 1e3)
+        finally:
+            dec_ops.BLOCKS_PER_SM = default
+        print(f"decode step per token, {arch} batch {MAX_BATCH} x {n}: "
+              f"split cache {ms['split']} ms, one piece {ms['one']} ms")
 
 
 def to_device(tree, dev):
@@ -445,8 +483,13 @@ def attention_timing(dev):
         b, h, kv, s, d = shape
         q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
                         23, dev)
-        err = attention_close(f"flash at {shape}", fl_ops.attention(q, k, v),
+        got = fl_ops.attention(q, k, v)
+        err = attention_close(f"flash at {shape}", got,
                               fl_ref.mha_reference(q, k, v))
+        err32 = attention_close_f32(f"flash at {shape}", got,
+                                    fl_ref.mha_reference(
+                                        q.float(), k.float(), v.float()))
+        del got
         kern = median_ms(lambda: fl_ops.attention(q, k, v), reps=10, inner=5)
         dk = device_ms(lambda: fl_ops.attention(q, k, v), "flash_kernel",
                        reps=5)
@@ -460,20 +503,28 @@ def attention_timing(dev):
         print(f"time flash {arch} prefill {shape} bf16: kernel {kern:.4f} ms "
               f"(device time {dk} ms), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP)")
+              f"{bnd:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP); max err "
+              f"{err:.3g} (bf16 plain), {err32:.3g} (f32 plain)")
         rows.setdefault("flash_attention", (kern, plain, bnd, by, lib, err))
 
     rng = np.random.default_rng(29)
     for arch, shape, lo in (("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024),
                             ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256)):
-        b, h, kv, t, d = shape
-        q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], bf16, 31,
-                        dev)
-        lens = torch.tensor(rng.integers(lo, lo + MAX_NEW + 1, b),
+        b, h, kv, t_max, d = shape
+        q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
+                          bf16, 31, dev)
+        # the main path's decode lengths (pos + 1 after a lo-token prompt),
+        # and its view of the cache: the first max(lengths) rows
+        lens = torch.tensor(rng.integers(lo + 1, lo + MAX_NEW, b),
                             dtype=torch.int32, device=dev)
-        err = attention_close(f"decode at {shape}",
-                              dec_ops.decode(q, k, v, lens),
+        t = int(lens.max())
+        k, v = ck[:, :, :t], cv[:, :, :t]
+        got = dec_ops.decode(q, k, v, lens)
+        err = attention_close(f"decode at {shape}", got,
                               dec_ref.decode_reference(q, k, v, lens))
+        want32 = dec_ref.decode_reference(q.float(), k.float(), v.float(),
+                                          lens)
+        err32 = attention_close_f32(f"decode at {shape}", got, want32)
         kern = median_ms(lambda: dec_ops.decode(q, k, v, lens), reps=10,
                          inner=5)
         dk = device_ms(lambda: dec_ops.decode(q, k, v, lens),
@@ -481,12 +532,30 @@ def attention_timing(dev):
         # the same work against every layer's cache in turn, as the
         # service reads it (this layer's K/V not left in L2 by the last call)
         n_layers = get_config(arch).num_layers
-        caches = torch.empty((n_layers, 2) + k.shape, dtype=bf16, device=dev)
-        caches[:] = torch.stack([k, v])
+        caches = torch.empty((n_layers, 2) + ck.shape, dtype=bf16, device=dev)
+        caches[:] = torch.stack([ck, cv])
         layer = iter(range(10 ** 6))
-        dk_cold = device_ms(lambda: dec_ops.decode(
-            q, *caches[next(layer) % n_layers], lens), "decode_kernel",
-            reps=n_layers)
+
+        def cold(rows):
+            def run():
+                kc, vc = caches[next(layer) % n_layers, :, :, :, :rows]
+                return dec_ops.decode(q, kc, vc, lens)
+            return run
+
+        dk_cold = device_ms(cold(t), "decode_kernel", reps=n_layers)
+        # the splits sized from the lengths, against one piece per (batch,
+        # KV head) and against splits sized from the whole cache
+        nsplit = dec_ops.splits(b, kv, t, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        default = dec_ops.BLOCKS_PER_SM
+        try:
+            dec_ops.BLOCKS_PER_SM = 0
+            attention_close_f32(f"decode at {shape} in one piece",
+                                dec_ops.decode(q, k, v, lens), want32)
+            dk_one = device_ms(cold(t), "decode_kernel", reps=n_layers)
+        finally:
+            dec_ops.BLOCKS_PER_SM = default
+        dk_full = device_ms(cold(t_max), "decode_kernel", reps=n_layers)
         del caches
         plain = median_ms(lambda: dec_ref.decode_reference(q, k, v, lens),
                           reps=5, inner=2)
@@ -499,11 +568,16 @@ def attention_timing(dev):
         flops = 4 * h * d * n_keys
         bnd, by = bound(flops, 2 * (2 * kv * d * n_keys + 2 * b * h * d)
                         + 4 * b)
-        print(f"time decode {arch} {shape} bf16, lengths "
-              f"{lens.tolist()}: kernel {kern:.4f} ms (device time {dk} "
-              f"ms; {dk_cold} ms over {n_layers} layers' caches), plain {plain:.4f} ms, scaled_dot_product_attention "
-              f"{lib:.4f} ms, bound {bnd:.5f} ms ({by}: "
-              f"{(2 * kv * d * n_keys * 2) / 1e6:.1f} MB of K/V)")
+        print(f"time decode {arch} {shape[:3]} bf16, the cache's first {t} "
+              f"of {t_max} rows, lengths {lens.tolist()}: kernel "
+              f"{kern:.4f} ms (device time {dk} ms; over {n_layers} "
+              f"layers' caches: {dk_cold} ms in {nsplit[0]} splits of "
+              f"{nsplit[1]} rows, {dk_one} ms in one piece, {dk_full} ms "
+              f"split from all {t_max} rows), plain {plain:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}: {(2 * kv * d * n_keys * 2) / 1e6:.1f} MB "
+              f"of K/V); max err {err:.3g} (bf16 plain), {err32:.3g} (f32 "
+              f"plain)")
         rows.setdefault("decode_attention", (kern, plain, bnd, by, lib, err))
     phase("12 attention timing", t0)
     return rows
@@ -666,24 +740,21 @@ def main() -> None:
           f"launch + copies {t_canny * 1e3:.2f} ms, host component count "
           f"{t_count * 1e3:.1f} ms, scan_stream {t_scan * 1e3:.1f} ms, "
           f"detector batches {t_det * 1e3:.1f} ms")
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, t_prof = synced(lambda: episode(True, scenes, "cuda"))
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"profiler (scanned episode, {t_prof:.3f} s under the "
-              f"profiler): device busy {busy_us / 1e3:.2f} ms = "
-              f"{busy_us / 1e6 / t_prof:.2%} of the wall time, "
-              f"{sum(e.count for e in kernels)} device ops; top: " + "; ".join(
-                  f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
-                  f"x{e.count}" for e in top))
-    except Exception as exc:  # the profiler is untried on this machine
-        print(f"profiler: not measured ({type(exc).__name__}: {exc})")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t_prof = synced(lambda: episode(True, scenes, "cuda"))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profiler (scanned episode, {t_prof:.3f} s under the "
+          f"profiler): device busy {busy_us / 1e3:.2f} ms = "
+          f"{busy_us / 1e6 / t_prof:.2%} of the wall time, "
+          f"{sum(e.count for e in kernels)} device ops; top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top))
     phase("5 gateway", t0)
 
     # 6 ------------------------------------ the same episode on cuda and cpu
@@ -748,6 +819,7 @@ def main() -> None:
     attention_grids(dev)
     llm_launches, backends = llm_service()
     llm_profile(backends)
+    decode_splits_ab(backends)
     del backends
     torch.cuda.empty_cache()
     llm_cuda_vs_cpu()

@@ -19,7 +19,8 @@
 // fill 132 SMs, so the cache is split along T into gridDim.y pieces: each
 // block leaves its partial (max, denom, acc) in a workspace and the last
 // block of its (batch, KV head) to finish merges them, found with a
-// threadfence and an atomic ticket (CUDA's threadFenceReduction sample).
+// threadfence and an atomic ticket (CUDA's threadFenceReduction sample),
+// and which sets the ticket back to 0, so the workspace is allocated once.
 // One launch, no second kernel.  The arithmetic is f32 on the CUDA cores,
 // from 64-row K/V tiles in shared memory (16-byte loads, one-word padding
 // against bank conflicts).
@@ -193,6 +194,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
                  static_cast<unsigned>(nsplit - 1);
   __syncthreads();
   if (!last_block) return;
+  if (tid == 0) tickets[bh] = 0u;  // ready for the next launch
 
   const float* all = part + static_cast<size_t>(bh) * nsplit * G * row;
 #pragma unroll
@@ -269,11 +271,12 @@ int dispatch(int d, int g, const void* q, const void* k, const void* v,
 
 // q [b, h, d], k and v [b, kv, t, d] (h / kv in {1, 2, 4, 8}), lengths
 // [b] int32, o [b, h, d] on the device, in f32 (bf16 == 0) or bf16
-// (bf16 == 1).  st[10] holds the element strides q (b, h), k (b, h, s), v (b, h, s), o (b, h); the last
-// dim is contiguous and rows are 16-byte aligned.  The cache is cut into
-// nsplit pieces of `chunk` rows; with nsplit > 1, part holds
-// b * kv * nsplit * (h / kv) * (d + 2) floats and tickets b * kv zeros.
-// window <= 0: none; cap <= 0: none.  Launches on `stream` and returns
+// (bf16 == 1).  st[10] holds the element strides of q (b, h), k (b, h, s),
+// v (b, h, s) and o (b, h); the last dim is contiguous and rows are 16-byte
+// aligned.  The cache is cut into nsplit pieces of `chunk` rows; with
+// nsplit > 1, part holds b * kv * nsplit * (h / kv) * (d + 2) floats and
+// tickets b * kv zeros, which the launch leaves at zero.  window <= 0:
+// none; cap <= 0: none.  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* lengths, void* o, int b, int h,

@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(NT)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int group,
                  int s_len, int t_len, Strides sq, Strides sk, Strides sv,
-                 Strides so, float scale, int causal, int window, float cap) {
+                 Strides so, float scale, int window, float cap) {
   constexpr int LQ = D + 1;   // padded row of the Q and K tiles
   constexpr int LP = BK + 1;  // padded row of the probability tile
   constexpr int DJ = D / 16;  // output columns per thread
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(NT)
 
   // the columns any row of this tile can see: causal stops at the tile's
   // last row, the window starts after row0 - window
-  const int col_end = causal ? min(t_len, row0 + BQ) : t_len;
+  const int col_end = min(t_len, row0 + BQ);
   const int col_begin = window > 0 ? max(0, row0 - window + 1) : 0;
   for (int col0 = (col_begin / BK) * BK; col0 < col_end; col0 += BK) {
     __syncthreads();  // the previous tile's readers are done
@@ -114,8 +114,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + tx + 16 * j;
-        bool ok = col < t_len;
-        if (causal) ok = ok && col <= row;
+        bool ok = col < t_len && col <= row;
         if (window > 0) ok = ok && col > row - window;
         const float x = repro_torch::apply_softcap(sc[i][j] * scale, cap);
         sc[i][j] = ok ? x : NEG_INF;
@@ -173,7 +172,7 @@ __global__ void __launch_bounds__(NT)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kv, int s, int t, const long long* st, float scale,
-           int causal, int window, float cap, cudaStream_t stream) {
+           int window, float cap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -185,25 +184,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const T*>(v), static_cast<T*>(o), h / kv, s, t,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, scale,
-      causal, window, cap);
+      window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
              int b, int h, int kv, int s, int t, const long long* st,
-             float scale, int causal, int window, float cap,
-             cudaStream_t stream) {
+             float scale, int window, float cap, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
-                           window, cap, stream);
+      return launch<T, 32>(q, k, v, o, b, h, kv, s, t, st, scale, window,
+                           cap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
-                           window, cap, stream);
+      return launch<T, 64>(q, k, v, o, b, h, kv, s, t, st, scale, window,
+                           cap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
-                            window, cap, stream);
+      return launch<T, 128>(q, k, v, o, b, h, kv, s, t, st, scale, window,
+                            cap, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -218,12 +216,12 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int h, int kv, int s, int t,
                                int d, const long long* st, float scale,
-                               int causal, int window, float cap, int bf16,
+                               int window, float cap, int bf16,
                                void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch<__nv_bfloat16>(d, q, k, v, o, b, h, kv, s, t, st, scale,
-                                   causal, window, cap, cs);
-  return dispatch<float>(d, q, k, v, o, b, h, kv, s, t, st, scale, causal,
-                         window, cap, cs);
+                                   window, cap, cs);
+  return dispatch<float>(d, q, k, v, o, b, h, kv, s, t, st, scale, window,
+                         cap, cs);
 }

@@ -1,5 +1,5 @@
 """Plain PyTorch single-token GQA decode attention over a KV cache: the
-JAX package's ``decode_reference``.
+JAX package's ``decode_reference`` at its default scale, D ** -0.5.
 
 q [B, H, D]; k, v [B, KV, T, D]; lengths [B] int32: row b attends to the
 cache positions < lengths[b] (and >= lengths[b] - window when windowed).
@@ -13,14 +13,12 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_reference(q, k, v, lengths, *, scale: Optional[float] = None,
-                     window: Optional[int] = None,
+def decode_reference(q, k, v, lengths, *, window: Optional[int] = None,
                      softcap: Optional[float] = None):
     b, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, kv, h // kv, d)
-    s = torch.einsum("bkgd,bktd->bkgt", qg.float(), k.float()) * scale
+    s = torch.einsum("bkgd,bktd->bkgt", qg.float(), k.float()) * d ** -0.5
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     cols = torch.arange(t, device=q.device)[None, :]

@@ -25,8 +25,8 @@ HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p)
 
 
 def check_rows(name: str, x: torch.Tensor) -> None:
@@ -39,7 +39,7 @@ def check_rows(name: str, x: torch.Tensor) -> None:
                          f"aligned rows; got strides {x.stride()}")
 
 
-def _launch(q, k, v, scale, causal, window, softcap):
+def _launch(q, k, v, window, softcap):
     global launches
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
@@ -67,7 +67,7 @@ def _launch(q, k, v, scale, causal, window, softcap):
     fn = _build.function("flash_attention", "flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
-                kv, s, t, d, strides, scale, int(causal),
+                kv, s, t, d, strides, d ** -0.5,
                 window if window is not None else 0,
                 softcap if softcap is not None else 0.0,
                 int(q.dtype == torch.bfloat16),
@@ -78,16 +78,14 @@ def _launch(q, k, v, scale, causal, window, softcap):
     return o
 
 
-def attention(q, k, v, *, scale=None, causal=True, window=None, softcap=None):
-    """q [B,H,S,D]; k, v [B,KV,T,D] -> [B,H,S,D] in q's dtype, on q's
-    device: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+def attention(q, k, v, *, window=None, softcap=None):
+    """Causal attention, scale D ** -0.5.  q [B,H,S,D]; k, v [B,KV,T,D] ->
+    [B,H,S,D] in q's dtype, on q's device: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None; got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None; got {softcap}")
     if q.device.type == "cpu":
-        return ref.mha_reference(q, k, v, scale=scale, causal=causal,
-                                 window=window, softcap=softcap)
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _launch(q, k, v, scale, causal, window, softcap)
+        return ref.mha_reference(q, k, v, window=window, softcap=softcap)
+    return _launch(q, k, v, window, softcap)

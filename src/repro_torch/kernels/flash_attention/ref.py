@@ -1,5 +1,6 @@
 """Plain PyTorch causal (optionally sliding-window, softcapped) GQA
-attention: the JAX package's ``mha_reference``.
+attention: the JAX package's ``mha_reference`` at its defaults (causal,
+scale D ** -0.5), which are all the model uses.
 
 Layout: q [B, H, S, D]; k, v [B, KV, T, D]; head h reads kv head
 h // (H / KV).  Scores, softmax and the value sum run in f32; the output
@@ -14,21 +15,18 @@ import torch
 NEG_INF = -1e30
 
 
-def mha_reference(q, k, v, *, scale: Optional[float] = None,
-                  causal: bool = True, window: Optional[int] = None,
+def mha_reference(q, k, v, *, window: Optional[int] = None,
                   softcap: Optional[float] = None):
     b, h, s, d = q.shape
     kv, t = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, kv, h // kv, s, d)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float()) * scale
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(),
+                          k.float()) * d ** -0.5
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     rows = torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(t, device=q.device)[None, :]
-    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= cols <= rows
+    ok = cols <= rows
     if window is not None:
         ok &= cols > rows - window
     scores = torch.where(ok, scores, NEG_INF)

@@ -10,8 +10,6 @@ and the sharded paths are not ported.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
@@ -60,8 +58,7 @@ def attention_forward(p, cfg: ModelConfig, x, positions, *, cache=None):
         cv[:, :, :s].copy_(v)
         k, v = ck[:, :, :s], cv[:, :, :s]
     out = flash_ops.attention(q.transpose(1, 2), k, v,
-                              scale=1.0 / math.sqrt(cfg.head_dim),
-                              causal=True, softcap=cfg.attn_softcap)
+                              softcap=cfg.attn_softcap)
     return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
@@ -74,7 +71,7 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, lengths):
     ck, cv = cache
     ck[:, :, pos].copy_(k[:, 0])
     cv[:, :, pos].copy_(v[:, 0])
-    out = decode_ops.decode(q[:, 0], ck, cv, lengths,
-                            scale=1.0 / math.sqrt(cfg.head_dim),
-                            softcap=cfg.attn_softcap)
+    # only the rows [0, pos]: the kernel sizes its splits from T
+    out = decode_ops.decode(q[:, 0], ck[:, :, :pos + 1], cv[:, :, :pos + 1],
+                            lengths, softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["wo"]

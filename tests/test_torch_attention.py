@@ -152,6 +152,8 @@ def test_decode_splits_cover_the_cache():
         nsplit, chunk = decode_ops.splits(b, kv, t, 132)
         assert chunk % decode_ops.BLOCK_K == 0
         assert (nsplit - 1) * chunk < t <= nsplit * chunk
+        # one wave: no more blocks than fit on the SMs at once
+        assert nsplit == 1 or b * kv * nsplit <= decode_ops.BLOCKS_PER_SM * 132
 
 
 def test_wrappers_reject_bad_options():

@@ -168,6 +168,29 @@ def test_init_params_is_seeded():
     assert float(wq[0].float().abs().max()) <= 2 / cfg.d_model ** 0.5 + 1e-3
 
 
+def test_decode_step_gives_the_kernel_only_the_filled_cache_rows(
+        monkeypatch):
+    """The decode kernel sizes its splits from T, so each layer passes the
+    cache's rows [0, pos] (a view), with lengths pos + 1."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    cfg = get_config("qwen2.5-3b").reduced(num_layers=2)
+    params = init_params(cfg, seed=0, device="cpu")
+    _, cache = prefill(params, cfg, torch.zeros((2, 5), dtype=torch.long),
+                       max_seq=16)
+    seen, decode = [], decode_ops.decode
+
+    def spy(q, k, v, lengths, **kw):
+        seen.append((k.shape[2], v.shape[2], lengths.tolist(),
+                     k.data_ptr() == cache["blocks"]["s0"].k.data_ptr()))
+        return decode(q, k, v, lengths, **kw)
+    monkeypatch.setattr(decode_ops, "decode", spy)
+    for _ in range(2):
+        _, cache = decode_step(params, cfg, torch.zeros((2, 1),
+                                                        dtype=torch.long),
+                               cache)
+    assert seen == [(t, t, [t, t], i == 0) for t in (6, 7) for i in (0, 1)]
+
+
 # ------------------------------------------------------------- backend
 
 def _backends(arch, seed=0, **kw):
