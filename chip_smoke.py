@@ -41,7 +41,26 @@ Phases, each printed as it ends; any failure exits non-zero:
     times at the main path's shapes, the decode kernel's split sizing
     against one piece and against splits sized from the whole cache, and
     both kernels against their plain versions computed in f32 (within
-    the bf16 rounding of the output, 2^-8 relative, plus 1e-4).
+    the bf16 rounding of the output, 2^-8 relative, plus 1e-4);
+13. the SSD scan kernel against its plain version: at the JAX tests'
+    shapes and chunks and a ragged S, y and the final state within atol
+    2e-4, rtol 1e-3; at mamba2-370m's (8, 500, 32, 64, 128), chunk 256,
+    the f32 kernel and the f32 plain version against the plain version in
+    f64 (the kernel's error at most twice the plain version's own), and
+    the bf16 kernel within one bf16 ulp of the f32 plain version plus
+    that f32 bar;
+14. the LLM face's main path with the ssm family: ``EcoreService`` over
+    ``PoolPolicy(ServingPool(δ=18.5))`` with qwen2.5-3b, llama3-8b and
+    mamba2-370m backends at full width, 8 requests of 500 tokens (to
+    mamba2-370m) and 8 of 1024 (to qwen2.5-3b), 16 new tokens each, with
+    all three LLM kernels' launch counts set to 0 just before and read
+    just after (one SSD launch per layer per mamba2 batch); then, outside
+    that run, where each backend's device time goes (profiler);
+15. a two-layer mamba2-370m at full width in f32 on the GPU and on the
+    CPU, same parameters, a 500-token prompt: logits within 1e-3 and equal
+    tokens;
+16. SSD kernel and plain-version times at mamba2-370m's prefill shape
+    against the kernel's bound (no PyTorch call computes the scan).
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -73,6 +92,15 @@ MAX_BATCH, MAX_SEQ, MAX_NEW = 8, 1280, 16
 #: qwen2.5-3b's capability 62.33 is within 10 of llama3-8b's capped 72.0;
 #: in bucket 1 llama3-8b's 72.86 is not
 ROUTES = {256: "qwen2.5-3b", 1024: "llama3-8b"}
+#: the default pool up to its first unported member, and the routes at
+#: δ = 18.5: mamba2-370m's 54.0 is within δ of bucket 0's 72.0, not of
+#: bucket 1's 72.86, where qwen2.5-3b is the cheapest within δ
+SSM_ARCHS = LLM_ARCHS + ("mamba2-370m",)
+SSM_DELTA = 18.5
+SSM_ROUTES = {500: "mamba2-370m", 1024: "qwen2.5-3b"}
+#: the SSD scan at mamba2-370m's prefill: (batch, S, heads, head dim,
+#: state) and its chunk
+SSD_SHAPE, SSD_CHUNK = (MAX_BATCH, 500, 32, 64, 128), 256
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -133,25 +161,29 @@ def device_ms(fn, kernel: str, reps: int = 10):
     not hold one such kernel per call).  The calls run twice, a warm-up
     step that the profiler traces and discards, then the traced step:
     short traces on the H100 machine lost the first kernels of a window
-    (up to all five flash-attention calls of one)."""
+    (up to all five flash-attention calls of one); a trace that still
+    lost some is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    if sum(e.count for e in events) != reps:
-        print(f"profiler: {sum(e.count for e in events)} {kernel!r} kernels "
-              f"in the trace of {reps} calls; device time not measured")
-        return None
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    for _ in range(3):  # a trace that lost kernels is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        found = sum(e.count for e in events)
+        if found == reps:
+            return sum(e.self_device_time_total for e in events) / reps / 1e3
+        print(f"profiler: {found} {kernel!r} kernels in the trace of {reps} "
+              f"calls")
+    print("device time not measured")
+    return None
 
 
 def synced(fn):
@@ -264,15 +296,15 @@ def attention_grids(dev) -> None:
     phase("9 flash decode kernel", t0)
 
 
-def llm_service():
-    """Phase 10: the LLM face's main path at full width.  Returns the
-    attention launches of the counted run and the two backends."""
+def llm_service(archs, delta, routes, name):
+    """Phases 10 and 14: the LLM face's main path at full width, over a
+    pool of ``archs`` at ``delta``, 8 prompts of each length in ``routes``.
+    Returns the LLM kernels' launches of the counted run and the
+    backends."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PoolPolicy, RouteRequest
-    from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.serving.engine import Backend
     from repro_torch.serving.pool import ServingPool, synthetic_pool_table
     from repro_torch.serving.service import EcoreService
@@ -285,11 +317,11 @@ def llm_service():
         if arch not in backends:
             backends[arch] = Backend(arch, get_config(arch),
                                      max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-                                     seed=LLM_ARCHS.index(arch))
+                                     seed=archs.index(arch))
         return backends[arch]
 
-    policy = PoolPolicy(ServingPool(synthetic_pool_table(LLM_ARCHS),
-                                    delta=10.0))
+    policy = PoolPolicy(ServingPool(synthetic_pool_table(archs),
+                                    delta=delta))
     rng = np.random.default_rng(13)
 
     def requests(uid0, lens, max_new):
@@ -297,18 +329,19 @@ def llm_service():
                              complexity=n, max_new_tokens=max_new)
                 for i, n in enumerate(lens)]
 
-    # warm-up (not counted): builds both backends, loads the kernels, warms
+    # warm-up (not counted): builds the backends, loads the kernels, warms
     # cuBLAS and the allocator
     with EcoreService(policy, factory) as svc:
-        svc.submit_batch(requests(1000, [256, 256, 1024, 1024], 2))
+        svc.submit_batch(requests(1000, [n for n in routes for _ in "ab"], 2))
     torch.cuda.synchronize()
     print(f"built {sorted(backends)} at full width with seeded weights and "
           f"warmed up in {time.perf_counter() - t0:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
-    lens = [n for n in ROUTES for _ in range(MAX_BATCH)]
-    fl_ops.launches = 0
-    dec_ops.launches = 0
+    lens = [n for n in routes for _ in range(MAX_BATCH)]
+    kernel_ops = llm_kernel_ops()
+    for ops in kernel_ops.values():
+        ops.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with EcoreService(policy, factory) as svc:
@@ -316,36 +349,51 @@ def llm_service():
         served = [f.result() for f in futs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = {"flash_attention": fl_ops.launches,
-                "decode_attention": dec_ops.launches}
-    print(f"LLM service: {len(served)} requests in {wall:.3f} s; launches "
-          f"{launches}")
+    launches = {k: ops.launches for k, ops in kernel_ops.items()}
+    print(f"LLM service at δ = {delta}: {len(served)} requests in "
+          f"{wall:.3f} s; launches {launches}")
     for sv in served:
         n = sv.request.complexity
         tok = sv.result.tokens
-        if sv.decision.backend != ROUTES[n]:
+        if sv.decision.backend != routes[n]:
             fail(f"a {n}-token prompt went to {sv.decision.backend}")
         vocab = get_config(sv.decision.backend).vocab_size
         if tok.shape != (MAX_NEW,) or tok.min() < 0 or tok.max() >= vocab:
             fail(f"request {sv.request.uid} returned tokens {tok}")
-    expect = {"flash_attention": sum(get_config(a).num_layers
-                                     for a in LLM_ARCHS)}
-    expect["decode_attention"] = expect["flash_attention"] * (MAX_NEW - 1)
+    # one serve_batch per backend: one flash launch per attention layer and
+    # one decode launch per attention layer per step, one SSD launch per
+    # Mamba-2 layer
+    layers = {fam: sum(get_config(a).num_layers for a in routes.values()
+                       if get_config(a).family == fam)
+              for fam in ("dense", "ssm")}
+    expect = {"flash_attention": layers["dense"],
+              "decode_attention": layers["dense"] * (MAX_NEW - 1),
+              "ssd_scan": layers["ssm"]}
     if launches != expect:
-        fail(f"the service's attention launches {launches} are not one "
-             f"flash per layer per batch and one decode per layer per step "
+        fail(f"the service's kernel launches {launches} are not one flash "
+             f"per attention layer per batch, one decode per attention "
+             f"layer per step and one SSD scan per Mamba-2 layer per batch "
              f"({expect})")
-    for n, arch in ROUTES.items():
+    for n, arch in routes.items():
         r = next(sv.result for sv in served if sv.decision.backend == arch)
         print(f"  {arch}: batch {r.batch_size} x {n} tokens: prefill {r.prefill_s * 1e3:.2f} ms, decode "
               f"{r.decode_s / (MAX_NEW - 1) * 1e3:.3f} ms per step, "
               f"{r.batch_size * MAX_NEW / (r.prefill_s + r.decode_s):.0f} "
               f"generated tokens/s")
-    phase("10 LLM service", t0)
+    phase(name, t0)
     return launches, backends
 
 
-def llm_profile(backends) -> None:
+def llm_kernel_ops():
+    """The LLM face's kernel wrappers by kernel name."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"flash_attention": fl_ops, "decode_attention": dec_ops,
+            "ssd_scan": ssd_ops}
+
+
+def llm_profile(backends, routes) -> None:
     """Where one serve_batch's device time goes, per backend (outside the
     counted run)."""
     import numpy as np
@@ -354,7 +402,8 @@ def llm_profile(backends) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(17)
-    for n, arch in ROUTES.items():
+    names = ("flash_kernel", "decode_kernel", "ssd_kernel")
+    for n, arch in routes.items():
         reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
                         max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
         with profile(activities=[ProfilerActivity.CPU,
@@ -364,20 +413,19 @@ def llm_profile(backends) -> None:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        attn = sum(e.self_device_time_total for e in kernels
-                   if "flash_kernel" in e.key
-                   or "decode_kernel" in e.key) / 1e6
+        ours = sum(e.self_device_time_total for e in kernels
+                   if any(k in e.key for k in names)) / 1e6
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
         per = {name: [(e.self_device_time_total / e.count / 1e3, e.count)
                       for e in kernels if name in e.key]
-               for name in ("flash_kernel", "decode_kernel")}
+               for name in names}
         print(f"profile {arch} serve_batch ({wall * 1e3:.1f} ms under "
               f"the profiler; prefill {res.prefill_s * 1e3:.1f} ms, "
               f"decode {res.decode_s * 1e3:.1f} ms): "
               f"{sum(e.count for e in kernels)} device ops, per "
-              f"attention launch (ms, count) {per}; device busy "
-              f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, attention "
-              f"kernels {attn * 1e3:.1f} ms = {attn / busy:.1%} of busy;"
+              f"kernel launch (ms, count) {per}; device busy "
+              f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, the port's "
+              f"kernels {ours * 1e3:.1f} ms = {ours / busy:.1%} of busy;"
               f" top: " + "; ".join(
                   f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
                   f"x{e.count}" for e in top))
@@ -416,45 +464,51 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def llm_cuda_vs_cpu() -> None:
-    """Phase 11: a two-layer llama3-8b at full width in f32, on the GPU
-    through the kernels and on the CPU through their plain versions."""
+def llm_cuda_vs_cpu(arch, prompt_len, name) -> None:
+    """Phases 11 and 15: ``arch`` cut to two layers at full width in f32,
+    on the GPU through the kernels and on the CPU through their plain
+    versions, a batch of 2 prompts of ``prompt_len`` tokens and 4 new
+    tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.models import decode_step, init_params, prefill
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               activ_dtype="float32")
     params = {"cuda": init_params(cfg, seed=7, device="cuda")}
     params["cpu"] = to_device(params["cuda"], "cpu")
-    prompt = np.random.default_rng(19).integers(0, cfg.vocab_size, (2, 64))
+    prompt = np.random.default_rng(19).integers(0, cfg.vocab_size,
+                                                (2, prompt_len))
     logits, tokens = {}, {}
-    before = (fl_ops.launches, dec_ops.launches)
+    kernel_ops = llm_kernel_ops()
+    before = {k: ops.launches for k, ops in kernel_ops.items()}
     for dev, p in params.items():
         lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
-                            max_seq=68)
+                            max_seq=prompt_len + 4)
         outs, toks = [lg.cpu()], [lg.argmax(-1)]
         for _ in range(3):
             lg, cache = decode_step(p, cfg, toks[-1], cache)
             outs.append(lg.cpu())
             toks.append(lg.argmax(-1))
         logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
-    if (fl_ops.launches - before[0], dec_ops.launches - before[1]) != (2, 6):
-        fail("the GPU run of the two-layer model did not go through the "
-             "attention kernels")
+    ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
+    want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2}
+            if cfg.family == "ssm" else
+            {"flash_attention": 2, "decode_attention": 6, "ssd_scan": 0})
+    if ran != want:
+        fail(f"the GPU run of the two-layer model launched {ran}, not "
+             f"{want}")
     err = max(float((a - b).abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
-    print(f"llama3-8b, 2 layers, f32, batch 2, 64-token prompt, 4 new "
-          f"tokens: cuda vs cpu logits max err {err:.3g} (tolerance 1e-3); "
-          f"tokens {tokens['cuda'].tolist()} (cpu equal: "
+    print(f"{arch}, 2 layers, f32, batch 2, {prompt_len}-token prompt, 4 "
+          f"new tokens: cuda vs cpu logits max err {err:.3g} (tolerance "
+          f"1e-3); tokens {tokens['cuda'].tolist()} (cpu equal: "
           f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
     if err > 1e-3 or not torch.equal(tokens["cuda"], tokens["cpu"]):
-        fail("the two-layer llama3-8b differs between cuda and cpu")
-    phase("11 LLM cuda vs cpu", t0)
+        fail(f"the two-layer {arch} differs between cuda and cpu")
+    phase(name, t0)
 
 
 def attention_timing(dev):
@@ -581,6 +635,151 @@ def attention_timing(dev):
         rows.setdefault("decode_attention", (kern, plain, bnd, by, lib, err))
     phase("12 attention timing", t0)
     return rows
+
+
+def ssd_inputs(shape, seed, dev, dtype, mamba_decays=True):
+    """x, dt, A, B, C, D of the SSD scan at ``shape`` (b, s, h, p, n).  x,
+    B and C are column views of one [b, s, h*p + 2n] tensor in ``dtype``,
+    as the Mamba-2 block passes its conv output; dt = softplus(normal) in
+    f32; A = -linspace(1, 16, h), mamba2-370m's A_log init (a_cum then
+    reaches thousands within a 256-row chunk), or -exp(normal) as in the
+    JAX tests; D normal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    b, s, h, p, n = shape
+    rng = np.random.default_rng(seed)
+
+    def normal(*size):
+        return torch.from_numpy(rng.standard_normal(size, np.float32)).to(dev)
+
+    xbc = normal(b, s, h * p + 2 * n).to(dtype)
+    dt = F.softplus(normal(b, s, h))
+    A = (-torch.linspace(1.0, 16.0, h, device=dev) if mamba_decays
+         else -torch.exp(normal(h)))
+    return (xbc[..., :h * p].reshape(b, s, h, p), dt, A,
+            xbc[..., h * p:h * p + n], xbc[..., h * p + n:], normal(h))
+
+
+def ssd_check(dev):
+    """Phase 13: the SSD kernel against its plain version.  Returns the
+    bf16 kernel's max error at mamba2-370m's shape against the f32 plain
+    version rounded to bf16."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    t0 = time.perf_counter()
+    worst = 0.0
+    cases = [((1, 32, 2, 8, 4), 8), ((1, 32, 2, 8, 4), 16),
+             ((2, 64, 4, 16, 8), 8), ((2, 64, 4, 16, 8), 16),
+             ((2, 37, 3, 8, 4), 16), ((2, 37, 3, 8, 4), 256),
+             ((2, 250, 3, 16, 16), 100)]
+    for i, (shape, chunk) in enumerate(cases):
+        args = ssd_inputs(shape, 50 + i, dev, torch.float32,
+                          mamba_decays=False)
+        got = ssd_ops.ssd(*args, chunk=chunk, return_final_state=True)
+        want = ssd_ref.ssd_chunked(*args, chunk=chunk,
+                                   return_final_state=True)
+        for what, g, w in zip(("y", "final state"), got, want):
+            err = (g - w).abs()
+            if not bool((err <= 2e-4 + 1e-3 * w.abs()).all()):
+                fail(f"ssd {shape} chunk {chunk}: the kernel's {what} "
+                     f"differs from the plain version's by up to "
+                     f"{float(err.max())} (atol 2e-4, rtol 1e-3)")
+            worst = max(worst, float(err.max()))
+    print(f"ssd scan: kernel == plain version on {len(cases)} f32 cases "
+          f"(the JAX tests' shapes and chunks, a ragged S, a chunk of "
+          f"100 rows; y and final "
+          f"state within atol 2e-4, rtol 1e-3): max err {worst:.3g}")
+
+    def max_err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    args = ssd_inputs(SSD_SHAPE, 41, dev, torch.float32)
+    y, st = ssd_ops.ssd(*args, chunk=SSD_CHUNK, return_final_state=True)
+    y32, st32 = ssd_ref.ssd_chunked(*args, chunk=SSD_CHUNK,
+                                    return_final_state=True)
+    y64, st64 = ssd_ref.ssd_chunked(*(a.double() for a in args),
+                                    chunk=SSD_CHUNK, return_final_state=True)
+    for what, got, plain, ref in (("y", y, y32, y64),
+                                  ("final state", st, st32, st64)):
+        own, err = max_err(plain, ref), max_err(got, ref)
+        print(f"ssd {SSD_SHAPE} chunk {SSD_CHUNK} f32 {what}, against the "
+              f"plain version in f64: kernel max err {err:.4g}, bar 2 x "
+              f"the f32 plain version's {own:.4g} (max |{what}| "
+              f"{float(ref.abs().max()):.4g})")
+        if err > 2 * own:
+            fail(f"ssd at {SSD_SHAPE}: the f32 kernel's {what} misses its "
+                 f"bar")
+    del y, st, y32, st32, y64, st64
+
+    args = ssd_inputs(SSD_SHAPE, 41, dev, torch.bfloat16)
+    y16 = ssd_ops.ssd(*args, chunk=SSD_CHUNK)
+    f32 = [a.float() for a in args]
+    want = ssd_ref.ssd_chunked(*f32, chunk=SSD_CHUNK)
+    bar32 = 2 * max_err(want, ssd_ref.ssd_chunked(
+        *(a.double() for a in f32), chunk=SSD_CHUNK))
+    _, e = torch.frexp(want.abs())
+    ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
+                                                  e - 8))
+    err = (y16.float() - want.bfloat16().float()).abs()
+    used = float((err / (ulp + bar32)).max())
+    plain16 = max_err(y16, ssd_ref.ssd_chunked(*args, chunk=SSD_CHUNK))
+    print(f"ssd {SSD_SHAPE} chunk {SSD_CHUNK} bf16 y, against the f32 "
+          f"plain version rounded to bf16: max err {float(err.max()):.4g}, "
+          f"bar one bf16 ulp of |want| + {bar32:.4g} (the largest share "
+          f"of its bar an element takes: {used:.3g}); against the bf16 "
+          f"plain version: {plain16:.4g}")
+    if not bool((err <= ulp + bar32).all()):
+        fail(f"ssd at {SSD_SHAPE}: the bf16 kernel misses its bar")
+    phase("13 SSD kernel", t0)
+    return float(err.max())
+
+
+def ssd_timing(dev):
+    """Phase 16: the SSD kernel at mamba2-370m's prefill shape, bf16, on
+    column views of one conv output, with the final state.  Returns its
+    JSON fields (without the launches and the error)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    t0 = time.perf_counter()
+    b, s, h, p, n = SSD_SHAPE
+    args = ssd_inputs(SSD_SHAPE, 43, dev, torch.bfloat16)
+
+    def kernel():
+        return ssd_ops.ssd(*args, chunk=SSD_CHUNK, return_final_state=True)
+
+    kern = median_ms(kernel, reps=10, inner=5)
+    dk = device_ms(kernel, "ssd_kernel", reps=5)
+    plain = median_ms(lambda: ssd_ref.ssd_chunked(
+        *args, chunk=SSD_CHUNK, return_final_state=True), reps=5, inner=2)
+    # bytes: x, B, C read and y written in bf16, dt read and the final
+    # state written in f32, A and D read in f32
+    nbytes = 2 * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h \
+        + 4 * b * h * p * n + 8 * h
+    # operations this input needs: per (batch, chunk) the C B^T scores on
+    # and below the diagonal; per head the decayed scores times x dt, the
+    # carried state's term for chunks after the first, and the state
+    # update over every row
+    q = min(SSD_CHUNK, s)
+    rows = [min(q, s - c0) for c0 in range(0, s, q)]
+    tri = sum(r * (r + 1) // 2 for r in rows)
+    flops = 2 * b * (tri * n + h * tri * p + h * (s - rows[0]) * p * n
+                     + h * s * p * n)
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    print(f"time ssd {SSD_SHAPE} chunk {SSD_CHUNK} bf16 on the conv "
+          f"output's column views, with the final state: kernel {kern:.4f} "
+          f"ms (device time {dk} ms), plain {plain:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by}: {nbytes / 1e6:.1f} MB, {t_bytes:.5f} ms; "
+          f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
+          f"{t_ops:.5f} ms); library: none (no PyTorch call computes the "
+          f"SSD scan)")
+    phase("16 SSD timing", t0)
+    return kern, plain, bnd, by
 
 
 def main() -> None:
@@ -817,13 +1016,23 @@ def main() -> None:
     phase("7 timing", t0)
 
     attention_grids(dev)
-    llm_launches, backends = llm_service()
-    llm_profile(backends)
+    llm_launches, backends = llm_service(LLM_ARCHS, 10.0, ROUTES,
+                                         "10 LLM service")
+    llm_profile(backends, ROUTES)
     decode_splits_ab(backends)
     del backends
     torch.cuda.empty_cache()
-    llm_cuda_vs_cpu()
+    llm_cuda_vs_cpu("llama3-8b", 64, "11 LLM cuda vs cpu")
     attn_rows = attention_timing(dev)
+
+    ssd_err = ssd_check(dev)
+    ssm_launches, backends = llm_service(SSM_ARCHS, SSM_DELTA, SSM_ROUTES,
+                                         "14 LLM service with mamba2")
+    llm_profile(backends, SSM_ROUTES)
+    del backends
+    torch.cuda.empty_cache()
+    llm_cuda_vs_cpu("mamba2-370m", 500, "15 mamba2 cuda vs cpu")
+    ssd_row = ssd_timing(dev)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -855,6 +1064,14 @@ def main() -> None:
             "launches": llm_launches[name], "max_abs_err": err, "ms": kern,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
+    kern, plain, bnd, by = ssd_row
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:78",
+        "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from repro_torch.models.base import ModelConfig
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "llama3-8b": "llama3_8b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 

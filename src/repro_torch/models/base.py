@@ -2,8 +2,9 @@
 
 One dataclass covers every family of ``repro.models`` and keeps all its
 fields, so a config compares field for field with the reference.  The port
-runs the ``dense`` family with the ``("attn",)`` layout so far
-(``models/model.py`` raises for the rest).
+runs the ``dense`` family with the ``("attn",)`` layout and the ``ssm``
+family with the ``("ssm",)`` layout so far (``models/model.py`` raises for
+the rest).
 """
 from __future__ import annotations
 
@@ -114,6 +115,14 @@ class ModelConfig:
     @property
     def adtype(self) -> torch.dtype:
         return getattr(torch, self.activ_dtype)
+
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     @property
     def is_subquadratic(self) -> bool:

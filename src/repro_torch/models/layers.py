@@ -1,5 +1,5 @@
-"""Shared layer primitives of the dense family: norms, the SwiGLU MLP,
-embeddings and RoPE.
+"""Shared layer primitives: norms, SiLU, the SwiGLU MLP, embeddings and
+RoPE.
 
 ``init_*`` builds a parameter sub-tree (a dict of tensors), the apply
 functions take (params, x).  Matrices are stored in the activation dtype:
@@ -26,14 +26,25 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
     return w.mul_(std).to(dtype)
 
 
-def rms_norm(x, weight, eps: float = 1e-6):
-    """RMS norm in f32 with the weight stored as (w - 1), the convention
-    every layer of the JAX models uses (``plus_one=True``)."""
+def rms_norm(x, weight, eps: float = 1e-6, *, plus_one: bool = True):
+    """RMS norm in f32.  ``plus_one``: the weight is stored as (w - 1), the
+    convention of the JAX models' residual norms; the Mamba-2 block's gated
+    norm takes the weight as it is (``plus_one=False``)."""
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * (weight.float() + 1.0)).to(dtype)
+    w = weight.float()
+    if plus_one:
+        w = w + 1.0
+    return (x * w).to(dtype)
+
+
+def silu(x):
+    """x / (1 + exp(-x)) with each op rounded to x's dtype: the JAX
+    package's ``jax.nn.silu`` in bf16 rounds there too, where ``F.silu``
+    would round once."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
 
 
 def softcap(x, cap: Optional[float]):
@@ -56,12 +67,8 @@ def init_mlp(gen, d_model: int, d_ff: int, variant: str, dtype, device=None):
 def apply_mlp(params, x, variant: str):
     if variant != "swiglu":
         raise ValueError(f"mlp variant {variant!r} is not ported yet")
-    gate = x @ params["w_gate"]
-    # silu as x / (1 + exp(-x)), each op rounded to the activation dtype:
-    # the JAX package's jax.nn.silu in bf16 rounds there too, where
-    # F.silu would round once
-    act = gate * torch.reciprocal(1.0 + torch.exp(-gate))
-    return (act * (x @ params["w_up"])) @ params["w_down"]
+    act = silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return act @ params["w_down"]
 
 
 # ---------------------------------------------------------------- embeddings

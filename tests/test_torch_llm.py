@@ -1,6 +1,6 @@
-"""The port's LLM serving face (dense family) against the JAX package's, on
-the CPU: configs, the model (forward, prefill, decode), ``Backend``,
-``ServingPool``/``PoolPolicy`` and ``EcoreService``.
+"""The port's LLM serving face (dense and ssm families) against the JAX
+package's, on the CPU: configs, the model (forward, prefill, decode),
+``Backend``, ``ServingPool``/``PoolPolicy`` and ``EcoreService``.
 
 Both packages run the same parameters: the JAX ``init_params`` tree
 (norms and biases perturbed so that they count), carried across with
@@ -10,7 +10,9 @@ the JAX model's chunked attention rounds the normalized probabilities to
 bf16 before the value product, the flash kernels and their plain versions
 keep them in f32.  Over two layers that moves a few logits (magnitude up
 to ~4) by up to 0.07, so the bf16 bar is atol 6.25e-2 (4 bf16 ulps in
-[2, 4)), rtol 3e-2.  Routing decisions are equal.
+[2, 4)), rtol 3e-2; the Mamba-2 model (mamba2-370m) is held to the same
+two bars.  Routing decisions are equal, over the dense pool and over the
+three-model pool with mamba2-370m.
 """
 import dataclasses
 
@@ -45,6 +47,9 @@ from repro_torch.serving.service import EcoreService
 torch.set_num_threads(1)
 
 ARCHS = ("qwen2.5-3b", "llama3-8b")
+MAMBA = "mamba2-370m"
+#: launch/serve.py's default pool up to its first unported member
+POOL3 = ARCHS + (MAMBA,)
 #: prompt lengths in every bucket, and on each bucket edge
 PROMPT_LENS = [1, 64, 512, 513, 2048, 2049, 8192, 8193, 32768, 32769, 100000]
 
@@ -80,26 +85,29 @@ def _tol(activ_dtype):
 
 # ------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", POOL3)
 def test_configs_equal_jax_field_for_field(arch):
     jc, tc = jax_get_config(arch), get_config(arch)
     for field in dataclasses.fields(jc):
         assert getattr(tc, field.name) == getattr(jc, field.name), field.name
     assert [f.name for f in dataclasses.fields(tc)] == \
         [f.name for f in dataclasses.fields(jc)]
-    assert tc.is_subquadratic == jc.is_subquadratic
+    for prop in ("is_subquadratic", "d_inner", "ssm_heads", "n_blocks"):
+        assert getattr(tc, prop) == getattr(jc, prop), prop
     assert dataclasses.asdict(tc.reduced(num_layers=2)) == \
         dataclasses.asdict(jc.reduced(num_layers=2))
     assert tc.adtype == torch.bfloat16 and tc.pdtype == torch.float32
 
 
 def test_unported_configs_raise():
-    assert sorted(list_configs()) == sorted(ARCHS)
-    for name in ("mamba2-370m", "gemma2-9b", "llama3-8b-swa"):
+    assert sorted(list_configs()) == sorted(POOL3)
+    for name in ("recurrentgemma-2b", "gemma2-9b", "llama3-8b-swa"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     cfg = get_config("llama3-8b").reduced(num_layers=2)
-    with pytest.raises(ValueError, match="not ported yet: family 'ssm'"):
+    with pytest.raises(ValueError, match="not ported yet: family 'hybrid'"):
+        init_params(dataclasses.replace(cfg, family="hybrid"), device="cpu")
+    with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="ssm"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, block_layout=("local",),
@@ -142,6 +150,63 @@ def test_model_matches_jax(arch, activ_dtype):
         close(getattr(tcache["blocks"]["s0"], name),
               np.asarray(getattr(jcache["blocks"]["s0"], name),
                          np.float32).transpose(0, 1, 3, 2, 4))
+
+
+@pytest.mark.parametrize("activ_dtype", ["float32", "bfloat16"])
+def test_mamba_matches_jax(activ_dtype):
+    """mamba2-370m reduced to two layers (chunk 8): forward, prefill over a
+    ragged 21-token prompt (logits and states) and 6 decode steps, greedy
+    tokens equal."""
+    jc, tc = _configs(MAMBA, activ_dtype)
+    jp, tp = _params(jc, tc)
+    atol, rtol = _tol(activ_dtype)
+    toks = np.random.default_rng(1).integers(0, jc.vocab_size, (2, 21))
+    jt = jnp.asarray(toks, jnp.int32)
+
+    def close(got, want):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=atol, rtol=rtol)
+
+    close(forward(tp, tc, torch.from_numpy(toks)), jax_forward(jp, jc, jt))
+    jlog, jcache = jax_prefill(jp, jc, jt, max_seq=8)
+    tlog, tcache = prefill(tp, tc, torch.from_numpy(toks), max_seq=8)
+    close(tlog, jlog)
+    for step in range(6):
+        nxt = jnp.argmax(jlog, axis=-1).astype(jnp.int32)
+        jlog, jcache = jax_decode_step(jp, jc, nxt, jcache)
+        tlog, tcache = decode_step(tp, tc, torch.from_numpy(
+            np.array(nxt)).long(), tcache)
+        close(tlog, jlog)
+        np.testing.assert_array_equal(tlog.argmax(-1).numpy(),
+                                      np.asarray(jnp.argmax(jlog, -1)))
+    assert tcache["pos"] == int(jcache["pos"]) == 27
+    # per-layer states: the JAX package stacks them on a leading layer dim
+    jstate = jcache["blocks"]["s0"]
+    for i, st in enumerate(tcache["blocks"]["s0"]):
+        assert st.ssm.dtype == torch.float32 and st.conv.dtype == tc.adtype
+        assert st.ssm.shape == (2, tc.ssm_heads, tc.ssm_headdim,
+                                tc.ssm_state)
+        close(st.ssm, np.asarray(jstate.ssm[i], np.float32))
+        close(st.conv, np.asarray(jstate.conv[i], np.float32))
+
+
+def test_mamba_params_from_jax_keep_the_scalars_in_f32():
+    jc, tc = _configs(MAMBA, "bfloat16")
+    _, tp = _params(jc, tc)
+    layer = tp["blocks"]["s0"][1]
+    assert sorted(layer) == ["norm1", "ssm"]
+    assert {n: t.dtype for n, t in layer["ssm"].items()} == {
+        "in_proj": torch.bfloat16, "conv_w": torch.bfloat16,
+        "conv_b": torch.bfloat16, "out_proj": torch.bfloat16,
+        "dt_bias": torch.float32, "A_log": torch.float32,
+        "D": torch.float32, "norm_w": torch.float32}
+    ch = tc.d_inner + 2 * tc.ssm_state
+    assert layer["ssm"]["in_proj"].shape == (tc.d_model,
+                                             ch + tc.d_inner + tc.ssm_heads)
+    own = init_params(tc, seed=0, device="cpu")["blocks"]["s0"][1]["ssm"]
+    assert {n: (t.shape, t.dtype) for n, t in own.items()} == {
+        n: (t.shape, t.dtype) for n, t in layer["ssm"].items()}
 
 
 def test_params_from_jax_unstacks_with_the_jax_names():
@@ -202,7 +267,7 @@ def _backends(arch, seed=0, **kw):
     return jb, tb
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", POOL3)
 @pytest.mark.parametrize("prompt_len", [5, 17])
 def test_serve_batch_tokens_equal_jax(arch, prompt_len):
     jb, tb = _backends(arch, max_batch=4, max_seq=32)
@@ -228,6 +293,17 @@ def test_serve_batch_rejects_what_does_not_fit():
         tb.serve_batch([])
 
 
+def test_mamba_backend_takes_prompts_longer_than_max_seq_as_jax_does():
+    """An ssm config has no attention cache: the JAX backend serves a
+    prompt and new tokens beyond max_seq, and so does the port."""
+    jb, tb = _backends(MAMBA, max_seq=16)
+    prompt = np.random.default_rng(4).integers(0, 1000, 30)
+    want = jb.serve_batch([JaxRequest(uid=0, prompt=prompt,
+                                      max_new_tokens=5)])
+    got = tb.serve_batch([Request(uid=0, prompt=prompt, max_new_tokens=5)])
+    np.testing.assert_array_equal(got[0].tokens, np.asarray(want[0].tokens))
+
+
 def test_llm_backend_is_registered():
     cfg = get_config("qwen2.5-3b").reduced(num_layers=2)
     b = make_backend("llm", "qwen2.5-3b", cfg, max_batch=2, device="cpu")
@@ -236,10 +312,11 @@ def test_llm_backend_is_registered():
 
 # ------------------------------------------------------------- routing
 
-@pytest.mark.parametrize("delta", [5.0, 10.0])
-def test_pool_and_policy_decisions_equal_jax(delta):
-    jpool = JaxServingPool(jax_pool_table(ARCHS), delta=delta)
-    pool = ServingPool(synthetic_pool_table(ARCHS, device="cpu"),
+@pytest.mark.parametrize("archs,delta", [(ARCHS, 5.0), (ARCHS, 10.0),
+                                         (POOL3, 10.0), (POOL3, 18.5)])
+def test_pool_and_policy_decisions_equal_jax(archs, delta):
+    jpool = JaxServingPool(jax_pool_table(archs), delta=delta)
+    pool = ServingPool(synthetic_pool_table(archs, device="cpu"),
                        delta=delta)
     assert [(e.model, e.group, e.map_pct, e.time_ms, e.energy_mwh)
             for e in pool.table.entries] == \
@@ -273,6 +350,16 @@ def test_bucket_zero_goes_to_qwen_and_longer_prompts_to_llama():
         ["qwen2.5-3b", "llama3-8b", "llama3-8b"]
 
 
+def test_bucket_zero_goes_to_mamba2_from_delta_18():
+    """mamba2-370m scores 54.0 against a bucket-0 best of 72.0: within δ
+    from 18 on (bucket 1 then goes to qwen2.5-3b); not at δ = 10."""
+    routes = {delta: [d.arch for d in ServingPool(
+        synthetic_pool_table(POOL3, device="cpu"),
+        delta=delta).route_batch([500, 1024])] for delta in (10, 18.5)}
+    assert routes == {10: ["qwen2.5-3b", "llama3-8b"],
+                      18.5: [MAMBA, "qwen2.5-3b"]}
+
+
 def test_pool_observe_matches_jax():
     from repro.core.policy import Observation as JaxObservation
     jpol = JaxPoolPolicy(JaxServingPool(jax_pool_table(ARCHS), delta=10))
@@ -298,11 +385,13 @@ def test_pool_observe_matches_jax():
 
 # ------------------------------------------------------------- service
 
-def test_service_tokens_equal_jax():
-    """Requests in two buckets through ``EcoreService`` over the reduced
-    two-backend pool: same routes, same tokens as the JAX service."""
+@pytest.mark.parametrize("archs,delta,served", [
+    (ARCHS, 10.0, ARCHS), (POOL3, 18.5, (MAMBA, "qwen2.5-3b"))])
+def test_service_tokens_equal_jax(archs, delta, served):
+    """Requests in two buckets through ``EcoreService`` over a reduced
+    pool: same routes, same tokens as the JAX service."""
     pairs = {arch: _backends(arch, seed=i, max_batch=2, max_seq=40)
-             for i, arch in enumerate(ARCHS)}
+             for i, arch in enumerate(archs)}
     rng = np.random.default_rng(9)
     # payloads are short (the reduced models), routing sees the full length
     work = [(i, n, rng.integers(0, 1000, 7 + i % 2))
@@ -321,11 +410,11 @@ def test_service_tokens_equal_jax():
                     for f in futs}
 
     want = run(JaxEcoreService, JaxPoolPolicy(JaxServingPool(
-        jax_pool_table(ARCHS), delta=10)), JaxRouteRequest, 0)
+        jax_pool_table(archs), delta=delta)), JaxRouteRequest, 0)
     got = run(EcoreService, PoolPolicy(ServingPool(synthetic_pool_table(
-        ARCHS, device="cpu"), delta=10)), RouteRequest, 1)
+        archs, device="cpu"), delta=delta)), RouteRequest, 1)
     assert sorted(got) == sorted(want) == list(range(len(work)))
-    assert {pair[0] for pair, _ in got.values()} == set(ARCHS)
+    assert {pair[0] for pair, _ in got.values()} == set(served)
     for uid in got:
         assert got[uid][0] == want[uid][0]
         np.testing.assert_array_equal(got[uid][1], want[uid][1])
@@ -347,6 +436,30 @@ def test_model_on_cuda_matches_cpu():
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 9)))
     clog, ccache = prefill(tp, tc, toks, max_seq=16)
     glog, gcache = prefill(gp, tc, toks.cuda(), max_seq=16)
+    for _ in range(4):
+        np.testing.assert_allclose(glog.cpu().numpy(), clog.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        nxt = clog.argmax(-1)
+        clog, ccache = decode_step(tp, tc, nxt, ccache)
+        glog, gcache = decode_step(gp, tc, nxt.cuda(), gcache)
+
+
+@pytest.mark.cuda
+def test_mamba_on_cuda_matches_cpu():
+    """The reduced mamba2-370m in f32 through the SSD kernel on the card
+    and through its plain version on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU for the CUDA kernels")
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jc, tc = _configs(MAMBA)
+    _, tp = _params(jc, tc)
+    gp = jax.tree_util.tree_map(lambda t: t.cuda(), tp)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 19)))
+    before = ssd_ops.launches
+    clog, ccache = prefill(tp, tc, toks)
+    glog, gcache = prefill(gp, tc, toks.cuda())
+    assert ssd_ops.launches == before + tc.num_layers
     for _ in range(4):
         np.testing.assert_allclose(glog.cpu().numpy(), clog.numpy(),
                                    atol=1e-4, rtol=1e-4)
