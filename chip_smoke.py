@@ -23,10 +23,12 @@ Phases, each printed as it ends; any failure exits non-zero:
    each 10 back-to-back calls), and each kernel's device time from the
    profiler;
 8. the flash-attention kernel against its plain version (atol 2e-5 in f32,
-   2e-2 in bf16, rtol 1e-2): MQA, GQA and MHA, D = 32, 64 and 128, f32 and
-   bf16, no mask beyond causal, window 64 and softcap 30, ragged S;
+   2e-2 in bf16, rtol 1e-2): MQA, GQA and MHA, D = 32, 64, 128 and 256
+   (recurrentgemma-2b's 10 heads over one KV head), f32 and bf16, no mask
+   beyond causal, window 64 and softcap 30, ragged S;
 9. the flash-decode kernel against its plain version at the same bar, with
-   lengths 1, T and random, T not a multiple of 256;
+   lengths 1, T and random, T not a multiple of 256, groups up to 10 at
+   D = 256;
 10. the LLM face's main path at full published width: ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
     backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
@@ -38,7 +40,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     and on the CPU (their plain versions), same parameters: logits within
     1e-3 and equal tokens;
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
-    times at the main path's shapes, the decode kernel's split sizing
+    times at the main path's shapes (llama3-8b's, qwen2.5-3b's and
+    recurrentgemma-2b's, window 2048), the decode kernel's split sizing
     against one piece and against splits sized from the whole cache, and
     both kernels against their plain versions computed in f32 (within
     the bf16 rounding of the output, 2^-8 relative, plus 1e-4);
@@ -60,7 +63,28 @@ Phases, each printed as it ends; any failure exits non-zero:
     CPU, same parameters, a 500-token prompt: logits within 1e-3 and equal
     tokens;
 16. SSD kernel and plain-version times at mamba2-370m's prefill shape
-    against the kernel's bound (no PyTorch call computes the scan).
+    against the kernel's bound (no PyTorch call computes the scan);
+17. the RG-LRU scan kernel against its plain version: at the JAX tests'
+    shapes (1, 16, 128) and (2, 33, 256) and at W = 200 and 1000, with and
+    without h0, within atol 1e-5; at recurrentgemma-2b's (8, 1024, 2560) in
+    f32, with a and b drawn by the gates (Lambda from lam in [0.9, 0.999]),
+    the kernel's error against the plain version in f64 at most twice the
+    f32 plain version's own;
+18. the LLM face's main path with the hybrid family: ``EcoreService`` over
+    ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b, llama3-8b,
+    mamba2-370m and recurrentgemma-2b backends at full width, 8 requests
+    of 256 tokens (to qwen2.5-3b) and 8 of 1024 (to recurrentgemma-2b), 16
+    new tokens each, with every LLM kernel's launch count set to 0 just
+    before and read just after (one RG-LRU launch per recurrent layer per
+    batch, one flash per attention layer, global or local, one decode per
+    attention layer per step); then where each backend's device time goes
+    (profiler);
+19. recurrentgemma-2b cut to five layers (one block and the trailing pair)
+    at full width in f32 on the GPU and on the CPU, same parameters, a
+    1024-token prompt: logits within 1e-3 and equal tokens;
+20. RG-LRU kernel and plain-version times at recurrentgemma-2b's prefill
+    shape against the kernel's bound (no PyTorch call computes the
+    recurrence).
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -76,6 +100,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+T_START = time.perf_counter()
 
 #: the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
 #: f32 FLOP/s outside the tensor cores
@@ -101,6 +126,14 @@ SSM_ROUTES = {500: "mamba2-370m", 1024: "qwen2.5-3b"}
 #: the SSD scan at mamba2-370m's prefill: (batch, S, heads, head dim,
 #: state) and its chunk
 SSD_SHAPE, SSD_CHUNK = (MAX_BATCH, 500, 32, 64, 128), 256
+#: the default pool without its only unported member, and the routes at
+#: δ = 10: in bucket 0 qwen2.5-3b (62.33) is the cheapest within 10 of
+#: llama3-8b's capped 72.0; in bucket 1 it misses 72.86 by 0.53 and
+#: recurrentgemma-2b (63.31) is the cheapest within δ
+HYBRID_ARCHS = SSM_ARCHS + ("recurrentgemma-2b",)
+HYBRID_ROUTES = {256: "qwen2.5-3b", 1024: "recurrentgemma-2b"}
+#: the RG-LRU scan at recurrentgemma-2b's prefill: (batch, S, lru width)
+LRU_SHAPE = (MAX_BATCH, 1024, 2560)
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -249,7 +282,8 @@ def attention_grids(dev) -> None:
     n = 0
     # MQA, GQA, MHA d=128 (tests/test_kernels.py), then a ragged S and d=32
     for shape in [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
-                  (2, 8, 2, 300, 128), (1, 4, 2, 37, 32)]:
+                  (2, 8, 2, 300, 128), (1, 4, 2, 37, 32),
+                  (1, 10, 1, 128, 256), (2, 10, 1, 300, 256)]:
         b, h, kv, s, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
@@ -275,7 +309,9 @@ def attention_grids(dev) -> None:
     n = 0
     rng = np.random.default_rng(3)
     for shape in [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
-                  (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32)]:
+                  (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32),
+                  (2, 10, 1, 256, 256), (3, 10, 1, 1000, 256),
+                  (2, 20, 2, 300, 256)]:
         b, h, kv, t, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], dt,
@@ -297,7 +333,7 @@ def attention_grids(dev) -> None:
 
 
 def llm_service(archs, delta, routes, name):
-    """Phases 10 and 14: the LLM face's main path at full width, over a
+    """Phases 10, 14 and 18: the LLM face's main path at full width, over a
     pool of ``archs`` at ``delta``, 8 prompts of each length in ``routes``.
     Returns the LLM kernels' launches of the counted run and the
     backends."""
@@ -320,8 +356,11 @@ def llm_service(archs, delta, routes, name):
                                      seed=archs.index(arch))
         return backends[arch]
 
-    policy = PoolPolicy(ServingPool(synthetic_pool_table(archs),
-                                    delta=delta))
+    pool = ServingPool(synthetic_pool_table(archs), delta=delta)
+    routed = {n: pool.route(n).arch for n in routes}
+    if routed != routes:
+        fail(f"the pool at δ = {delta} routes {routed}, not {routes}")
+    policy = PoolPolicy(pool)
     rng = np.random.default_rng(13)
 
     def requests(uid0, lens, max_new):
@@ -360,20 +399,17 @@ def llm_service(archs, delta, routes, name):
         vocab = get_config(sv.decision.backend).vocab_size
         if tok.shape != (MAX_NEW,) or tok.min() < 0 or tok.max() >= vocab:
             fail(f"request {sv.request.uid} returned tokens {tok}")
-    # one serve_batch per backend: one flash launch per attention layer and
-    # one decode launch per attention layer per step, one SSD launch per
-    # Mamba-2 layer
-    layers = {fam: sum(get_config(a).num_layers for a in routes.values()
-                       if get_config(a).family == fam)
-              for fam in ("dense", "ssm")}
-    expect = {"flash_attention": layers["dense"],
-              "decode_attention": layers["dense"] * (MAX_NEW - 1),
-              "ssd_scan": layers["ssm"]}
+    # one serve_batch per backend: one flash launch per attention layer
+    # (global or local) and one decode launch per attention layer per step,
+    # one SSD launch per Mamba-2 layer, one RG-LRU launch per recurrent layer
+    expect = kernel_launches([k for a in routes.values()
+                              for k in get_config(a).layer_kinds],
+                             MAX_NEW - 1)
     if launches != expect:
         fail(f"the service's kernel launches {launches} are not one flash "
              f"per attention layer per batch, one decode per attention "
-             f"layer per step and one SSD scan per Mamba-2 layer per batch "
-             f"({expect})")
+             f"layer per step, one SSD scan per Mamba-2 layer and one "
+             f"RG-LRU scan per recurrent layer per batch ({expect})")
     for n, arch in routes.items():
         r = next(sv.result for sv in served if sv.decision.backend == arch)
         print(f"  {arch}: batch {r.batch_size} x {n} tokens: prefill {r.prefill_s * 1e3:.2f} ms, decode "
@@ -388,9 +424,18 @@ def llm_kernel_ops():
     """The LLM face's kernel wrappers by kernel name."""
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fl_ops, "decode_attention": dec_ops,
-            "ssd_scan": ssd_ops}
+            "ssd_scan": ssd_ops, "rglru_scan": lru_ops}
+
+
+def kernel_launches(kinds, steps):
+    """The LLM kernels' launches of one prefill and ``steps`` decode steps
+    over layers of these kinds."""
+    attn = sum(k in ("attn", "local") for k in kinds)
+    return {"flash_attention": attn, "decode_attention": attn * steps,
+            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
 
 
 def llm_profile(backends, routes) -> None:
@@ -402,7 +447,7 @@ def llm_profile(backends, routes) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(17)
-    names = ("flash_kernel", "decode_kernel", "ssd_kernel")
+    names = ("flash_kernel", "decode_kernel", "ssd_kernel", "rglru_kernel")
     for n, arch in routes.items():
         reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
                         max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
@@ -464,18 +509,18 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def llm_cuda_vs_cpu(arch, prompt_len, name) -> None:
-    """Phases 11 and 15: ``arch`` cut to two layers at full width in f32,
-    on the GPU through the kernels and on the CPU through their plain
-    versions, a batch of 2 prompts of ``prompt_len`` tokens and 4 new
-    tokens."""
+def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2) -> None:
+    """Phases 11, 15 and 19: ``arch`` cut to ``num_layers`` layers at full
+    width in f32, on the GPU through the kernels and on the CPU through
+    their plain versions, a batch of 2 prompts of ``prompt_len`` tokens
+    and 4 new tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
                               activ_dtype="float32")
     params = {"cuda": init_params(cfg, seed=7, device="cuda")}
     params["cpu"] = to_device(params["cuda"], "cpu")
@@ -494,20 +539,19 @@ def llm_cuda_vs_cpu(arch, prompt_len, name) -> None:
             toks.append(lg.argmax(-1))
         logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
     ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
-    want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2}
-            if cfg.family == "ssm" else
-            {"flash_attention": 2, "decode_attention": 6, "ssd_scan": 0})
+    want = kernel_launches(list(cfg.layer_kinds), 3)
     if ran != want:
-        fail(f"the GPU run of the two-layer model launched {ran}, not "
-             f"{want}")
+        fail(f"the GPU run of the {num_layers}-layer model launched {ran}, "
+             f"not {want}")
     err = max(float((a - b).abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
-    print(f"{arch}, 2 layers, f32, batch 2, {prompt_len}-token prompt, 4 "
+    print(f"{arch}, {num_layers} layers, f32, batch 2, {prompt_len}-token "
+          f"prompt, 4 "
           f"new tokens: cuda vs cpu logits max err {err:.3g} (tolerance "
           f"1e-3); tokens {tokens['cuda'].tolist()} (cpu equal: "
           f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
     if err > 1e-3 or not torch.equal(tokens["cuda"], tokens["cpu"]):
-        fail(f"the two-layer {arch} differs between cuda and cpu")
+        fail(f"the {num_layers}-layer {arch} differs between cuda and cpu")
     phase(name, t0)
 
 
@@ -532,29 +576,36 @@ def attention_timing(dev):
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    for arch, shape in (("llama3-8b", (8, 32, 8, 1024, 128)),
-                        ("qwen2.5-3b", (8, 16, 2, 256, 128))):
+    # recurrentgemma-2b's local layers pass window 2048, wider than the
+    # 1024-token prompt: causal attention is the same function there
+    for arch, shape, kw in (("llama3-8b", (8, 32, 8, 1024, 128), {}),
+                            ("qwen2.5-3b", (8, 16, 2, 256, 128), {}),
+                            ("recurrentgemma-2b", (8, 10, 1, 1024, 256),
+                             {"window": 2048})):
         b, h, kv, s, d = shape
         q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
                         23, dev)
-        got = fl_ops.attention(q, k, v)
+        got = fl_ops.attention(q, k, v, **kw)
         err = attention_close(f"flash at {shape}", got,
-                              fl_ref.mha_reference(q, k, v))
+                              fl_ref.mha_reference(q, k, v, **kw))
         err32 = attention_close_f32(f"flash at {shape}", got,
                                     fl_ref.mha_reference(
-                                        q.float(), k.float(), v.float()))
+                                        q.float(), k.float(), v.float(),
+                                        **kw))
         del got
-        kern = median_ms(lambda: fl_ops.attention(q, k, v), reps=10, inner=5)
-        dk = device_ms(lambda: fl_ops.attention(q, k, v), "flash_kernel",
-                       reps=5)
-        plain = median_ms(lambda: fl_ref.mha_reference(q, k, v), reps=5,
-                          inner=2)
+        kern = median_ms(lambda: fl_ops.attention(q, k, v, **kw), reps=10,
+                         inner=5)
+        dk = device_ms(lambda: fl_ops.attention(q, k, v, **kw),
+                       "flash_kernel", reps=5)
+        plain = median_ms(lambda: fl_ref.mha_reference(q, k, v, **kw),
+                          reps=5, inner=2)
         lib = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps=10, inner=5)
         # causal: row i sees i + 1 columns; 4 flops per (row, col, d)
         flops = 4 * b * h * d * s * (s + 1) // 2
         bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * s * d))
-        print(f"time flash {arch} prefill {shape} bf16: kernel {kern:.4f} ms "
+        print(f"time flash {arch} prefill {shape} bf16 {kw}: kernel "
+              f"{kern:.4f} ms "
               f"(device time {dk} ms), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms, bound "
               f"{bnd:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP); max err "
@@ -562,8 +613,11 @@ def attention_timing(dev):
         rows.setdefault("flash_attention", (kern, plain, bnd, by, lib, err))
 
     rng = np.random.default_rng(29)
-    for arch, shape, lo in (("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024),
-                            ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256)):
+    for arch, shape, lo, kw in (
+            ("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024, {}),
+            ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256, {}),
+            ("recurrentgemma-2b", (8, 10, 1, MAX_SEQ, 256), 1024,
+             {"window": 2048})):
         b, h, kv, t_max, d = shape
         q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
                           bf16, 31, dev)
@@ -573,19 +627,21 @@ def attention_timing(dev):
                             dtype=torch.int32, device=dev)
         t = int(lens.max())
         k, v = ck[:, :, :t], cv[:, :, :t]
-        got = dec_ops.decode(q, k, v, lens)
+        got = dec_ops.decode(q, k, v, lens, **kw)
         err = attention_close(f"decode at {shape}", got,
-                              dec_ref.decode_reference(q, k, v, lens))
+                              dec_ref.decode_reference(q, k, v, lens, **kw))
         want32 = dec_ref.decode_reference(q.float(), k.float(), v.float(),
-                                          lens)
+                                          lens, **kw)
         err32 = attention_close_f32(f"decode at {shape}", got, want32)
-        kern = median_ms(lambda: dec_ops.decode(q, k, v, lens), reps=10,
-                         inner=5)
-        dk = device_ms(lambda: dec_ops.decode(q, k, v, lens),
+        kern = median_ms(lambda: dec_ops.decode(q, k, v, lens, **kw),
+                         reps=10, inner=5)
+        dk = device_ms(lambda: dec_ops.decode(q, k, v, lens, **kw),
                        "decode_kernel", reps=5)
-        # the same work against every layer's cache in turn, as the
-        # service reads it (this layer's K/V not left in L2 by the last call)
-        n_layers = get_config(arch).num_layers
+        # the same work against every attention layer's cache in turn, as
+        # the service reads it (this layer's K/V not left in L2 by the last
+        # call)
+        n_layers = sum(kind in ("attn", "local")
+                       for kind in get_config(arch).layer_kinds)
         caches = torch.empty((n_layers, 2) + ck.shape, dtype=bf16, device=dev)
         caches[:] = torch.stack([ck, cv])
         layer = iter(range(10 ** 6))
@@ -593,39 +649,46 @@ def attention_timing(dev):
         def cold(rows):
             def run():
                 kc, vc = caches[next(layer) % n_layers, :, :, :, :rows]
-                return dec_ops.decode(q, kc, vc, lens)
+                return dec_ops.decode(q, kc, vc, lens, **kw)
             return run
 
         dk_cold = device_ms(cold(t), "decode_kernel", reps=n_layers)
         # the splits sized from the lengths, against one piece per (batch,
         # KV head) and against splits sized from the whole cache
+        per_sm = dec_ops.blocks_per_sm(torch.cuda.current_device(), d,
+                                       h // kv, True)
         nsplit = dec_ops.splits(b, kv, t, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+            dev).multi_processor_count, per_sm)
         default = dec_ops.BLOCKS_PER_SM
         try:
             dec_ops.BLOCKS_PER_SM = 0
             attention_close_f32(f"decode at {shape} in one piece",
-                                dec_ops.decode(q, k, v, lens), want32)
+                                dec_ops.decode(q, k, v, lens, **kw), want32)
             dk_one = device_ms(cold(t), "decode_kernel", reps=n_layers)
         finally:
             dec_ops.BLOCKS_PER_SM = default
         dk_full = device_ms(cold(t_max), "decode_kernel", reps=n_layers)
         del caches
-        plain = median_ms(lambda: dec_ref.decode_reference(q, k, v, lens),
+        plain = median_ms(lambda: dec_ref.decode_reference(q, k, v, lens,
+                                                           **kw),
                           reps=5, inner=2)
-        mask = (torch.arange(t, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
+        cols = torch.arange(t, device=dev)[None, :]
+        mask = (cols < lens[:, None]) & (
+            cols >= lens[:, None] - kw.get("window", t))
+        mask = mask[:, None, None, :]
         lib = median_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps=10,
             inner=5)
-        n_keys = int(lens.sum())
+        n_keys = int(torch.minimum(lens, torch.tensor(
+            kw.get("window", t), device=dev)).sum())
         flops = 4 * h * d * n_keys
         bnd, by = bound(flops, 2 * (2 * kv * d * n_keys + 2 * b * h * d)
                         + 4 * b)
-        print(f"time decode {arch} {shape[:3]} bf16, the cache's first {t} "
-              f"of {t_max} rows, lengths {lens.tolist()}: kernel "
+        print(f"time decode {arch} {shape[:3]} bf16 {kw}, the cache's first "
+              f"{t} of {t_max} rows, lengths {lens.tolist()}: kernel "
               f"{kern:.4f} ms (device time {dk} ms; over {n_layers} "
-              f"layers' caches: {dk_cold} ms in {nsplit[0]} splits of "
+              f"layers' caches, {per_sm} blocks per SM: {dk_cold} ms in "
+              f"{nsplit[0]} splits of "
               f"{nsplit[1]} rows, {dk_one} ms in one piece, {dk_full} ms "
               f"split from all {t_max} rows), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms, bound "
@@ -779,6 +842,101 @@ def ssd_timing(dev):
           f"{t_ops:.5f} ms); library: none (no PyTorch call computes the "
           f"SSD scan)")
     phase("16 SSD timing", t0)
+    return kern, plain, bnd, by
+
+
+def lru_gate_inputs(shape, seed, dev):
+    """a, b of the RG-LRU scan at ``shape`` (b, s, w) in f32, drawn as the
+    recurrent block's gates draw them: x normal, W_a and W_x at the fan-in
+    scale, zero biases, Lambda from lam uniform in [0.9, 0.999]."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    b, s, w = shape
+    rng = np.random.default_rng(seed)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    lam = rng.uniform(0.9, 0.999, w)
+    x = tensor(rng.standard_normal((b, s, w), np.float32))
+    w_a, w_x = (tensor(rng.standard_normal((w, w), np.float32) / np.sqrt(w))
+                for _ in range(2))
+    zero = torch.zeros(w, device=dev)
+    log_lambda = tensor(np.log(np.expm1(-np.log(lam) / lru_ref.RGLRU_C)))
+    return lru_ref.rglru_gates(x, w_a, zero, w_x, zero, log_lambda)
+
+
+def lru_check(dev):
+    """Phase 17: the RG-LRU kernel against its plain version.  Returns its
+    max error at recurrentgemma-2b's shape against the f32 plain
+    version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    t0 = time.perf_counter()
+    worst, exact, n = 0.0, True, 0
+    for shape in [(1, 16, 128), (2, 33, 256), (2, 33, 200), (3, 70, 1000)]:
+        rng = np.random.default_rng(sum(shape))
+        a = torch.from_numpy(rng.uniform(0.3, 0.999, shape).astype(
+            np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        h0 = torch.from_numpy(rng.standard_normal(
+            (shape[0], shape[2]), np.float32)).to(dev)
+        for init in (h0, None):
+            got = lru_ops.linear_scan(a, b, init)
+            want = lru_ref.linear_scan(a, b, init)
+            err = float((got - want).abs().max())
+            if err > 1e-5:
+                fail(f"rglru {shape} h0={init is not None}: kernel and "
+                     f"plain version differ by up to {err} (atol 1e-5)")
+            worst, exact, n = max(worst, err), exact and torch.equal(
+                got, want), n + 1
+    print(f"rglru scan: kernel == plain version on {n} f32 cases (the JAX "
+          f"tests' shapes, W = 200 and 1000, with and without h0; atol "
+          f"1e-5): max err {worst:.3g}, bit-identical: {exact}")
+    a, b = lru_gate_inputs(LRU_SHAPE, 47, dev)
+    got = lru_ops.linear_scan(a, b)
+    plain = lru_ref.linear_scan(a, b)
+    ref = lru_ref.linear_scan(a.double(), b.double())
+    own = float((plain.double() - ref).abs().max())
+    err = float((got.double() - ref).abs().max())
+    main_err = float((got - plain).abs().max())
+    print(f"rglru {LRU_SHAPE} f32, a and b from the gates (a in "
+          f"[{float(a.min()):.4g}, {float(a.max()):.4g}]), against the plain "
+          f"version in f64: kernel max err {err:.4g}, bar 2 x the f32 plain "
+          f"version's {own:.4g} (max |h| {float(ref.abs().max()):.4g}); "
+          f"against the f32 plain version: {main_err:.4g}")
+    if err > 2 * own:
+        fail(f"rglru at {LRU_SHAPE}: the kernel misses its bar")
+    phase("17 RG-LRU kernel", t0)
+    return main_err
+
+
+def lru_timing(dev):
+    """Phase 20: the RG-LRU kernel at recurrentgemma-2b's prefill shape.
+    Returns its JSON fields (without the launches and the error)."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    t0 = time.perf_counter()
+    a, b = lru_gate_inputs(LRU_SHAPE, 53, dev)
+    kern = median_ms(lambda: lru_ops.linear_scan(a, b), reps=10, inner=5)
+    dk = device_ms(lambda: lru_ops.linear_scan(a, b), "rglru_kernel", reps=5)
+    plain = median_ms(lambda: lru_ref.linear_scan(a, b), reps=3, inner=1)
+    # a and b read and h written in f32; one multiply and one add per
+    # element on the CUDA cores
+    nbytes = 12 * a.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * a.numel() / F32_FLOP_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    print(f"time rglru {LRU_SHAPE} f32: kernel {kern:.4f} ms (device time "
+          f"{dk} ms), plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB, {t_bytes:.5f} ms; {t_ops:.5f} ms at the "
+          f"f32 peak); library: none (no PyTorch call computes the "
+          f"recurrence)")
+    phase("20 RG-LRU timing", t0)
     return kern, plain, bnd, by
 
 
@@ -1034,6 +1192,17 @@ def main() -> None:
     llm_cuda_vs_cpu("mamba2-370m", 500, "15 mamba2 cuda vs cpu")
     ssd_row = ssd_timing(dev)
 
+    lru_err = lru_check(dev)
+    hybrid_launches, backends = llm_service(
+        HYBRID_ARCHS, 10.0, HYBRID_ROUTES,
+        "18 LLM service with recurrentgemma-2b")
+    llm_profile(backends, HYBRID_ROUTES)
+    del backends
+    torch.cuda.empty_cache()
+    llm_cuda_vs_cpu("recurrentgemma-2b", 1024,
+                    "19 recurrentgemma-2b cuda vs cpu", num_layers=5)
+    lru_row = lru_timing(dev)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
@@ -1072,6 +1241,15 @@ def main() -> None:
         "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
+    kern, plain, bnd, by = lru_row
+    kernels.append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:44",
+        "launches": hybrid_launches["rglru_scan"], "max_abs_err": lru_err,
+        "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None})
+    print(f"all phases: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

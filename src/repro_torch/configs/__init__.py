@@ -16,6 +16,7 @@ _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "llama3-8b": "llama3_8b",
     "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

@@ -23,7 +23,12 @@
 // and which sets the ticket back to 0, so the workspace is allocated once.
 // One launch, no second kernel.  The arithmetic is f32 on the CUDA cores,
 // from 64-row K/V tiles in shared memory (16-byte loads, one-word padding
-// against bank conflicts).
+// against bank conflicts).  The shared memory grows with D and G (144 KB at
+// D = 256, G = 10: one block per SM), so the wrapper sizes the splits from
+// the blocks per SM that decode_attention_blocks_per_sm reports for the
+// (D, G) at hand.
+#include <type_traits>
+
 #include "attention_tiles.cuh"
 
 namespace {
@@ -53,7 +58,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   constexpr int LK = D + 1;
   constexpr int LP = BK + 1;
   constexpr int SG = NT / BK;  // threads per cache row in the score phase
-  constexpr int VG = NT / D;   // threads per output column in the PV phase
+  // PV phase: DW threads own distinct output columns, each DC of them
+  // (d, d + DW, ...); VG threads share a column, each some of the heads
+  constexpr int DW = D < NT ? D : NT;
+  constexpr int DC = D / DW;
+  constexpr int VG = NT / DW;
   constexpr int HS = (G + SG - 1) / SG;  // heads per thread, score phase
   constexpr int HV = (G + VG - 1) / VG;  // heads per thread, PV phase
   extern __shared__ float smem[];
@@ -81,11 +90,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     m_s[g] = NEG_INF;
     l_s[g] = 0.f;
   }
-  // PV phase: thread owns output column d of heads g0, g0 + VG, ...
-  const int d = tid % D, g0 = tid / D;
-  float acc[HV];
+  // PV phase: thread owns output columns d + c * DW of heads g0, g0 + VG,
+  // ...
+  const int d = tid % DW, g0 = tid / DW;
+  float acc[HV][DC];
 #pragma unroll
-  for (int i = 0; i < HV; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HV; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
   const T* kb = k + bb * k_b + kvh * k_h;
   const T* vb = v + bb * v_b + kvh * v_h;
@@ -149,14 +161,21 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 
 #pragma unroll
     for (int i = 0; i < HV; ++i)
-      if (g0 + i * VG < G) acc[i] *= a_s[g0 + i * VG];
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        if (g0 + i * VG < G) acc[i][c] *= a_s[g0 + i * VG];
 #pragma unroll 4
     for (int j = 0; j < nvalid; ++j) {
-      const float w = Vs[j * D + d];
+      float w[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) w[c] = Vs[j * D + d + c * DW];
 #pragma unroll
       for (int i = 0; i < HV; ++i) {
         const int g = g0 + i * VG;
-        if (g < G) acc[i] = fmaf(Ps[g * LP + j], w, acc[i]);
+        if (g < G)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            acc[i][c] = fmaf(Ps[g * LP + j], w[c], acc[i][c]);
       }
     }
   }
@@ -168,8 +187,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int i = 0; i < HV; ++i) {
       const int g = g0 + i * VG;
       if (g < G)
-        ob[g * o_h + d] =
-            repro_torch::from_f32<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          ob[g * o_h + d + c * DW] =
+              repro_torch::from_f32<T>(acc[i][c] / fmaxf(l_s[g], 1e-30f));
     }
     return;
   }
@@ -181,7 +202,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
   for (int i = 0; i < HV; ++i) {
     const int g = g0 + i * VG;
-    if (g < G) mine[g * row + 2 + d] = acc[i];
+    if (g < G)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) mine[g * row + 2 + d + c * DW] = acc[i][c];
   }
   for (int g = tid; g < G; g += NT) {
     mine[g * row] = m_s[g];
@@ -204,78 +227,114 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     float mx = NEG_INF;
     for (int sp = 0; sp < nsplit; ++sp)
       mx = fmaxf(mx, __ldcg(all + (sp * G + g) * row));
-    float den = 0.f, num = 0.f;
+    float den = 0.f, num[DC];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) num[c] = 0.f;
     for (int sp = 0; sp < nsplit; ++sp) {
       const float* pg = all + (sp * G + g) * row;
       const float w = expf(__ldcg(pg) - mx);
       den = fmaf(__ldcg(pg + 1), w, den);
-      num = fmaf(__ldcg(pg + 2 + d), w, num);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        num[c] = fmaf(__ldcg(pg + 2 + d + c * DW), w, num[c]);
     }
-    ob[g * o_h + d] = repro_torch::from_f32<T>(num / fmaxf(den, 1e-30f));
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      ob[g * o_h + d + c * DW] =
+          repro_torch::from_f32<T>(num[c] / fmaxf(den, 1e-30f));
   }
 }
 
+
+// Calls f(integral_constant<D>, integral_constant<G>) for the run-time
+// (d, g), one of the pairs the kernel is compiled for: the head dims and
+// groups (H / KV) of the repository's configs, full size and reduced,
+// e.g. llama3-8b (128, 4), qwen2.5-3b (128, 8), recurrentgemma-2b
+// (256, 10), gemma2-9b (256, 2), llava-next-34b (128, 7).
+template <typename F>
+int with_shape(int d, int g, F&& f) {
+#define REPRO_DECODE_PAIR(D_, G_)                  \
+  if (d == D_ && g == G_)                          \
+    return f(std::integral_constant<int, D_>{},    \
+             std::integral_constant<int, G_>{});
+  REPRO_DECODE_PAIR(32, 1)
+  REPRO_DECODE_PAIR(32, 2)
+  REPRO_DECODE_PAIR(32, 4)
+  REPRO_DECODE_PAIR(64, 1)
+  REPRO_DECODE_PAIR(64, 2)
+  REPRO_DECODE_PAIR(128, 1)
+  REPRO_DECODE_PAIR(128, 4)
+  REPRO_DECODE_PAIR(128, 7)
+  REPRO_DECODE_PAIR(128, 8)
+  REPRO_DECODE_PAIR(256, 2)
+  REPRO_DECODE_PAIR(256, 10)
+#undef REPRO_DECODE_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// lets the kernel take its dynamic shared memory (above 48 KB), once
 template <typename T, int D, int G>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, int b, int kv, int t, const long long* st, float scale,
-           int window, float cap, int nsplit, int chunk, float* part,
-           unsigned* tickets, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, G>();
+cudaError_t allow_smem() {
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(b * kv, nsplit);
-  decode_kernel<T, D, G><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), kv, t, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale,
-      window, cap, chunk, part, tickets);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int>(smem_bytes<D, G>()));
+  return attr;
 }
 
-#define DECODE_ARGS \
-  q, k, v, lengths, o, b, kv, t, st, scale, window, cap, nsplit, chunk, part, \
-      tickets, stream
+struct Args {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* o;
+  int b, kv, t;
+  const long long* st;
+  float scale;
+  int window;
+  float cap;
+  int nsplit, chunk;
+  float* part;
+  unsigned* tickets;
+  cudaStream_t stream;
+};
 
-template <typename T, int D>
-int dispatch_group(int g, const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, int b, int kv, int t,
-                   const long long* st, float scale, int window, float cap,
-                   int nsplit, int chunk, float* part, unsigned* tickets,
-                   cudaStream_t stream) {
-  switch (g) {
-    case 1: return launch<T, D, 1>(DECODE_ARGS);
-    case 2: return launch<T, D, 2>(DECODE_ARGS);
-    case 4: return launch<T, D, 4>(DECODE_ARGS);
-    case 8: return launch<T, D, 8>(DECODE_ARGS);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch(int d, int g, const Args& a) {
+  return with_shape(d, g, [&](auto dc, auto gc) {
+    constexpr int D = decltype(dc)::value, G = decltype(gc)::value;
+    const cudaError_t attr = allow_smem<T, D, G>();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const long long* st = a.st;
+    decode_kernel<T, D, G>
+        <<<dim3(a.b * a.kv, a.nsplit), NT, smem_bytes<D, G>(), a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+            static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.o),
+            a.kv, a.t, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+            st[7], st[8], st[9], a.scale, a.window, a.cap, a.chunk, a.part,
+            a.tickets);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
-int dispatch(int d, int g, const void* q, const void* k, const void* v,
-             const int* lengths, void* o, int b, int kv, int t,
-             const long long* st, float scale, int window, float cap,
-             int nsplit, int chunk, float* part, unsigned* tickets,
-             cudaStream_t stream) {
-  switch (d) {
-    case 32: return dispatch_group<T, 32>(g, DECODE_ARGS);
-    case 64: return dispatch_group<T, 64>(g, DECODE_ARGS);
-    case 128: return dispatch_group<T, 128>(g, DECODE_ARGS);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+int blocks_per_sm(int d, int g, int* blocks) {
+  return with_shape(d, g, [&](auto dc, auto gc) {
+    constexpr int D = decltype(dc)::value, G = decltype(gc)::value;
+    cudaError_t err = allow_smem<T, D, G>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, decode_kernel<T, D, G>, NT, smem_bytes<D, G>());
+    return static_cast<int>(err);
+  });
 }
 
 }  // namespace
 
-// q [b, h, d], k and v [b, kv, t, d] (h / kv in {1, 2, 4, 8}), lengths
-// [b] int32, o [b, h, d] on the device, in f32 (bf16 == 0) or bf16
-// (bf16 == 1).  st[10] holds the element strides of q (b, h), k (b, h, s),
-// v (b, h, s) and o (b, h); the last dim is contiguous and rows are 16-byte
-// aligned.  The cache is cut into nsplit pieces of `chunk` rows; with
-// nsplit > 1, part holds b * kv * nsplit * (h / kv) * (d + 2) floats and
-// tickets b * kv zeros, which the launch leaves at zero.  window <= 0:
+// q [b, h, d], k and v [b, kv, t, d], lengths [b] int32, o [b, h, d] on
+// the device, in f32 (bf16 == 0) or bf16 (bf16 == 1), (d, h / kv) one of
+// with_shape's pairs.  st[10] holds the element strides of q (b, h), k (b,
+// h, s), v (b, h, s) and o (b, h); the last dim is contiguous and rows are
+// 16-byte aligned.  The cache is cut into nsplit pieces of `chunk` rows;
+// with nsplit > 1, part holds b * kv * nsplit * (h / kv) * (d + 2) floats
+// and tickets b * kv zeros, which the launch leaves at zero.  window <= 0:
 // none; cap <= 0: none.  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -284,12 +343,19 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 float scale, int window, float cap,
                                 int nsplit, int chunk, float* part,
                                 unsigned* tickets, int bf16, void* stream) {
-  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(d, h / kv, q, k, v, lengths, o, b, kv, t,
-                                   st, scale, window, cap, nsplit, chunk,
-                                   part, tickets, cs);
-  return dispatch<float>(d, h / kv, q, k, v, lengths, o, b, kv, t, st, scale,
-                         window, cap, nsplit, chunk, part, tickets, cs);
+  const Args a{q,     k,      v,     lengths, o,    b,       kv,
+               t,     st,     scale, window,  cap,  nsplit,  chunk,
+               part,  tickets, static_cast<cudaStream_t>(stream)};
+  return bf16 ? launch<__nv_bfloat16>(d, h / kv, a)
+              : launch<float>(d, h / kv, a);
+}
+
+// *blocks: how many blocks of the kernel at head dim d and group g fit on
+// one SM of the current device at once (its shared memory and registers
+// allow), for the wrapper's split sizing.  Returns the CUDA error (0 = ok).
+extern "C" int decode_attention_blocks_per_sm(int d, int g, int bf16,
+                                              int* blocks) {
+  return bf16 ? blocks_per_sm<__nv_bfloat16>(d, g, blocks)
+              : blocks_per_sm<float>(d, g, blocks);
 }

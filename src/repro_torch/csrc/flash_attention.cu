@@ -202,6 +202,9 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, b, h, kv, s, t, st, scale, window,
                             cap, stream);
+    case 256:  // 213,760 B of shared memory: one block per SM
+      return launch<T, 256>(q, k, v, o, b, h, kv, s, t, st, scale, window,
+                            cap, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

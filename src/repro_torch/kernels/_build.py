@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("sobel", "canny_fused", "flash_attention",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -5,8 +5,11 @@ A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
 strided views of a cache (last dim contiguous); the model passes the
 cache's first ``pos + 1`` rows, so that T is the longest length.  The
 wrapper cuts those T rows into as many splits as fit in one wave of
-blocks.  The splits' workspace is allocated once per (device, stream) and
-reused: the kernel leaves its tickets at zero.
+blocks, at the blocks per SM that the kernel's shared memory and registers
+allow at this (D, G) (the CUDA occupancy query: 3 at D = 128, 1 at
+recurrentgemma-2b's D = 256, G = 10).  The splits' workspace is allocated
+once per (device, stream) and reused: the kernel leaves its tickets at
+zero.
 """
 from __future__ import annotations
 
@@ -17,19 +20,23 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, check_rows
+from repro_torch.kernels.flash_attention.ops import check_rows
 
 from . import ref
 
 #: kernel launches since the count was last set to 0
 launches = 0
 
-#: cache rows per tile, and the GQA group sizes (H / KV) it is compiled for
+#: cache rows per tile
 BLOCK_K = 64
-GROUPS = (1, 2, 4, 8)
-#: blocks of the kernel that fit on an SM at D = 128 (about 70 KB of
-#: shared memory each, of 228 KB): the splits fill one such wave at most
-BLOCKS_PER_SM = 3
+#: the (head dim, GQA group H / KV) pairs the kernel is compiled for: those
+#: of the repository's configs, full size and reduced
+PAIRS = ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2), (128, 1), (128, 4),
+         (128, 7), (128, 8), (256, 2), (256, 10))
+#: blocks per SM the splits may fill: None asks the kernel (its occupancy
+#: at the launch's (D, G) and dtype); 0 keeps the cache in one piece per
+#: (batch, KV head)
+BLOCKS_PER_SM = None
 
 #: (device index, stream) -> (partials, tickets) of the splits' merge
 _WORKSPACE = {}
@@ -47,11 +54,27 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits(b: int, kv: int, t: int, n_sm: int):
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(index: int, d: int, g: int, bf16: bool) -> int:
+    """Blocks of the kernel at (d, g) that fit on one SM of device
+    ``index`` at once."""
+    fn = _build.function("decode_attention", "decode_attention_blocks_per_sm",
+                         (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p))
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(d, g, int(bf16), ctypes.addressof(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(f"decode attention at D={d}, G={g} fits no block "
+                           f"on an SM (CUDA error {rc})")
+    return n.value
+
+
+def splits(b: int, kv: int, t: int, n_sm: int, per_sm: int):
     """(nsplit, chunk): the cache of T rows cut into nsplit pieces of
     ``chunk`` rows (a multiple of BLOCK_K), as many as fit B * KV * nsplit
-    blocks into one wave of BLOCKS_PER_SM blocks per SM."""
-    want = max(1, BLOCKS_PER_SM * n_sm // (b * kv))
+    blocks into one wave of ``per_sm`` blocks per SM."""
+    want = max(1, per_sm * n_sm // (b * kv))
     chunk = BLOCK_K * math.ceil(t / min(want, math.ceil(t / BLOCK_K))
                                 / BLOCK_K)
     return math.ceil(t / chunk), chunk
@@ -84,11 +107,11 @@ def _launch(q, k, v, lengths, window, softcap):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
-    if (k.shape[0] != b or k.shape[3] != d or h % kv
-            or h // kv not in GROUPS or d not in HEAD_DIMS):
+    if k.shape[0] != b or k.shape[3] != d or h % kv \
+            or (d, h // kv) not in PAIRS:
         raise ValueError(f"decode attention: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} disagree, H / KV is not one of "
-                         f"{GROUPS}, or D is not one of {HEAD_DIMS}")
+                         f"{tuple(k.shape)} disagree, or (D, H / KV) is not "
+                         f"one of {PAIRS}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,) \
             or not lengths.is_contiguous():
         raise ValueError(f"lengths must be a contiguous int32 [{b}] tensor; "
@@ -98,7 +121,11 @@ def _launch(q, k, v, lengths, window, softcap):
     o = torch.empty_like(q)
     if o.numel() == 0 or t == 0:
         return o.zero_()
-    nsplit, chunk = splits(b, kv, t, _sm_count(q.device.index))
+    bf16 = q.dtype == torch.bfloat16
+    per_sm = BLOCKS_PER_SM
+    if per_sm is None:
+        per_sm = blocks_per_sm(q.device.index, d, h // kv, bf16)
+    nsplit, chunk = splits(b, kv, t, _sm_count(q.device.index), per_sm)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part = tickets = None
     if nsplit > 1:
@@ -115,7 +142,7 @@ def _launch(q, k, v, lengths, window, softcap):
                 softcap if softcap is not None else 0.0, nsplit, chunk,
                 None if part is None else part.data_ptr(),
                 None if tickets is None else tickets.data_ptr(),
-                int(q.dtype == torch.bfloat16), stream)
+                int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {rc}")
     launches += 1

@@ -1,0 +1,76 @@
+"""Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``).
+
+A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
+``ref.py``.  ``launches`` counts the kernel's launches.  The kernel runs
+the recurrence h_t = a_t h_{t-1} + b_t in f32, one thread per (batch,
+width) lane, rounding the product and the sum apart as the plain version
+does.  ``rglru`` is the whole RG-LRU layer of the JAX package's
+``rglru_pallas``: the gates in plain PyTorch, the recurrence in the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+from . import ref
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+
+
+def _launch(a, b, h0):
+    global launches
+    if a.dim() != 3 or a.shape != b.shape:
+        raise ValueError("the RG-LRU scan takes a and b [B,S,W] of one "
+                         f"shape; got {tuple(a.shape)}, {tuple(b.shape)}")
+    bsz, s, w = a.shape
+    if h0 is not None and tuple(h0.shape) != (bsz, w):
+        raise ValueError(f"h0 must be [{bsz}, {w}]; got {tuple(h0.shape)}")
+    tensors = (a, b) if h0 is None else (a, b, h0)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("a, b and h0 must be on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("the RG-LRU scan takes f32 a, b and h0; got "
+                         f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the RG-LRU scan needs contiguous a, b and h0")
+    h = torch.empty_like(a)
+    if h.numel() == 0:
+        return h
+    fn = _build.function("rglru_scan", "rglru_scan", _ARGTYPES)
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(),
+                None if h0 is None else h0.data_ptr(), h.data_ptr(), bsz, s,
+                w, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"RG-LRU scan launch failed: CUDA error {rc}")
+    launches += 1
+    return h
+
+
+def linear_scan(a, b, h0=None):
+    """h_t = a_t h_{t-1} + b_t over axis 1 from h0 (zeros when None).  a,
+    b [B,S,W] f32; h0 [B,W] f32 -> h [B,S,W] f32, on a's device: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if a.device.type == "cpu":
+        return ref.linear_scan(a, b, h0)
+    return _launch(a, b, h0)
+
+
+def rglru(x, w_a, b_a, w_x, b_x, log_lambda, h0=None, *,
+          return_final_state: bool = False):
+    """x [B,S,W] -> h [B,S,W] in x's dtype (and the final state [B,W] f32
+    with ``return_final_state``): ``ref.rglru`` with the recurrence in
+    ``linear_scan``."""
+    a, b = ref.rglru_gates(x, w_a, b_a, w_x, b_x, log_lambda)
+    h = linear_scan(a, b, h0)
+    if return_final_state:
+        return h.to(x.dtype), h[:, -1].clone()
+    return h.to(x.dtype)

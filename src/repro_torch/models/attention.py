@@ -1,12 +1,14 @@
-"""GQA attention of the dense family, through the port's two kernels.
+"""GQA attention (global, and sliding-window for ``"local"`` layers),
+through the port's two kernels.
 
 Prefill runs the flash-attention kernel where the JAX package runs
 ``chunked_causal_attention``; decode runs the flash-decode kernel over the
 cache where it runs ``attention_decode_v2`` (the old cache merged with the
 new token: the same key set as the cache with the new token written at
 ``pos`` and ``lengths = pos + 1``).  On CPU tensors both kernels' wrappers
-take their plain versions.  MLA, cross-attention, sliding-window layers
-and the sharded paths are not ported.
+take their plain versions.  A ``"local"`` layer passes its window to both
+kernels, which mask the position-ordered cache rows to the last ``window``
+positions.  MLA, cross-attention and the sharded paths are not ported.
 """
 from __future__ import annotations
 
@@ -43,8 +45,10 @@ def _project(p, cfg: ModelConfig, x, positions):
     return q, k, v.view(b, s, kv, hd)
 
 
-def attention_forward(p, cfg: ModelConfig, x, positions, *, cache=None):
-    """Full-sequence causal attention (forward / prefill).  x [B,S,d];
+def attention_forward(p, cfg: ModelConfig, x, positions, *, window=None,
+                      cache=None):
+    """Full-sequence causal attention (forward / prefill), over the last
+    ``window`` positions when windowed.  x [B,S,d];
     ``cache`` (optional) is this layer's (k, v) [B,KV,T,hd]: the prompt's
     K/V are written into its rows [0, S) (the JAX package's
     ``_prefill_fill_attn`` for a ring that does not wrap) and attended
@@ -57,15 +61,17 @@ def attention_forward(p, cfg: ModelConfig, x, positions, *, cache=None):
         ck[:, :, :s].copy_(k)
         cv[:, :, :s].copy_(v)
         k, v = ck[:, :, :s], cv[:, :, :s]
-    out = flash_ops.attention(q.transpose(1, 2), k, v,
+    out = flash_ops.attention(q.transpose(1, 2), k, v, window=window,
                               softcap=cfg.attn_softcap)
     return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, lengths):
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, lengths, *,
+                     window=None):
     """One-token decode.  x [B,1,d]; ``cache`` is this layer's (k, v)
     [B,KV,T,hd], written in place at row ``pos``; ``lengths`` [B] int32
-    holds pos + 1, so every row attends to cache rows [0, pos]."""
+    holds pos + 1, so every row attends to cache rows [0, pos] (the last
+    ``window`` of them when windowed)."""
     b = x.shape[0]
     q, k, v = _project(p, cfg, x, (lengths - 1)[:, None])
     ck, cv = cache
@@ -73,5 +79,6 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, lengths):
     cv[:, :, pos].copy_(v[:, 0])
     # only the rows [0, pos]: the kernel sizes its splits from T
     out = decode_ops.decode(q[:, 0], ck[:, :, :pos + 1], cv[:, :, :pos + 1],
-                            lengths, softcap=cfg.attn_softcap)
+                            lengths, window=window,
+                            softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["wo"]

@@ -2,9 +2,10 @@
 
 One dataclass covers every family of ``repro.models`` and keeps all its
 fields, so a config compares field for field with the reference.  The port
-runs the ``dense`` family with the ``("attn",)`` layout and the ``ssm``
-family with the ``("ssm",)`` layout so far (``models/model.py`` raises for
-the rest).
+runs the ``dense`` family with the ``("attn",)`` layout, the ``ssm`` family
+with the ``("ssm",)`` layout and the ``hybrid`` family with RecurrentGemma's
+``("rec", "rec", "local")`` blocks and ``("rec", "rec")`` tail so far
+(``models/model.py`` raises for the rest).
 """
 from __future__ import annotations
 
@@ -107,6 +108,12 @@ class ModelConfig:
     def n_blocks(self) -> int:
         return ((self.num_layers - len(self.trailing_layout))
                 // len(self.block_layout))
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The sub-layer kind of every layer, in order: the block layout
+        ``n_blocks`` times, then the trailing layout."""
+        return self.block_layout * self.n_blocks + self.trailing_layout
 
     @property
     def pdtype(self) -> torch.dtype:

@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, SiLU, the SwiGLU MLP, embeddings and
-RoPE.
+"""Shared layer primitives: norms, SiLU, tanh GeLU, the SwiGLU and GeGLU
+MLPs, the causal depthwise conv, embeddings and RoPE.
 
 ``init_*`` builds a parameter sub-tree (a dict of tensors), the apply
 functions take (params, x).  Matrices are stored in the activation dtype:
@@ -47,6 +47,34 @@ def silu(x):
     return x * torch.reciprocal(1.0 + torch.exp(-x))
 
 
+def gelu_tanh(x):
+    """``jax.nn.gelu(approximate=True)`` with each op rounded to x's dtype,
+    as XLA rounds it in bf16 (``F.gelu(approximate="tanh")`` rounds once):
+    the constants are cast to x's dtype first."""
+    c, k = (torch.tensor(v, dtype=x.dtype, device=x.device)
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * x ** 3))))
+
+
+def causal_conv(x, w, b):
+    """x [bsz, s, ch], depthwise causal conv of width K (w [K, ch], bias b
+    [ch]): the K products summed in x's dtype in order, then the bias, as
+    the JAX package's prefill convs round."""
+    k, s = w.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = pad[:, :s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + b
+
+
+def conv_history(x, k: int):
+    """The last K - 1 rows of x [bsz, s, ch] (zero rows first when s <
+    K - 1): the conv's history for the next decode step."""
+    tail = x[:, -(k - 1):]
+    return torch.nn.functional.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+
+
 def softcap(x, cap: Optional[float]):
     if cap is None:
         return x
@@ -56,8 +84,11 @@ def softcap(x, cap: Optional[float]):
 # ---------------------------------------------------------------- MLP
 
 
+_GATES = {"swiglu": silu, "geglu": gelu_tanh}
+
+
 def init_mlp(gen, d_model: int, d_ff: int, variant: str, dtype, device=None):
-    if variant != "swiglu":
+    if variant not in _GATES:
         raise ValueError(f"mlp variant {variant!r} is not ported yet")
     return {"w_gate": dense_init(gen, (d_model, d_ff), dtype, device=device),
             "w_up": dense_init(gen, (d_model, d_ff), dtype, device=device),
@@ -65,9 +96,9 @@ def init_mlp(gen, d_model: int, d_ff: int, variant: str, dtype, device=None):
 
 
 def apply_mlp(params, x, variant: str):
-    if variant != "swiglu":
+    if variant not in _GATES:
         raise ValueError(f"mlp variant {variant!r} is not ported yet")
-    act = silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    act = _GATES[variant](x @ params["w_gate"]) * (x @ params["w_up"])
     return act @ params["w_down"]
 
 
@@ -80,8 +111,16 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device=None):
                                 scale=d_model ** -0.5, device=device)}
 
 
-def embed(params, tokens, *, adtype=torch.bfloat16):
-    return params["table"][tokens].to(adtype)
+def embed(params, tokens, *, scale_by_sqrt_dim: bool = False,
+          adtype=torch.bfloat16):
+    """The table's rows in the activation dtype; with ``scale_by_sqrt_dim``
+    (the gemma family) times sqrt(d) rounded to that dtype first, as the
+    JAX package multiplies."""
+    out = params["table"][tokens].to(adtype)
+    if scale_by_sqrt_dim:
+        out = out * torch.tensor(math.sqrt(params["table"].shape[1]),
+                                 dtype=adtype, device=out.device)
+    return out
 
 
 def unembed(params, x, *, cap: Optional[float] = None):

@@ -1,20 +1,27 @@
-"""Model assembly of the dense and ssm families: init / forward / prefill /
-decode.
+"""Model assembly of the dense, ssm and hybrid families: init / forward /
+prefill / decode.
 
 A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU MLP] ->
 final norm -> tied unembedding; an ssm model (Mamba-2) is embed -> N x
-[pre-norm Mamba-2 block] -> final norm -> tied unembedding, with no MLP.
-Where the JAX package scans over layer parameters stacked on a leading
-n_blocks dim, the port loops over a list: ``params["blocks"]["s0"]`` holds
-one dict per layer with the JAX names (``norm1``,
-``attn.{wq,wk,wv,wo[,bq,bk,bv]}``, ``norm2``, ``mlp.{w_gate,w_up,w_down}``;
-or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,dt_bias,A_log,D,norm_w,
-out_proj}``); ``params_from_jax`` unstacks a JAX parameter tree into that
-form.  Matrices, biases and the conv are kept in the activation dtype
-(cast once at load), norm weights and the Mamba-2 per-head scalars in f32.
+[pre-norm Mamba-2 block] -> final norm -> tied unembedding, with no MLP; a
+hybrid model (RecurrentGemma) is gemma-scaled embed -> 8 x [rec, rec,
+local] + [rec, rec] sub-layers, each [pre-norm mixer][pre-norm GeGLU MLP]
+(the mixer an RG-LRU block or sliding-window attention) -> final norm ->
+tied unembedding.  Where the JAX package scans over layer parameters
+stacked on a leading n_blocks dim per block slot, the port loops over a
+list: ``params["blocks"]["s0"]`` holds one dict per layer in layer order
+(``cfg.layer_kinds``) with the JAX names (``norm1``,
+``attn.{wq,wk,wv,wo[,bq,bk,bv]}`` or ``rec.{w_gate,w_x,conv_w,conv_b,
+lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, ``norm2``,
+``mlp.{w_gate,w_up,w_down}``; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
+dt_bias,A_log,D,norm_w,out_proj}``); ``params_from_jax`` unstacks a JAX
+parameter tree into that form, the hybrid's block slots interleaved.
+Matrices, biases and the convs are kept in the activation dtype (cast once
+at load); norm weights, the Mamba-2 per-head scalars and the RG-LRU gate
+parameters stay in f32.
 
-The other families (moe, hybrid, encdec, vlm) and the dense variants with
-local layers, MLA, post-norms or scaled embeddings raise ``ValueError``.
+The other families (moe, encdec, vlm) and the variants with MLA,
+post-norms or other layouts raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -27,27 +34,38 @@ from repro_torch.device import resolve_device
 
 from .attention import attention_decode, attention_forward, init_attention
 from .base import ModelConfig
-from .kvcache import init_cache
+from .kvcache import AttnCache, init_cache
 from .layers import (apply_mlp, embed, init_embedding, init_mlp, rms_norm,
                      unembed)
+from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
-#: the family -> block layout pairs the port runs
-_PORTED = {"dense": ("attn",), "ssm": ("ssm",)}
+#: family -> (block layout, trailing layout, MLP, scaled embeddings) the
+#: port runs
+_PORTED = {"dense": (("attn",), (), "swiglu", False),
+           "ssm": (("ssm",), (), "swiglu", False),
+           "hybrid": (("rec", "rec", "local"), ("rec", "rec"), "geglu",
+                      True)}
 #: the Mamba-2 parameters kept in f32 (the rest take the activation dtype)
 _SSM_F32 = ("dt_bias", "A_log", "D", "norm_w")
+#: the RG-LRU parameters kept in f32: the gates read them in f32
+_REC_F32 = ("lru_wa", "lru_wx", "lru_ba", "lru_bx", "log_lambda")
+#: the parameters kept in f32, by sub-tree
+_F32 = {"ssm": _SSM_F32, "rec": _REC_F32}
 
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` naming what of ``cfg`` the port does not run."""
+    layout, trailing, mlp, scaled = _PORTED.get(cfg.family,
+                                                (None, None, None, None))
     unported = [what for what, bad in (
-        (f"family {cfg.family!r}", cfg.family not in _PORTED),
+        (f"family {cfg.family!r}", layout is None),
         (f"layout {cfg.block_layout}+{cfg.trailing_layout}",
-         cfg.block_layout != _PORTED.get(cfg.family)
-         or bool(cfg.trailing_layout)),
-        (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant != "swiglu"),
+         (cfg.block_layout, cfg.trailing_layout) != (layout, trailing)),
+        (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant != mlp),
         ("MLA", cfg.use_mla), ("experts", bool(cfg.num_experts)),
-        ("post-norms", cfg.post_norm), ("scaled embeddings", cfg.embed_scale),
+        ("post-norms", cfg.post_norm),
+        ("scaled embeddings", cfg.embed_scale and not scaled),
         ("positions without RoPE", not cfg.use_rope),
         ("prefix embeddings", bool(cfg.num_prefix_embeds))) if bad]
     if unported:
@@ -65,23 +83,26 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def norm():
         return torch.zeros(d, dtype=torch.float32, device=dev)
 
-    def layer():
-        if cfg.family == "ssm":
+    def layer(kind):
+        if kind == "ssm":
             return {"norm1": norm(), "ssm": init_ssm(gen, cfg, adt, dev)}
-        return {"norm1": norm(), "attn": init_attention(gen, cfg, adt, dev),
-                "norm2": norm(),
+        mixer = ({"rec": init_rec(gen, cfg, adt, dev)} if kind == "rec" else
+                 {"attn": init_attention(gen, cfg, adt, dev)})
+        return {"norm1": norm(), **mixer, "norm2": norm(),
                 "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt, dev)}
 
     return {
         "embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
         "final_norm": norm(),
-        "blocks": {"s0": [layer() for _ in range(cfg.n_blocks)]},
+        "blocks": {"s0": [layer(kind) for kind in cfg.layer_kinds]},
     }
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
     """The JAX package's parameter tree (``repro.models.init_params``, as
-    numpy arrays or anything ``np.asarray`` reads) in the port's form."""
+    numpy arrays or anything ``np.asarray`` reads) in the port's form: for
+    layer order, block i's slots s0, s1, ... in turn, then the trailing
+    slots."""
     check_config(cfg)
     dev = resolve_device(device)
 
@@ -92,23 +113,29 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
     def vec(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    s0 = tree["blocks"]["s0"]
+    def layer(slot, i):
+        out = {}
+        for name, sub in slot.items():
+            if name.startswith("norm"):
+                out[name] = vec(sub[i])
+            else:
+                out[name] = {n: (vec if n in _F32.get(name, ()) else mat)(a[i])
+                             for n, a in sub.items()}
+        return out
 
-    def layer(i):
-        if cfg.family == "ssm":
-            return {"norm1": vec(s0["norm1"][i]),
-                    "ssm": {n: (vec if n in _SSM_F32 else mat)(a[i])
-                            for n, a in s0["ssm"].items()}}
-        return {"norm1": vec(s0["norm1"][i]),
-                "attn": {n: mat(a[i]) for n, a in s0["attn"].items()},
-                "norm2": vec(s0["norm2"][i]),
-                "mlp": {n: mat(a[i]) for n, a in s0["mlp"].items()}}
-
+    slots = [(tree["blocks"][f"s{j}"], i) for i in range(cfg.n_blocks)
+             for j in range(len(cfg.block_layout))]
+    slots += [(tree["trailing"][f"s{j}"], 0)
+              for j in range(len(cfg.trailing_layout))]
     return {
         "embed": {"table": mat(tree["embed"]["table"])},
         "final_norm": vec(tree["final_norm"]),
-        "blocks": {"s0": [layer(i) for i in range(cfg.n_blocks)]},
+        "blocks": {"s0": [layer(slot, i) for slot, i in slots]},
     }
+
+
+def _window(cfg: ModelConfig, kind: str):
+    return cfg.sliding_window if kind == "local" else None
 
 
 def _mlp_residual(p, cfg: ModelConfig, x):
@@ -116,27 +143,40 @@ def _mlp_residual(p, cfg: ModelConfig, x):
                          cfg.mlp_variant)
 
 
+def _entry(c, i):
+    """Layer i's cache entry: a view of the dense family's stacked K/V, or
+    the i-th of the per-layer list."""
+    return c[i] if isinstance(c, list) else AttnCache(c.k[i], c.v[i])
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    return embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale,
+                 adtype=cfg.adtype)
+
+
 def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None):
     """The hidden states [B,S,d] after every layer; with ``cache``, each
-    attention layer's K/V land in its rows [0, S) and each Mamba-2 layer's
-    state after the prompt replaces its slot."""
+    attention layer's K/V land in its rows [0, S) and each Mamba-2 or RG-LRU
+    layer's state after the prompt replaces its entry."""
     check_config(cfg)
-    x = embed(params["embed"], tokens, adtype=cfg.adtype)
+    x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for i, p in enumerate(params["blocks"]["s0"]):
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
+                                      params["blocks"]["s0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        if cfg.family == "ssm":
+        if kind in ("ssm", "rec"):
+            fwd = ssm_forward if kind == "ssm" else rec_forward
             if cache is None:
-                x = x + ssm_forward(p["ssm"], cfg, h)
+                o = fwd(p[kind], cfg, h)
             else:
-                o, cache[i] = ssm_forward(p["ssm"], cfg, h,
-                                          return_state=True)
-                x = x + o
-            continue
-        kv = None if cache is None else (cache.k[i], cache.v[i])
-        x = x + attention_forward(p["attn"], cfg, h, positions, cache=kv)
-        x = _mlp_residual(p, cfg, x)
+                o, cache[i] = fwd(p[kind], cfg, h, return_state=True)
+        else:
+            o = attention_forward(p["attn"], cfg, h, positions,
+                                  window=_window(cfg, kind),
+                                  cache=None if cache is None
+                                  else _entry(cache, i))
+        x = x + o if kind == "ssm" else _mlp_residual(p, cfg, x + o)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -146,14 +186,18 @@ def forward(params, cfg: ModelConfig, tokens):
                    cap=cfg.final_softcap)
 
 
+def _has_kv(cfg: ModelConfig) -> bool:
+    return bool({"attn", "local"} & set(cfg.layer_kinds))
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
     """Run the prompt: (last-position logits [B, 1, V], cache holding the
-    prompt's K/V, or the Mamba-2 states, for ``decode_step``).  ``max_seq``
-    sizes the attention cache; an ssm config has none and takes any
+    prompt's K/V and recurrent states for ``decode_step``).  ``max_seq``
+    sizes the attention caches; an ssm config has none and takes any
     prompt."""
     b, s = tokens.shape
     max_seq = max_seq or s
-    if "attn" in cfg.block_layout and s > max_seq:
+    if _has_kv(cfg) and s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit max_seq="
                          f"{max_seq} (the wrapping ring is not ported)")
     cache = init_cache(cfg, b, max_seq, cfg.adtype,
@@ -165,33 +209,30 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
 
 def decode_step(params, cfg: ModelConfig, token, cache):
     """One decode step.  token [B, 1] int -> (logits [B, 1, V], cache).
-    The cache is updated in place (the new K/V row at ``pos``, or each
-    layer's new Mamba-2 state, then ``pos + 1``) and returned."""
+    The cache is updated in place (the new K/V row at ``pos``, each
+    recurrent layer's new state, then ``pos + 1``) and returned."""
     check_config(cfg)
     pos, c = cache["pos"], cache["blocks"]["s0"]
-    x = embed(params["embed"], token, adtype=cfg.adtype)
-    if cfg.family == "ssm":
-        for i, p in enumerate(params["blocks"]["s0"]):
-            o, c[i] = ssm_decode_step(p["ssm"], cfg,
-                                      rms_norm(x, p["norm1"], cfg.norm_eps),
-                                      c[i])
-            x = x + o
-        return _decoded(params, cfg, x, cache)
-    if pos >= c.k.shape[3]:
-        raise ValueError(f"the cache holds {c.k.shape[3]} positions and is "
-                         "full (the wrapping ring is not ported)")
-    lengths = torch.full((x.shape[0],), pos + 1, dtype=torch.int32,
-                         device=x.device)
-    for i, p in enumerate(params["blocks"]["s0"]):
+    x = _embed(params, cfg, token)
+    lengths = None
+    if _has_kv(cfg):
+        rows = next(_entry(c, i).k.shape[2] for i, kind in
+                    enumerate(cfg.layer_kinds) if kind in ("attn", "local"))
+        if pos >= rows:
+            raise ValueError(f"the cache holds {rows} positions and is "
+                             "full (the wrapping ring is not ported)")
+        lengths = torch.full((x.shape[0],), pos + 1, dtype=torch.int32,
+                             device=x.device)
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
+                                      params["blocks"]["s0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attention_decode(p["attn"], cfg, h, (c.k[i], c.v[i]), pos,
-                                 lengths)
-        x = _mlp_residual(p, cfg, x)
-    return _decoded(params, cfg, x, cache)
-
-
-def _decoded(params, cfg: ModelConfig, x, cache):
-    """The step's logits from the last layer's output; ``pos`` + 1."""
+        if kind in ("ssm", "rec"):
+            step = ssm_decode_step if kind == "ssm" else rec_decode_step
+            o, c[i] = step(p[kind], cfg, h, c[i])
+        else:
+            o = attention_decode(p["attn"], cfg, h, _entry(c, i), pos,
+                                 lengths, window=_window(cfg, kind))
+        x = x + o if kind == "ssm" else _mlp_residual(p, cfg, x + o)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["pos"] += 1
     return unembed(params["embed"], x, cap=cfg.final_softcap), cache

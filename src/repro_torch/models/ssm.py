@@ -18,13 +18,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 from .base import ModelConfig
-from .layers import dense_init, rms_norm, silu
+from .layers import causal_conv, conv_history, dense_init, rms_norm, silu
 
 
 class SSMState(NamedTuple):
@@ -64,17 +63,6 @@ def _softplus(x):
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _causal_conv(xbc, w, b):
-    """xbc [bsz, s, ch], depthwise causal conv of width K (w [K, ch]), the
-    K products summed in xbc's dtype in order, then SiLU."""
-    k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = pad[:, :s] * w[0]
-    for i in range(1, k):
-        out = out + pad[:, i:i + s] * w[i]
-    return silu(out + b)
-
-
 def _split_proj(cfg: ModelConfig, zxbcdt):
     d_in, n = cfg.d_inner, cfg.ssm_state
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * n],
@@ -94,7 +82,7 @@ def ssm_forward(p, cfg: ModelConfig, u, *, return_state: bool = False):
     bsz, s, _ = u.shape
     d_in, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     z, xbc, dt = _split_proj(cfg, u @ p["in_proj"])
-    xbc_c = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xbc_c = silu(causal_conv(xbc, p["conv_w"], p["conv_b"]))
     # x, B and C stay column views of the conv output: the kernel reads them
     # strided
     x = xbc_c[..., :d_in].reshape(bsz, s, h, pd)
@@ -109,10 +97,8 @@ def ssm_forward(p, cfg: ModelConfig, u, *, return_state: bool = False):
     out = _gated_out(p, cfg, y.reshape(bsz, s, d_in), z)
     if not return_state:
         return out
-    k = cfg.ssm_conv_width
-    tail = xbc[:, -(k - 1):]
-    conv = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
-    return out, SSMState(ssm=final, conv=conv)
+    return out, SSMState(ssm=final,
+                         conv=conv_history(xbc, cfg.ssm_conv_width))
 
 
 def ssm_init_state(cfg: ModelConfig, bsz: int, dtype, device) -> SSMState:

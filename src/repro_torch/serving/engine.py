@@ -1,7 +1,7 @@
 """Batched serving engine: the LLM ``Backend`` (prefill + greedy decode
-over a dense or Mamba-2 model), the queued request, its result, and the
-per-backend ``DispatchQueue`` that batches requests into ``serve_batch``
-calls.
+over a dense, Mamba-2 or RecurrentGemma model), the queued request, its
+result, and the per-backend ``DispatchQueue`` that batches requests into
+``serve_batch`` calls.
 """
 from __future__ import annotations
 
@@ -72,16 +72,17 @@ class Backend:
         and the first generated token comes from the batch-wide last
         position (prefill only returns last-position logits), so mixed
         lengths corrupt the shorter requests' outputs — ``DispatchQueue``
-        groups by length automatically.  With attention layers, the prompt
-        and the generated tokens must fit ``max_seq`` (the attention cache,
-        kept in position order); an ssm config keeps a fixed-size state
-        and takes any length, as in the JAX package."""
+        groups by length automatically.  With attention layers, global
+        (``"attn"``) or sliding-window (``"local"``), the prompt and the
+        generated tokens must fit ``max_seq`` (the attention cache, kept in
+        position order); an ssm config keeps a fixed-size state and takes
+        any length, as in the JAX package."""
         if not requests:
             raise ValueError("serve_batch needs at least one request")
         b = len(requests)
         max_prompt = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
-        if "attn" in self.cfg.block_layout and \
+        if {"attn", "local"} & set(self.cfg.layer_kinds) and \
                 max_prompt + max(max_new, 1) - 1 > self.max_seq:
             raise ValueError(
                 f"{max_prompt} prompt + {max_new} new tokens do not fit "

@@ -30,10 +30,13 @@ torch.set_num_threads(1)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 #: the grids of tests/test_kernels.py: MQA, GQA, MHA (d=128) x f32/bf16 x
-#: {none, window, softcap}
-FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128)]
+#: {none, window, softcap}, and recurrentgemma-2b's MQA group of 10 heads
+#: of 256
+FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
+                (1, 10, 1, 128, 256)]
 FLASH_KW = [{}, {"window": 64}, {"softcap": 30.0}]
-DECODE_SHAPES = [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128)]
+DECODE_SHAPES = [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
+                 (2, 10, 1, 256, 256)]
 DECODE_KW = [{}, {"window": 128}, {"softcap": 25.0}]
 
 
@@ -148,12 +151,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_decode_splits_cover_the_cache():
-    for b, kv, t in ((8, 8, 1280), (8, 2, 1280), (1, 1, 70), (64, 8, 4096)):
-        nsplit, chunk = decode_ops.splits(b, kv, t, 132)
-        assert chunk % decode_ops.BLOCK_K == 0
-        assert (nsplit - 1) * chunk < t <= nsplit * chunk
-        # one wave: no more blocks than fit on the SMs at once
-        assert nsplit == 1 or b * kv * nsplit <= decode_ops.BLOCKS_PER_SM * 132
+    """At 3 blocks per SM (D = 128), 1 (recurrentgemma-2b's D = 256,
+    G = 10: 144 KB of shared memory a block) and 0 (one piece)."""
+    for b, kv, t in ((8, 8, 1280), (8, 2, 1280), (1, 1, 70), (64, 8, 4096),
+                     (8, 1, 1040)):
+        for per_sm in (3, 1, 0):
+            nsplit, chunk = decode_ops.splits(b, kv, t, 132, per_sm)
+            assert chunk % decode_ops.BLOCK_K == 0
+            assert (nsplit - 1) * chunk < t <= nsplit * chunk
+            # one wave: no more blocks than fit on the SMs at once
+            assert nsplit == 1 or b * kv * nsplit <= per_sm * 132
+    assert decode_ops.splits(8, 1, 1040, 132, 1) == (9, 128)
+    assert decode_ops.splits(8, 1, 1040, 132, 0)[0] == 1
 
 
 def test_wrappers_reject_bad_options():
@@ -175,7 +184,8 @@ def _cuda_inputs(shapes, dtype, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_SHAPES + [(2, 8, 2, 300, 128),
-                                                  (1, 4, 2, 37, 32)])
+                                                  (1, 4, 2, 37, 32),
+                                                  (2, 10, 1, 300, 256)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kw", FLASH_KW, ids=["plain", "window", "softcap"])
 def test_flash_kernel_matches_plain(cuda, shape, dtype, kw):
@@ -204,7 +214,9 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DECODE_SHAPES + [(3, 8, 2, 1000, 128),
-                                                   (2, 4, 4, 70, 32)])
+                                                   (2, 4, 4, 70, 32),
+                                                   (3, 10, 1, 1000, 256),
+                                                   (2, 20, 2, 300, 256)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kw", DECODE_KW, ids=["plain", "window", "softcap"])
 def test_decode_kernel_matches_plain(cuda, shape, dtype, kw):
@@ -233,6 +245,9 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k = torch.zeros(1, 1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         decode_ops.decode(q, k, k, torch.ones(1, device=cuda))
+    with pytest.raises(ValueError, match=r"\(D, H / KV\) is not one of"):
+        decode_ops.decode(torch.zeros(1, 3, 32, device=cuda), k, k,
+                          torch.ones(1, dtype=torch.int32, device=cuda))
     kt = torch.zeros(1, 1, 32, 8, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous last dim"):
         decode_ops.decode(q, kt, kt,

@@ -1,6 +1,6 @@
-"""The port's LLM serving face (dense and ssm families) against the JAX
-package's, on the CPU: configs, the model (forward, prefill, decode),
-``Backend``, ``ServingPool``/``PoolPolicy`` and ``EcoreService``.
+"""The port's LLM serving face (dense, ssm and hybrid families) against
+the JAX package's, on the CPU: configs, the model (forward, prefill,
+decode), ``Backend``, ``ServingPool``/``PoolPolicy`` and ``EcoreService``.
 
 Both packages run the same parameters: the JAX ``init_params`` tree
 (norms and biases perturbed so that they count), carried across with
@@ -10,9 +10,10 @@ the JAX model's chunked attention rounds the normalized probabilities to
 bf16 before the value product, the flash kernels and their plain versions
 keep them in f32.  Over two layers that moves a few logits (magnitude up
 to ~4) by up to 0.07, so the bf16 bar is atol 6.25e-2 (4 bf16 ulps in
-[2, 4)), rtol 3e-2; the Mamba-2 model (mamba2-370m) is held to the same
-two bars.  Routing decisions are equal, over the dense pool and over the
-three-model pool with mamba2-370m.
+[2, 4)), rtol 3e-2; the Mamba-2 model (mamba2-370m) and RecurrentGemma
+(recurrentgemma-2b) are held to the same two bars.  Routing decisions are
+equal, over the dense pool, the three-model pool with mamba2-370m and the
+four-model pool with recurrentgemma-2b.
 """
 import dataclasses
 
@@ -26,6 +27,7 @@ from repro.configs import get_config as jax_get_config
 from repro.core.policy import PoolPolicy as JaxPoolPolicy
 from repro.core.policy import RouteRequest as JaxRouteRequest
 from repro.launch.serve import synthetic_pool_table as jax_pool_table
+from repro.models import layers as jax_layers
 from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
@@ -36,8 +38,10 @@ from repro.serving.pool import ServingPool as JaxServingPool
 from repro.serving.service import EcoreService as JaxEcoreService
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.policy import Observation, PoolPolicy, RouteRequest
-from repro_torch.models import (decode_step, forward, init_params,
-                                params_from_jax, prefill)
+from repro_torch.models import (ModelConfig, decode_step, forward,
+                                init_params, params_from_jax, prefill)
+from repro_torch.models import layers
+from repro_torch.models.model import check_config
 from repro_torch.serving.backend import make_backend
 from repro_torch.serving.engine import Backend, Request
 from repro_torch.serving.pool import (LENGTH_BUCKETS, ServingPool, bucket_of,
@@ -50,15 +54,20 @@ ARCHS = ("qwen2.5-3b", "llama3-8b")
 MAMBA = "mamba2-370m"
 #: launch/serve.py's default pool up to its first unported member
 POOL3 = ARCHS + (MAMBA,)
+RG = "recurrentgemma-2b"
+#: the default pool without its only unported member, granite-moe-1b-a400m
+POOL4 = POOL3 + (RG,)
 #: prompt lengths in every bucket, and on each bucket edge
 PROMPT_LENS = [1, 64, 512, 513, 2048, 2049, 8192, 8193, 32768, 32769, 100000]
 
 
-def _configs(arch, activ_dtype="float32"):
-    """The reduced two-layer config in both packages."""
-    return (jax_get_config(arch).reduced(num_layers=2,
-                                         activ_dtype=activ_dtype),
-            get_config(arch).reduced(num_layers=2, activ_dtype=activ_dtype))
+def _configs(arch, activ_dtype="float32", **kw):
+    """The reduced config in both packages: two layers, or for the hybrid
+    family one (rec, rec, local) block and the trailing (rec, rec) pair."""
+    if arch != RG:
+        kw = {"num_layers": 2, **kw}
+    return (jax_get_config(arch).reduced(activ_dtype=activ_dtype, **kw),
+            get_config(arch).reduced(activ_dtype=activ_dtype, **kw))
 
 
 def _params(jax_cfg, cfg, seed=0):
@@ -69,7 +78,9 @@ def _params(jax_cfg, cfg, seed=0):
 
     def perturb(path, a):
         name = jax.tree_util.keystr(path)
-        if "norm" in name or "'b" in name:
+        if "norm" in name or "'b" in name or (
+                "['rec']" in name and name.endswith(("_b']", "_ba']",
+                                                     "_bx']"))):
             return a + jnp.asarray(0.1 * rng.standard_normal(a.shape),
                                    a.dtype)
         return a
@@ -85,7 +96,7 @@ def _tol(activ_dtype):
 
 # ------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", POOL3)
+@pytest.mark.parametrize("arch", POOL4)
 def test_configs_equal_jax_field_for_field(arch):
     jc, tc = jax_get_config(arch), get_config(arch)
     for field in dataclasses.fields(jc):
@@ -100,12 +111,14 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_unported_configs_raise():
-    assert sorted(list_configs()) == sorted(POOL3)
-    for name in ("recurrentgemma-2b", "gemma2-9b", "llama3-8b-swa"):
+    assert sorted(list_configs()) == sorted(POOL4)
+    for name in ("gemma2-9b", "llama3-8b-swa", "granite-moe-1b-a400m"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     cfg = get_config("llama3-8b").reduced(num_layers=2)
-    with pytest.raises(ValueError, match="not ported yet: family 'hybrid'"):
+    with pytest.raises(ValueError, match="not ported yet: family 'moe'"):
+        init_params(dataclasses.replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="ssm"), device="cpu")
@@ -209,6 +222,132 @@ def test_mamba_params_from_jax_keep_the_scalars_in_f32():
         n: (t.shape, t.dtype) for n, t in layer["ssm"].items()}
 
 
+@pytest.mark.parametrize("activ_dtype", ["float32", "bfloat16"])
+def test_hybrid_matches_jax(activ_dtype):
+    """recurrentgemma-2b reduced (window 16): forward, then prefill of a
+    24-token prompt and 16 decode steps at max_seq 48, which take the JAX
+    local ring (16 slots) past its wrap, tokens equal in f32.  The
+    recurrent states equal the JAX cache's, and the position-ordered local
+    K/V hold the ring's rows at the positions its ``pos_buf`` names."""
+    jc, tc = _configs(RG, activ_dtype)
+    jp, tp = _params(jc, tc)
+    atol, rtol = _tol(activ_dtype)
+    toks = np.random.default_rng(1).integers(0, jc.vocab_size, (2, 24))
+    jt = jnp.asarray(toks, jnp.int32)
+
+    def close(got, want):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=atol, rtol=rtol)
+
+    close(forward(tp, tc, torch.from_numpy(toks)), jax_forward(jp, jc, jt))
+    jlog, jcache = jax_prefill(jp, jc, jt, max_seq=48)
+    tlog, tcache = prefill(tp, tc, torch.from_numpy(toks), max_seq=48)
+    close(tlog, jlog)
+    for step in range(16):
+        nxt = jnp.argmax(jlog, axis=-1).astype(jnp.int32)
+        if activ_dtype == "float32":
+            np.testing.assert_array_equal(tlog.argmax(-1).numpy(),
+                                          np.asarray(nxt))
+        jlog, jcache = jax_decode_step(jp, jc, nxt, jcache)
+        tlog, tcache = decode_step(tp, tc, torch.from_numpy(
+            np.array(nxt)).long(), tcache)
+        close(tlog, jlog)
+    assert tcache["pos"] == int(jcache["pos"]) == 40
+    jslots = [jcache["blocks"][f"s{j}"] for j in range(3)] + \
+        [jcache["trailing"][f"s{j}"] for j in range(2)]
+    for kind, entry, js in zip(tc.layer_kinds, tcache["blocks"]["s0"],
+                               jslots):
+        if kind == "rec":
+            close(entry.h, js.h[0])
+            close(entry.conv, js.conv[0])
+            continue
+        pos_buf = np.asarray(js.pos_buf[0])
+        assert entry.k.shape == (2, tc.num_kv_heads, 48, tc.head_dim)
+        assert sorted(pos_buf) == list(range(24, 40))  # wrapped
+        for name in ("k", "v"):
+            ring = np.asarray(getattr(js, name)[0], np.float32)
+            close(getattr(entry, name)[:, :, pos_buf],
+                  ring.transpose(0, 2, 1, 3))
+
+
+def test_hybrid_params_from_jax_interleave_the_block_slots():
+    """Layer order is block 0's slots s0, s1, s2, block 1's, ..., then the
+    trailing slots: two blocks here, so reading one slot for every block
+    first would give another order."""
+    jc, tc = _configs(RG, "bfloat16", num_layers=8)
+    jp, tp = _params(jc, tc)
+    layers = tp["blocks"]["s0"]
+    assert tc.layer_kinds == ("rec", "rec", "local") * 2 + ("rec", "rec")
+    order = [("blocks", j, i) for i in range(2) for j in range(3)] + \
+        [("trailing", j, 0) for j in range(2)]
+    for kind, layer, (group, j, i) in zip(tc.layer_kinds, layers, order):
+        slot = jp[group][f"s{j}"]
+        mixer = "rec" if kind == "rec" else "attn"
+        assert sorted(layer) == sorted(["norm1", mixer, "norm2", "mlp"])
+        np.testing.assert_array_equal(layer["norm1"].numpy(),
+                                      np.asarray(slot["norm1"][i]))
+        name = "w_x" if kind == "rec" else "wq"
+        np.testing.assert_array_equal(
+            layer[mixer][name].float().numpy(),
+            np.asarray(slot[mixer][name][i].astype(jnp.bfloat16)
+                       .astype(jnp.float32)))
+    rec = layers[0]["rec"]
+    assert {n for n, t in rec.items() if t.dtype == torch.float32} == {
+        "lru_wa", "lru_wx", "lru_ba", "lru_bx", "log_lambda"}
+    assert {n for n, t in rec.items() if t.dtype == torch.bfloat16} == {
+        "w_gate", "w_x", "conv_w", "conv_b", "w_out"}
+    own = init_params(tc, seed=0, device="cpu")
+    for mine, theirs in zip(own["blocks"]["s0"], layers):
+        assert jax.tree_util.tree_map(lambda t: (t.shape, t.dtype), mine) \
+            == jax.tree_util.tree_map(lambda t: (t.shape, t.dtype), theirs)
+
+
+def test_gelu_tanh_and_scaled_embedding_bit_equal_jax_in_bf16():
+    """XLA rounds every op of ``jax.nn.gelu(approximate=True)`` in bf16 and
+    the gemma embedding scale sqrt(d) to bf16 before the product (50.5 at
+    d = 2560); the port does the same."""
+    rng = np.random.default_rng(0)
+    jx = jnp.asarray(3 * rng.standard_normal(20000, np.float32),
+                     jnp.bfloat16)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    np.testing.assert_array_equal(
+        layers.gelu_tanh(tx).float().numpy(),
+        np.asarray(jax.nn.gelu(jx, approximate=True).astype(jnp.float32)))
+    x32 = rng.standard_normal(2000, np.float32)
+    np.testing.assert_allclose(
+        layers.gelu_tanh(torch.from_numpy(x32)).numpy(),
+        np.asarray(jax.nn.gelu(jnp.asarray(x32), approximate=True)),
+        atol=1e-6)
+    table = rng.standard_normal((64, 2560), np.float32) / 50
+    toks = rng.integers(0, 64, (2, 7))
+    want = jax_layers.embed({"table": jnp.asarray(table)},
+                            jnp.asarray(toks), scale_by_sqrt_dim=True,
+                            adtype=jnp.bfloat16)
+    got = layers.embed({"table": torch.from_numpy(table).bfloat16()},
+                       torch.from_numpy(toks), scale_by_sqrt_dim=True,
+                       adtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    assert float(torch.tensor(2560 ** 0.5, dtype=torch.bfloat16)) == 50.5
+
+
+def test_check_config_accepts_the_hybrid_family():
+    check_config(get_config(RG))
+    check_config(get_config(RG).reduced())
+    assert get_config(RG).is_subquadratic
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("granite-moe-1b-a400m", "experts"), ("deepseek-v2-lite-16b", "MLA"),
+    ("whisper-small", "family 'encdec'"), ("llava-next-34b", "family 'vlm'"),
+    ("gemma2-9b", "post-norms"), ("llama3-8b-swa", "layout")])
+def test_check_config_rejects_what_is_not_ported(arch, what):
+    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
+    with pytest.raises(ValueError, match=what):
+        check_config(cfg)
+
+
 def test_params_from_jax_unstacks_with_the_jax_names():
     jc, tc = _configs("qwen2.5-3b", "bfloat16")
     _, tp = _params(jc, tc)
@@ -267,7 +406,7 @@ def _backends(arch, seed=0, **kw):
     return jb, tb
 
 
-@pytest.mark.parametrize("arch", POOL3)
+@pytest.mark.parametrize("arch", POOL4)
 @pytest.mark.parametrize("prompt_len", [5, 17])
 def test_serve_batch_tokens_equal_jax(arch, prompt_len):
     jb, tb = _backends(arch, max_batch=4, max_seq=32)
@@ -293,6 +432,23 @@ def test_serve_batch_rejects_what_does_not_fit():
         tb.serve_batch([])
 
 
+def test_hybrid_serve_batch_checks_max_seq_for_local_layers():
+    """The local layers' cache holds max_seq rows in position order: a
+    prompt and new tokens past it raise, in the engine and in the model."""
+    _, tb = _backends(RG, max_seq=16)
+    with pytest.raises(ValueError, match="max_seq=16"):
+        tb.serve_batch([Request(uid=0, prompt=np.arange(12),
+                                max_new_tokens=6)])
+    with pytest.raises(ValueError, match="max_seq=8"):
+        prefill(tb.params, tb.cfg, torch.zeros((1, 9), dtype=torch.long),
+                max_seq=8)
+    _, cache = prefill(tb.params, tb.cfg,
+                       torch.zeros((1, 8), dtype=torch.long), max_seq=8)
+    with pytest.raises(ValueError, match="full"):
+        decode_step(tb.params, tb.cfg, torch.zeros((1, 1), dtype=torch.long),
+                    cache)
+
+
 def test_mamba_backend_takes_prompts_longer_than_max_seq_as_jax_does():
     """An ssm config has no attention cache: the JAX backend serves a
     prompt and new tokens beyond max_seq, and so does the port."""
@@ -313,7 +469,8 @@ def test_llm_backend_is_registered():
 # ------------------------------------------------------------- routing
 
 @pytest.mark.parametrize("archs,delta", [(ARCHS, 5.0), (ARCHS, 10.0),
-                                         (POOL3, 10.0), (POOL3, 18.5)])
+                                         (POOL3, 10.0), (POOL3, 18.5),
+                                         (POOL4, 10.0)])
 def test_pool_and_policy_decisions_equal_jax(archs, delta):
     jpool = JaxServingPool(jax_pool_table(archs), delta=delta)
     pool = ServingPool(synthetic_pool_table(archs, device="cpu"),
@@ -360,6 +517,17 @@ def test_bucket_zero_goes_to_mamba2_from_delta_18():
                       18.5: [MAMBA, "qwen2.5-3b"]}
 
 
+def test_bucket_one_goes_to_recurrentgemma_at_delta_10():
+    """In the four-model pool at δ = 10, bucket 0's best is llama3-8b's
+    capped 72.0: qwen2.5-3b (62.33) is the cheapest within δ; bucket 1's
+    best is 72.86, qwen2.5-3b misses it by 0.53 and recurrentgemma-2b
+    (63.31) is the cheapest within δ."""
+    pool = ServingPool(synthetic_pool_table(POOL4, device="cpu"), delta=10)
+    assert [d.arch for d in pool.route_batch([256, 1024])] == \
+        ["qwen2.5-3b", RG]
+    assert [pool.route(n).arch for n in (256, 1024)] == ["qwen2.5-3b", RG]
+
+
 def test_pool_observe_matches_jax():
     from repro.core.policy import Observation as JaxObservation
     jpol = JaxPoolPolicy(JaxServingPool(jax_pool_table(ARCHS), delta=10))
@@ -386,7 +554,8 @@ def test_pool_observe_matches_jax():
 # ------------------------------------------------------------- service
 
 @pytest.mark.parametrize("archs,delta,served", [
-    (ARCHS, 10.0, ARCHS), (POOL3, 18.5, (MAMBA, "qwen2.5-3b"))])
+    (ARCHS, 10.0, ARCHS), (POOL3, 18.5, (MAMBA, "qwen2.5-3b")),
+    (POOL4, 10.0, ("qwen2.5-3b", RG))])
 def test_service_tokens_equal_jax(archs, delta, served):
     """Requests in two buckets through ``EcoreService`` over a reduced
     pool: same routes, same tokens as the JAX service."""
@@ -461,6 +630,34 @@ def test_mamba_on_cuda_matches_cpu():
     glog, gcache = prefill(gp, tc, toks.cuda())
     assert ssd_ops.launches == before + tc.num_layers
     for _ in range(4):
+        np.testing.assert_allclose(glog.cpu().numpy(), clog.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        nxt = clog.argmax(-1)
+        clog, ccache = decode_step(tp, tc, nxt, ccache)
+        glog, gcache = decode_step(gp, tc, nxt.cuda(), gcache)
+
+
+@pytest.mark.cuda
+def test_hybrid_on_cuda_matches_cpu():
+    """The reduced recurrentgemma-2b in f32 through the RG-LRU, flash and
+    decode kernels on the card and through their plain versions on the
+    CPU, past the window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU for the CUDA kernels")
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jc, tc = _configs(RG)
+    _, tp = _params(jc, tc)
+    gp = jax.tree_util.tree_map(lambda t: t.cuda(), tp)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512,
+                                                              (2, 20)))
+    before = (lru_ops.launches, flash_ops.launches)
+    clog, ccache = prefill(tp, tc, toks, max_seq=32)
+    glog, gcache = prefill(gp, tc, toks.cuda(), max_seq=32)
+    assert (lru_ops.launches, flash_ops.launches) == (before[0] + 4,
+                                                      before[1] + 1)
+    for _ in range(6):
         np.testing.assert_allclose(glog.cpu().numpy(), clog.numpy(),
                                    atol=1e-4, rtol=1e-4)
         nxt = clog.argmax(-1)
