@@ -23,9 +23,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    each 10 back-to-back calls), and each kernel's device time from the
    profiler;
 8. the flash-attention kernel against its plain version (atol 2e-5 in f32,
-   2e-2 in bf16, rtol 1e-2): MQA, GQA and MHA, D = 32, 64, 128 and 256
-   (recurrentgemma-2b's 10 heads over one KV head), f32 and bf16, no mask
-   beyond causal, window 64 and softcap 30, ragged S;
+   2e-2 in bf16, rtol 1e-2; bf16 also against the plain version in f32
+   within the output's rounding, 2^-8 relative, plus 1e-4): MQA, GQA and
+   MHA, D = 32, 64, 128 and 256 (recurrentgemma-2b's 10 heads over one KV
+   head), f32 (CUDA cores) and bf16 (tensor cores), no mask beyond
+   causal, window 64, softcap 30 and both, ragged S;
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
    D = 256;
@@ -41,13 +43,16 @@ Phases, each printed as it ends; any failure exits non-zero:
     1e-3 and equal tokens;
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
     times at the main path's shapes (llama3-8b's, qwen2.5-3b's and
-    recurrentgemma-2b's, window 2048), the decode kernel's split sizing
+    recurrentgemma-2b's, window 2048), flash's achieved TFLOP/s beside the
+    library's, the decode kernel's split sizing
     against one piece and against splits sized from the whole cache, and
     both kernels against their plain versions computed in f32 (within
     the bf16 rounding of the output, 2^-8 relative, plus 1e-4);
 13. the SSD scan kernel against its plain version: at the JAX tests'
     shapes and chunks and a ragged S, y and the final state within atol
-    2e-4, rtol 1e-3; at mamba2-370m's (8, 500, 32, 64, 128), chunk 256,
+    2e-4, rtol 1e-3 in f32 (CUDA cores), and in bf16 (tensor cores) y
+    within the bf16 bar below; at mamba2-370m's (8, 500, 32, 64, 128),
+    chunk 256,
     the f32 kernel and the f32 plain version against the plain version in
     f64 (the kernel's error at most twice the plain version's own), and
     the bf16 kernel within one bf16 ulp of the f32 plain version plus
@@ -63,7 +68,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     CPU, same parameters, a 500-token prompt: logits within 1e-3 and equal
     tokens;
 16. SSD kernel and plain-version times at mamba2-370m's prefill shape
-    against the kernel's bound (no PyTorch call computes the scan);
+    against the kernel's bound, with the device time of each of its three
+    bf16 passes (no PyTorch call computes the scan);
 17. the RG-LRU scan kernel against its plain version: at the JAX tests'
     shapes (1, 16, 128) and (2, 33, 256) and at W = 200 and 1000, with and
     without h0, within atol 1e-5; at recurrentgemma-2b's (8, 1024, 2560) in
@@ -188,19 +194,24 @@ def median_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, kernel: str, reps: int = 10):
-    """Device time per call of the kernel whose name contains ``kernel``,
-    from the profiler's trace of ``reps`` calls (None when the trace does
-    not hold one such kernel per call).  The calls run twice, a warm-up
-    step that the profiler traces and discards, then the traced step:
-    short traces on the H100 machine lost the first kernels of a window
-    (up to all five flash-attention calls of one); a trace that still
-    lost some is taken again, up to three times."""
+def device_ms(fn, kernel: str, reps: int = 10, per_call: int = 1,
+              parts=None):
+    """Device time per call of the ``per_call`` kernels whose names contain
+    ``kernel``: the sum of each one's mean time a launch in the profiler's
+    trace of ``reps`` calls (None when the trace holds none of one of
+    them); ``parts``, a dict, receives each one's mean by name.  The calls
+    run twice, a warm-up step that the profiler traces and discards, then
+    the traced step: short traces on the H100 machine lose kernels at
+    random (up to all five flash-attention calls of one window, one of
+    five in many), so a trace that lost some is kept with the mean of the
+    launches it holds, and one that lost a kernel entirely is taken
+    again, up to three times."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that lost kernels is taken again
+    for _ in range(3):  # a trace that lost a kernel is taken again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
@@ -211,10 +222,16 @@ def device_ms(fn, kernel: str, reps: int = 10):
                 prof.step()
         events = [e for e in prof.key_averages() if kernel in e.key]
         found = sum(e.count for e in events)
-        if found == reps:
-            return sum(e.self_device_time_total for e in events) / reps / 1e3
-        print(f"profiler: {found} {kernel!r} kernels in the trace of {reps} "
-              f"calls")
+        if found != reps * per_call:
+            print(f"profiler: {found} {kernel!r} kernels in the trace of "
+                  f"{reps} calls of {per_call}")
+        if len(events) == per_call:
+            if parts is not None:
+                parts.update({re.search(rf"\w*{kernel}\w*", e.key).group(0):
+                              e.self_device_time_total / e.count / 1e3
+                              for e in events})
+            return sum(e.self_device_time_total / e.count
+                       for e in events) / 1e3
     print("device time not measured")
     return None
 
@@ -288,10 +305,17 @@ def attention_grids(dev) -> None:
         for dt in dtypes:
             q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
                             dt, sum(shape), dev)
-            for kw in ({}, {"window": 64}, {"softcap": 30.0}):
+            for kw in ({}, {"window": 64}, {"softcap": 30.0},
+                       {"window": 64, "softcap": 30.0}):
+                got = fl_ops.attention(q, k, v, **kw)
                 errs[dt] = max(errs[dt], attention_close(
-                    f"flash {shape} {dt} {kw}", fl_ops.attention(q, k, v, **kw),
+                    f"flash {shape} {dt} {kw}", got,
                     fl_ref.mha_reference(q, k, v, **kw)))
+                if dt == torch.bfloat16:
+                    attention_close_f32(f"flash {shape} {kw}", got,
+                                        fl_ref.mha_reference(
+                                            q.float(), k.float(), v.float(),
+                                            **kw))
                 n += 1
     q, cache = randn([(2, 100, 8, 128), (2, 2, 160, 128)], torch.bfloat16, 1,
                      dev)
@@ -604,12 +628,14 @@ def attention_timing(dev):
         # causal: row i sees i + 1 columns; 4 flops per (row, col, d)
         flops = 4 * b * h * d * s * (s + 1) // 2
         bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * s * d))
+        rate = flops / (dk or kern) / 1e9
         print(f"time flash {arch} prefill {shape} bf16 {kw}: kernel "
               f"{kern:.4f} ms "
-              f"(device time {dk} ms), plain {plain:.4f} ms, "
-              f"scaled_dot_product_attention {lib:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP); max err "
-              f"{err:.3g} (bf16 plain), {err32:.3g} (f32 plain)")
+              f"(device time {dk} ms, {rate:.1f} TFLOP/s), plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
+              f"({flops / lib / 1e9:.1f} TFLOP/s), bound {bnd:.5f} ms "
+              f"({by}: {flops / 1e9:.1f} GFLOP); max err {err:.3g} (bf16 "
+              f"plain), {err32:.3g} (f32 plain)")
         rows.setdefault("flash_attention", (kern, plain, bnd, by, lib, err))
 
     rng = np.random.default_rng(29)
@@ -758,6 +784,36 @@ def ssd_check(dev):
     def max_err(a, b):
         return float((a.double() - b.double()).abs().max())
 
+    def bf16_bar(args, chunk):
+        """(the bf16 kernel's y, its max error against the f32 plain
+        version rounded to bf16, the largest share of its bar an element
+        takes, the f32 bar); fails unless every element is within one
+        bf16 ulp of |want| plus twice the f32 plain version's own error
+        against f64."""
+        y16 = ssd_ops.ssd(*args, chunk=chunk)
+        f32 = [a.float() for a in args]
+        want = ssd_ref.ssd_chunked(*f32, chunk=chunk)
+        bar32 = 2 * max_err(want, ssd_ref.ssd_chunked(
+            *(a.double() for a in f32), chunk=chunk))
+        _, e = torch.frexp(want.abs())
+        ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
+                                                      e - 8))
+        err = (y16.float() - want.bfloat16().float()).abs()
+        if not bool((err <= ulp + bar32).all()):
+            fail(f"ssd at {tuple(args[0].shape)} chunk {chunk}: the bf16 "
+                 f"kernel misses its bar")
+        return y16, float(err.max()), float((err / (ulp + bar32)).max()), \
+            bar32
+
+    used = 0.0
+    for i, (shape, chunk) in enumerate(cases):
+        args = ssd_inputs(shape, 50 + i, dev, torch.bfloat16,
+                          mamba_decays=False)
+        used = max(used, bf16_bar(args, chunk)[2])
+    print(f"ssd scan: bf16 kernel on the same {len(cases)} cases within one "
+          f"bf16 ulp plus twice the f32 plain version's error against f64: "
+          f"the largest share of its bar an element takes {used:.3g}")
+
     args = ssd_inputs(SSD_SHAPE, 41, dev, torch.float32)
     y, st = ssd_ops.ssd(*args, chunk=SSD_CHUNK, return_final_state=True)
     y32, st32 = ssd_ref.ssd_chunked(*args, chunk=SSD_CHUNK,
@@ -777,26 +833,15 @@ def ssd_check(dev):
     del y, st, y32, st32, y64, st64
 
     args = ssd_inputs(SSD_SHAPE, 41, dev, torch.bfloat16)
-    y16 = ssd_ops.ssd(*args, chunk=SSD_CHUNK)
-    f32 = [a.float() for a in args]
-    want = ssd_ref.ssd_chunked(*f32, chunk=SSD_CHUNK)
-    bar32 = 2 * max_err(want, ssd_ref.ssd_chunked(
-        *(a.double() for a in f32), chunk=SSD_CHUNK))
-    _, e = torch.frexp(want.abs())
-    ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
-                                                  e - 8))
-    err = (y16.float() - want.bfloat16().float()).abs()
-    used = float((err / (ulp + bar32)).max())
+    y16, err, used, bar32 = bf16_bar(args, SSD_CHUNK)
     plain16 = max_err(y16, ssd_ref.ssd_chunked(*args, chunk=SSD_CHUNK))
     print(f"ssd {SSD_SHAPE} chunk {SSD_CHUNK} bf16 y, against the f32 "
-          f"plain version rounded to bf16: max err {float(err.max()):.4g}, "
-          f"bar one bf16 ulp of |want| + {bar32:.4g} (the largest share "
-          f"of its bar an element takes: {used:.3g}); against the bf16 "
-          f"plain version: {plain16:.4g}")
-    if not bool((err <= ulp + bar32).all()):
-        fail(f"ssd at {SSD_SHAPE}: the bf16 kernel misses its bar")
+          f"plain version rounded to bf16: max err {err:.4g}, bar one bf16 "
+          f"ulp of |want| + {bar32:.4g} (the largest share of its bar an "
+          f"element takes: {used:.3g}); against the bf16 plain version: "
+          f"{plain16:.4g}")
     phase("13 SSD kernel", t0)
-    return float(err.max())
+    return err
 
 
 def ssd_timing(dev):
@@ -814,7 +859,8 @@ def ssd_timing(dev):
         return ssd_ops.ssd(*args, chunk=SSD_CHUNK, return_final_state=True)
 
     kern = median_ms(kernel, reps=10, inner=5)
-    dk = device_ms(kernel, "ssd_kernel", reps=5)
+    passes = {}
+    dk = device_ms(kernel, "ssd_kernel", reps=5, per_call=3, parts=passes)
     plain = median_ms(lambda: ssd_ref.ssd_chunked(
         *args, chunk=SSD_CHUNK, return_final_state=True), reps=5, inner=2)
     # bytes: x, B, C read and y written in bf16, dt read and the final
@@ -836,7 +882,8 @@ def ssd_timing(dev):
                                                             "operations")
     print(f"time ssd {SSD_SHAPE} chunk {SSD_CHUNK} bf16 on the conv "
           f"output's column views, with the final state: kernel {kern:.4f} "
-          f"ms (device time {dk} ms), plain {plain:.4f} ms, bound "
+          f"ms (device time {dk} ms: {passes}), plain {plain:.4f} ms, "
+          f"bound "
           f"{bnd:.5f} ms ({by}: {nbytes / 1e6:.1f} MB, {t_bytes:.5f} ms; "
           f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
           f"{t_ops:.5f} ms); library: none (no PyTorch call computes the "

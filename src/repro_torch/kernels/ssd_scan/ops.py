@@ -1,11 +1,13 @@
 """Wrapper of the SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
-``ref.py``.  ``launches`` counts the kernel's launches.  The kernel reads
-strided views (x, B and C may be column slices of the Mamba-2 block's conv
-output, as long as their last dim is contiguous), works through the
-caller's chunk with chunk-wide cumulative decays, pads a ragged S with
-dt = 0 as the plain version does, and always writes the final state.
+``ref.py``.  ``launches`` counts the wrapper's launches: one a call, which
+in bf16 runs the kernel's three passes (chunk states, carry, outputs).
+The kernel reads strided views (x, B and C may be column slices of the
+Mamba-2 block's conv output, as long as their last dim is contiguous, at
+any element offset), works through the caller's chunk with chunk-wide
+cumulative decays, pads a ragged S with dt = 0 as the plain version does,
+and always writes the final state.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ launches = 0
 #: the largest head dim P and state dim N the kernel takes
 MAX_HEADDIM, MAX_STATE = 64, 128
 
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (
+_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 
 
@@ -59,13 +61,18 @@ def _launch(x, dt, A, B, C, D, q):
     D = D.float().contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # bf16 runs three kernels that pass a_cum and the chunk states through
+    # this f32 workspace; the f32 kernel needs none
+    bf16 = x.dtype == torch.bfloat16
+    work = torch.empty(b * h * -(-s // q) * (q + 3 * p * n) + 24 if bf16
+                       else 0, dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     fn = _build.function("ssd_scan", "ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
-                b, s, h, p, n, q, strides, int(x.dtype == torch.bfloat16),
+                work.data_ptr(), b, s, h, p, n, q, strides, int(bf16),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan launch failed: CUDA error {rc}")

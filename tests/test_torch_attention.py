@@ -5,10 +5,15 @@ interpret mode on the CPU, and the CUDA kernels against the plain versions
 on a GPU (marked ``cuda``; skipped on a machine without one).
 
 The bar is the JAX one (``tests/test_kernels.py``'s ``tol_for``): atol
-2e-5 in f32 and 2e-2 in bf16, rtol 1e-2.  Inputs are drawn with numpy from
+2e-5 in f32 and 2e-2 in bf16, rtol 1e-2.  The bf16 flash kernel (tensor
+cores) is also held to the plain version computed in f32 within the
+output's rounding to bf16 plus 1e-4 (``chip_smoke.py`` phase 12), and the
+f32 flash kernel to the bits of the CUDA-core kernel it has always been.  Inputs are drawn with numpy from
 a seed and rounded to the dtype by JAX, so both frameworks see the same
 values.
 """
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,6 +202,76 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype, kw):
     assert flash_ops.launches == before + 1
     _close(got.float().cpu(), flash_ref.mha_reference(q, k, v, **kw)
            .float().cpu(), dtype)
+
+
+def _flash_f32_bar(got, q, k, v, **kw):
+    """phase 12's bar: the bf16 output within its rounding to bf16
+    (2^-8 relative) plus 1e-4 of the plain version computed in f32."""
+    want = flash_ref.mha_reference(q.float(), k.float(), v.float(), **kw)
+    err = (got.float() - want).abs()
+    assert bool((err <= 1e-4 + 2 ** -8 * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [((8, 32, 8, 1024, 128), {}),
+                                      ((8, 10, 1, 1024, 256),
+                                       {"window": 2048})],
+                         ids=["llama3-8b", "recurrentgemma-2b"])
+def test_flash_kernel_bf16_at_the_main_path_shapes(cuda, shape, kw):
+    b, h, kv, s, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                           "bfloat16", 23, cuda)
+    _flash_f32_bar(flash_ops.attention(q, k, v, **kw), q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_window_and_softcap_together(cuda, shape, dtype):
+    b, h, kv, s, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                           dtype, sum(shape) + 1, cuda)
+    kw = {"window": 64, "softcap": 30.0}
+    got = flash_ops.attention(q, k, v, **kw)
+    _close(got.float().cpu(), flash_ref.mha_reference(q, k, v, **kw)
+           .float().cpu(), dtype)
+    if dtype == "bfloat16":
+        _flash_f32_bar(got, q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 2, 65, 128), (2, 8, 8, 130, 64),
+                                   (1, 10, 1, 191, 256), (1, 2, 1, 5, 32)])
+def test_flash_kernel_bf16_ragged_q_tiles(cuda, shape):
+    """S not a multiple of the kernel's 64-row Q tile: the last tile's rows
+    past S are masked and not written."""
+    b, h, kv, s, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                           "bfloat16", s, cuda)
+    _flash_f32_bar(flash_ops.attention(q, k, v), q, k, v)
+
+
+#: sha256 (first 16 hex digits) of the f32 kernel's output on these
+#: inputs, as the CUDA-core kernel computed it before the bf16 path moved
+#: to the tensor cores (NVIDIA H100 80GB HBM3)
+F32_FLASH_BITS = {
+    ((2, 4, 2, 256, 64), ()): "97bfcda3e8385c7a",
+    ((2, 4, 2, 256, 64), (("window", 64),)): "cc948be7ab4de3bc",
+    ((2, 4, 2, 256, 64), (("softcap", 30.0),)): "19c738ce82340c61",
+    ((1, 10, 1, 128, 256), ()): "f9e35c83a2eb709e",
+    ((1, 4, 2, 37, 32), ()): "9207de5a5fb33abe",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", list(F32_FLASH_BITS))
+def test_flash_kernel_f32_bits_unchanged(cuda, shape, kw):
+    b, h, kv, s, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                           "float32", sum(shape), cuda)
+    got = flash_ops.attention(q, k, v, **dict(kw))
+    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    assert digest[:16] == F32_FLASH_BITS[(shape, kw)]
 
 
 @pytest.mark.cuda

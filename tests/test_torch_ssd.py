@@ -9,6 +9,8 @@ for y; atol 1e-4 for the final state and for the recurrence against the
 chunked scan.  Inputs are drawn with numpy from a seed, so both frameworks
 see the same values.
 """
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,6 +201,86 @@ def test_kernel_in_bf16_within_one_ulp_of_the_f32_plain_version(cuda):
                                                   e - 8))
     assert bool(((y.float() - want.bfloat16().float()).abs()
                  <= ulp + bar32).all())
+
+
+def _bf16_bar(y, args, chunk):
+    """bf16 x, B, C: y within one bf16 ulp of the f32 plain version's y,
+    plus twice the f32 formula's own error against f64 (phase 13)."""
+    f32 = [a.float() for a in args]
+    want = ssd_ref.ssd_chunked(*f32, chunk=chunk)
+    y64 = ssd_ref.ssd_chunked(*(a.double() for a in f32), chunk=chunk)
+    bar32 = 2 * float((want.double() - y64).abs().max())
+    _, e = torch.frexp(want.abs())
+    ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
+                                                  e - 8))
+    err = (y.float() - want.bfloat16().float()).abs()
+    assert bool((err <= ulp + bar32).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(2, 37, 3, 8, 4),
+                                            (2, 250, 3, 16, 16)])
+@pytest.mark.parametrize("chunk", CHUNKS + [100])
+def test_kernel_in_bf16_at_the_jax_shapes(cuda, shape, chunk):
+    """The tensor-core passes at P = 8 or 16 and N = 4 to 16 (zero-padded
+    to the mma tiles), chunks of 8, 16 and 100 rows, a ragged S."""
+    args = _on(cuda, _inputs(shape, sum(shape) + chunk), torch.bfloat16)
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(*args, chunk=chunk, return_final_state=True)
+    assert ssd_ops.launches == before + 1
+    _bf16_bar(y, args, chunk)
+    want_state = ssd_ref.ssd_chunked(*(a.float() for a in args), chunk=chunk,
+                                     return_final_state=True)[1]
+    _close(state.cpu(), want_state.cpu(), atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4, 6])
+def test_kernel_reads_column_views_not_16_byte_aligned(cuda, offset):
+    """x, B and C as column slices of one bf16 [b, s, ch] tensor that
+    start ``offset`` elements in: rows 2, 4 or 8 bytes aligned (C at
+    column 28 + offset of a 32 + offset wide row)."""
+    b, s, h, p, n = 2, 50, 3, 8, 4
+    rng = np.random.default_rng(offset)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, s, offset + h * p + 2 * n), np.float32)).to(cuda, torch.bfloat16)
+    _, dt, A, _, _, D = _on(cuda, _inputs((b, s, h, p, n), offset))
+    x = xbc[..., offset:offset + h * p].reshape(b, s, h, p)
+    B = xbc[..., offset + h * p:offset + h * p + n]
+    C = xbc[..., offset + h * p + n:]
+    _bf16_bar(ssd_ops.ssd(x, dt, A, B, C, D, chunk=16), (x, dt, A, B, C, D),
+              16)
+
+
+#: sha256 (first 16 hex digits) of the f32 kernel's y and final state on
+#: these inputs (column views of one conv output, mamba2 decays), as the
+#: CUDA-core kernel computed them before the bf16 path moved to the tensor
+#: cores (NVIDIA H100 80GB HBM3)
+F32_BITS = {((2, 64, 4, 16, 8), 16): "7e97ace701cb02f5",
+            ((2, 37, 3, 8, 4), 16): "a777c16e0cf867c0",
+            ((2, 300, 4, 64, 128), 256): "304484ff3b53f1ed"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", list(F32_BITS))
+def test_f32_kernel_bits_unchanged(cuda, shape, chunk):
+    b, s, h, p, n = shape
+    rng = np.random.default_rng(sum(shape) + chunk)
+
+    def normal(*size):
+        return torch.from_numpy(rng.standard_normal(size, np.float32)).to(
+            cuda)
+
+    xbc = normal(b, s, h * p + 2 * n)
+    dt = torch.nn.functional.softplus(normal(b, s, h))
+    A = -torch.from_numpy(np.linspace(1, 16, h, dtype=np.float32)).to(cuda)
+    D = normal(h)
+    y, state = ssd_ops.ssd(xbc[..., :h * p].reshape(b, s, h, p), dt, A,
+                           xbc[..., h * p:h * p + n], xbc[..., h * p + n:], D,
+                           chunk=chunk, return_final_state=True)
+    digest = hashlib.sha256(y.cpu().numpy().tobytes())
+    digest.update(state.cpu().numpy().tobytes())
+    assert digest.hexdigest()[:16] == F32_BITS[(shape, chunk)]
 
 
 @pytest.mark.cuda
