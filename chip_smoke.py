@@ -10,8 +10,9 @@ Phases, each printed as it ends; any failure exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
    started together);
 3. the Canny kernel against its plain PyTorch version on the card, exact
-   equality, on the geometries of the JAX package's Canny tests, a
-   >4096-wide frame, the gateway's batch, 1080p, 4K and a ragged batch;
+   equality, on the geometries of the JAX package's Canny tests, frames
+   one pixel past one tile, a >4096-wide frame, the gateway's batch,
+   1080p, 4K and a ragged batch (frames that fit one tile among them);
 4. the Sobel kernel against its plain version: magnitude within 1e-5 and
    at least 99.9 % of directions equal;
 5. the detection gateway's main path through ``Gateway.process_stream``
@@ -44,10 +45,13 @@ Phases, each printed as it ends; any failure exits non-zero:
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
     times at the main path's shapes (llama3-8b's, qwen2.5-3b's and
     recurrentgemma-2b's, window 2048), flash's achieved TFLOP/s beside the
-    library's, the decode kernel's split sizing
-    against one piece and against splits sized from the whole cache, and
-    both kernels against their plain versions computed in f32 (within
-    the bf16 rounding of the output, 2^-8 relative, plus 1e-4);
+    library's, the decode kernel's split sizing (its blocks against the
+    SMs) against one piece and against splits sized from the whole cache,
+    the decode wrapper's and the library's host microseconds a call (200
+    back-to-back calls without a sync) and the library's device time
+    beside its call time, and both kernels against their plain versions
+    computed in f32 (within the bf16 rounding of the output, 2^-8
+    relative, plus 1e-4);
 13. the SSD scan kernel against its plain version: at the JAX tests'
     shapes and chunks and a ragged S, y and the final state within atol
     2e-4, rtol 1e-3 in f32 (CUDA cores), and in bf16 (tensor cores) y
@@ -234,6 +238,39 @@ def device_ms(fn, kernel: str, reps: int = 10, per_call: int = 1,
                        for e in events) / 1e3
     print("device time not measured")
     return None
+
+
+def device_total_ms(fn, reps: int = 10):
+    """Device time of one call of ``fn``: every kernel it launches, summed
+    over the profiler's trace of ``reps`` calls (after a warm-up call),
+    over ``reps``; None when the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 if total else None
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``n`` back-to-back calls of ``fn``,
+    without a device sync between them (after a warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def synced(fn):
@@ -683,8 +720,10 @@ def attention_timing(dev):
         # KV head) and against splits sized from the whole cache
         per_sm = dec_ops.blocks_per_sm(torch.cuda.current_device(), d,
                                        h // kv, True)
-        nsplit = dec_ops.splits(b, kv, t, torch.cuda.get_device_properties(
-            dev).multi_processor_count, per_sm)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit = dec_ops.splits(b, kv, t, n_sm, per_sm,
+                                dec_ops.BLOCK_K_BF16[d])
+        host = host_us(lambda: dec_ops.decode(q, k, v, lens, **kw))
         default = dec_ops.BLOCKS_PER_SM
         try:
             dec_ops.BLOCKS_PER_SM = 0
@@ -702,9 +741,13 @@ def attention_timing(dev):
         mask = (cols < lens[:, None]) & (
             cols >= lens[:, None] - kw.get("window", t))
         mask = mask[:, None, None, :]
-        lib = median_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps=10,
-            inner=5)
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+        lib = median_ms(sdpa, reps=10, inner=5)
+        lib_dev = device_total_ms(sdpa)
+        lib_host = host_us(sdpa)
         n_keys = int(torch.minimum(lens, torch.tensor(
             kw.get("window", t), device=dev)).sum())
         flops = 4 * h * d * n_keys
@@ -712,12 +755,15 @@ def attention_timing(dev):
                         + 4 * b)
         print(f"time decode {arch} {shape[:3]} bf16 {kw}, the cache's first "
               f"{t} of {t_max} rows, lengths {lens.tolist()}: kernel "
-              f"{kern:.4f} ms (device time {dk} ms; over {n_layers} "
+              f"{kern:.4f} ms a call, host {host:.1f} us a call (device "
+              f"time {dk} ms; over {n_layers} "
               f"layers' caches, {per_sm} blocks per SM: {dk_cold} ms in "
               f"{nsplit[0]} splits of "
-              f"{nsplit[1]} rows, {dk_one} ms in one piece, {dk_full} ms "
+              f"{nsplit[1]} rows = {b * kv * nsplit[0]} blocks for {n_sm} "
+              f"SMs, {dk_one} ms in one piece, {dk_full} ms "
               f"split from all {t_max} rows), plain {plain:.4f} ms, "
-              f"scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"scaled_dot_product_attention {lib:.4f} ms a call (device "
+              f"time {lib_dev} ms, host {lib_host:.1f} us a call), bound "
               f"{bnd:.5f} ms ({by}: {(2 * kv * d * n_keys * 2) / 1e6:.1f} MB "
               f"of K/V); max err {err:.3g} (bf16 plain), {err32:.3g} (f32 "
               f"plain)")
@@ -1028,7 +1074,8 @@ def main() -> None:
     t0 = time.perf_counter()
     shapes = [(1, 32, 32), (3, 64, 64), (1, 96, 64), (2, 40, 56),
               (1, 37, 41), (1, 64, 200), (2, 80, 600), (1, 48, 31),
-              (1, 48, 65), (1, 48, 63), (1, 48, 64),
+              (1, 48, 65), (1, 48, 63), (1, 48, 64), (1, 65, 64),
+              (1, 64, 65), (2, 130, 129),
               (1, 24, 4224), (32, 64, 64), (256, 64, 64), (8, 1080, 1920),
               (1, 2160, 3840)]
     for shape in shapes:
@@ -1044,13 +1091,14 @@ def main() -> None:
     print(f"canny: kernel == plain version on {len(shapes)} shapes x 2 "
           f"thresholds (tolerance: exact equality)")
     frames = [rand((1080, 1920), 1), rand((720, 1280), 2), rand((64, 64), 3),
-              rand((1080, 1920), 4)]
+              rand((1080, 1920), 4), rand((37, 50), 5), rand((64, 100), 6)]
     got = canny_ops.canny_edge_batch(frames)
     for f, g in zip(frames, got):
         want = canny_ref.canny_edge(torch.from_numpy(f)[None].to(dev))[0]
         if g.shape != f.shape or not np.array_equal(g, want.cpu().numpy()):
             fail(f"ragged canny_edge_batch differs at frame {f.shape}")
-    print("canny: ragged 1080p/720p/64x64 batch == plain version per frame")
+    print("canny: ragged 1080p/720p/64x64/37x50/64x100 batch == plain "
+          "version per frame")
     phase("3 canny kernel", t0)
 
     # 4 ----------------------------------------------- Sobel kernel vs plain

@@ -6,10 +6,18 @@ strided views of a cache (last dim contiguous); the model passes the
 cache's first ``pos + 1`` rows, so that T is the longest length.  The
 wrapper cuts those T rows into as many splits as fit in one wave of
 blocks, at the blocks per SM that the kernel's shared memory and registers
-allow at this (D, G) (the CUDA occupancy query: 3 at D = 128, 1 at
-recurrentgemma-2b's D = 256, G = 10).  The splits' workspace is allocated
-once per (device, stream) and reused: the kernel leaves its tickets at
-zero.
+allow at this (D, G) and dtype (the CUDA occupancy query).
+
+A decode step calls this once per attention layer with the same shapes
+and strides and a T one longer than the step before, so everything but T
+and the pointers is worked out once per (device, dtype, shapes, strides,
+window, softcap) and kept in a launch plan: the checks that depend only on
+those, the ctypes function, the blocks per SM and the SM count, the splits
+of each T, and a C struct (``_Static``) with the shapes, strides, scale,
+window, softcap, stream and the splits' workspace (allocated once per plan
+and stream: the kernel leaves its tickets at zero).  A call then checks
+what the plan cannot fix (devices, lengths, pointer alignment) and makes
+one ctypes call of nine arguments.
 """
 from __future__ import annotations
 
@@ -27,8 +35,12 @@ from . import ref
 #: kernel launches since the count was last set to 0
 launches = 0
 
-#: cache rows per tile
+#: cache rows per tile of the f32 kernel, and the rows its splits come in
 BLOCK_K = 64
+#: the rows the bf16 kernel's splits come in, by head dim: half a block
+#: tile (4 warps of 16 rows) at D <= 128, two tiles (2 warps of 16 rows)
+#: at D = 256, where a split's partials (G * D floats) cost the merge more
+BLOCK_K_BF16 = {32: 32, 64: 32, 128: 32, 256: 64}
 #: the (head dim, GQA group H / KV) pairs the kernel is compiled for: those
 #: of the repository's configs, full size and reduced
 PAIRS = ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2), (128, 1), (128, 4),
@@ -38,15 +50,23 @@ PAIRS = ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2), (128, 1), (128, 4),
 #: (batch, KV head)
 BLOCKS_PER_SM = None
 
-#: (device index, stream) -> (partials, tickets) of the splits' merge
-_WORKSPACE = {}
+#: launch plans by (device, dtypes, shapes but T, strides, window, softcap)
+_PLANS = {}
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p)
+#: q, k, v, lengths, o, t, nsplit, chunk and the plan's _Static
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+
+
+class _Static(ctypes.Structure):
+    """The C side's ``DecodePlan`` (csrc/decode_attention.cu), field for
+    field."""
+
+    _fields_ = [("b", ctypes.c_int), ("h", ctypes.c_int),
+                ("kv", ctypes.c_int), ("d", ctypes.c_int),
+                ("st", ctypes.c_longlong * 10), ("scale", ctypes.c_float),
+                ("window", ctypes.c_int), ("cap", ctypes.c_float),
+                ("bf16", ctypes.c_int), ("part", ctypes.c_void_p),
+                ("tickets", ctypes.c_void_p), ("stream", ctypes.c_void_p)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,79 +90,150 @@ def blocks_per_sm(index: int, d: int, g: int, bf16: bool) -> int:
     return n.value
 
 
-def splits(b: int, kv: int, t: int, n_sm: int, per_sm: int):
+def splits(b: int, kv: int, t: int, n_sm: int, per_sm: int,
+           rows: int = BLOCK_K):
     """(nsplit, chunk): the cache of T rows cut into nsplit pieces of
-    ``chunk`` rows (a multiple of BLOCK_K), as many as fit B * KV * nsplit
+    ``chunk`` rows (a multiple of ``rows``), as many as fit B * KV * nsplit
     blocks into one wave of ``per_sm`` blocks per SM."""
     want = max(1, per_sm * n_sm // (b * kv))
-    chunk = BLOCK_K * math.ceil(t / min(want, math.ceil(t / BLOCK_K))
-                                / BLOCK_K)
+    chunk = rows * math.ceil(t / min(want, math.ceil(t / rows)) / rows)
     return math.ceil(t / chunk), chunk
 
 
-def _workspace(device, stream, n_part: int, n_tickets: int):
-    """The (partials, tickets) buffers of launches on ``stream``, grown to
-    at least ``n_part`` floats and ``n_tickets`` zeroed counters."""
-    key = (device.index, stream)
-    part, tickets = _WORKSPACE.get(key, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    _WORKSPACE[key] = part, tickets
-    return part, tickets
+class _Plan:
+    """What a launch needs that depends only on the plan's key."""
+
+    __slots__ = ("index", "b", "kv", "per_sm", "n_sm", "rows", "fn",
+                 "splits", "static", "address", "stream", "workspace",
+                 "device", "get_device", "get_stream")
+
+    def __init__(self, q, k, v, window, softcap):
+        # the checks that the key fixes, in the order and with the words
+        # they have always had
+        if not (q.device == k.device == v.device):
+            raise ValueError("q, k, v and lengths must be on one device")
+        if q.dtype not in (torch.float32, torch.bfloat16) or not (
+                q.dtype == k.dtype == v.dtype):
+            raise ValueError("decode attention takes f32 or bf16 q, k, v of "
+                             f"one dtype; got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+        if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+            raise ValueError("decode attention takes q [B,H,D] and k, v "
+                             f"[B,KV,T,D]; got {tuple(q.shape)}, "
+                             f"{tuple(k.shape)}, {tuple(v.shape)}")
+        b, h, d = q.shape
+        kv = k.shape[1]
+        if k.shape[0] != b or k.shape[3] != d or h % kv \
+                or (d, h // kv) not in PAIRS:
+            raise ValueError(f"decode attention: q {tuple(q.shape)} and k "
+                             f"{tuple(k.shape)} disagree, or (D, H / KV) is "
+                             f"not one of {PAIRS}")
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_rows(name, x)
+        self.device, self.index = q.device, q.device.index
+        self.b, self.kv = b, kv
+        bf16 = q.dtype == torch.bfloat16
+        self.rows = BLOCK_K_BF16[d] if bf16 else BLOCK_K
+        # the output is torch.empty_like(q), whose strides follow q's
+        o = torch.empty_like(q)
+        self.static = _Static(
+            b, h, kv, d, (ctypes.c_longlong * 10)(
+                q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
+                o.stride(0), o.stride(1)), d ** -0.5,
+            window if window is not None else 0,
+            softcap if softcap is not None else 0.0, bf16)
+        self.address = ctypes.addressof(self.static)
+        self.fn = None
+        self.splits = {}
+        self.stream = self.workspace = None
+
+    def resolve(self):
+        """The CUDA side of the plan, on the first launch."""
+        self.fn = _build.function("decode_attention", "decode_attention",
+                                  _ARGTYPES)
+        st = self.static
+        self.per_sm = BLOCKS_PER_SM
+        if self.per_sm is None:
+            self.per_sm = blocks_per_sm(self.index, st.d, st.h // st.kv,
+                                        bool(st.bf16))
+        self.n_sm = _sm_count(self.index)
+        # the current device and the current stream's handle as plain ints,
+        # without the Python objects torch.cuda.current_stream builds (the
+        # getters of CUDA builds of PyTorch, which its compiled kernels use)
+        self.get_device = torch._C._cuda_getDevice
+        self.get_stream = torch._C._cuda_getCurrentRawStream
+
+    def split(self, t: int):
+        """(nsplit, chunk) of a cache of t rows, worked out once per t."""
+        got = self.splits.get(t)
+        if got is None:
+            got = self.splits[t] = splits(self.b, self.kv, t, self.n_sm,
+                                          self.per_sm, self.rows)
+        return got
+
+    def set_stream(self, stream: int):
+        """Launch on ``stream``, with a workspace of its own (partials and
+        tickets) sized for the most splits the plan can ask for."""
+        st = self.static
+        most = max(1, self.per_sm * self.n_sm // (st.b * st.kv))
+        part = torch.empty(st.b * st.h * most * (st.d + 2),
+                           dtype=torch.float32, device=self.device)
+        tickets = torch.zeros(st.b * st.kv, dtype=torch.int32,
+                              device=self.device)
+        self.workspace = part, tickets
+        st.part, st.tickets = part.data_ptr(), tickets.data_ptr()
+        st.stream = self.stream = stream
+
+
+def _plan(q, k, v, window, softcap) -> _Plan:
+    key = (q.device, q.dtype, k.dtype, v.dtype, q.shape, k.shape[:2],
+           k.shape[3:], q.stride(), k.stride(), v.stride(), window, softcap,
+           BLOCKS_PER_SM)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _Plan(q, k, v, window, softcap)
+    return plan
 
 
 def _launch(q, k, v, lengths, window, softcap):
     global launches
-    if not (q.device == k.device == v.device == lengths.device):
+    plan = _plan(q, k, v, window, softcap)
+    # what the plan does not fix: devices, the shapes of v and lengths,
+    # the pointers' alignment
+    dev = plan.device
+    if not (k.device == dev and v.device == dev and lengths.device == dev):
         raise ValueError("q, k, v and lengths must be on one device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            q.dtype == k.dtype == v.dtype):
-        raise ValueError("decode attention takes f32 or bf16 q, k, v of one "
-                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+    if k.shape != v.shape:
         raise ValueError("decode attention takes q [B,H,D] and k, v "
                          f"[B,KV,T,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, d = q.shape
-    kv, t = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or h % kv \
-            or (d, h // kv) not in PAIRS:
-        raise ValueError(f"decode attention: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} disagree, or (D, H / KV) is not "
-                         f"one of {PAIRS}")
-    if lengths.dtype != torch.int32 or lengths.shape != (b,) \
+    if lengths.dtype != torch.int32 or lengths.shape != (plan.b,) \
             or not lengths.is_contiguous():
-        raise ValueError(f"lengths must be a contiguous int32 [{b}] tensor; "
-                         f"got {lengths.dtype} {tuple(lengths.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        check_rows(name, x)
+        raise ValueError(f"lengths must be a contiguous int32 [{plan.b}] "
+                         f"tensor; got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_rows(name, x)
     o = torch.empty_like(q)
+    t = k.shape[2]
     if o.numel() == 0 or t == 0:
         return o.zero_()
-    bf16 = q.dtype == torch.bfloat16
-    per_sm = BLOCKS_PER_SM
-    if per_sm is None:
-        per_sm = blocks_per_sm(q.device.index, d, h // kv, bf16)
-    nsplit, chunk = splits(b, kv, t, _sm_count(q.device.index), per_sm)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    part = tickets = None
-    if nsplit > 1:
-        part, tickets = _workspace(q.device, stream,
-                                   b * h * nsplit * (d + 2), b * kv)
-    strides = (ctypes.c_longlong * 10)(
-        q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
-        o.stride(0), o.stride(1))
-    fn = _build.function("decode_attention", "decode_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                o.data_ptr(), b, h, kv, t, d, strides, d ** -0.5,
-                window if window is not None else 0,
-                softcap if softcap is not None else 0.0, nsplit, chunk,
-                None if part is None else part.data_ptr(),
-                None if tickets is None else tickets.data_ptr(),
-                int(bf16), stream)
+    if plan.fn is None:
+        plan.resolve()
+    nsplit, chunk = plan.split(t)
+    index = plan.index
+    stream = plan.get_stream(index)
+    if stream != plan.stream:
+        plan.set_stream(stream)
+    if plan.get_device() == index:
+        rc = plan.fn(qp, kp, vp, lengths.data_ptr(), o.data_ptr(), t, nsplit,
+                     chunk, plan.address)
+    else:
+        with torch.cuda.device(index):
+            rc = plan.fn(qp, kp, vp, lengths.data_ptr(), o.data_ptr(), t,
+                         nsplit, chunk, plan.address)
     if rc != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {rc}")
     launches += 1

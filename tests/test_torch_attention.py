@@ -12,6 +12,7 @@ f32 flash kernel to the bits of the CUDA-core kernel it has always been.  Inputs
 a seed and rounded to the dtype by JAX, so both frameworks see the same
 values.
 """
+import ctypes
 import hashlib
 
 import jax.numpy as jnp
@@ -156,18 +157,105 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_decode_splits_cover_the_cache():
-    """At 3 blocks per SM (D = 128), 1 (recurrentgemma-2b's D = 256,
-    G = 10: 144 KB of shared memory a block) and 0 (one piece)."""
+    """At 3 blocks per SM (the f32 kernel at D = 128), 2 (the bf16 kernel
+    at every main-path (D, G)), 1 (the f32 kernel at recurrentgemma-2b's
+    D = 256, G = 10: 144 KB of shared memory a block) and 0 (one piece),
+    in the f32 kernel's 64-row steps and the bf16 kernel's 32."""
     for b, kv, t in ((8, 8, 1280), (8, 2, 1280), (1, 1, 70), (64, 8, 4096),
                      (8, 1, 1040)):
-        for per_sm in (3, 1, 0):
-            nsplit, chunk = decode_ops.splits(b, kv, t, 132, per_sm)
-            assert chunk % decode_ops.BLOCK_K == 0
-            assert (nsplit - 1) * chunk < t <= nsplit * chunk
-            # one wave: no more blocks than fit on the SMs at once
-            assert nsplit == 1 or b * kv * nsplit <= per_sm * 132
+        for per_sm in (3, 2, 1, 0):
+            for rows in (decode_ops.BLOCK_K, 32):
+                nsplit, chunk = decode_ops.splits(b, kv, t, 132, per_sm,
+                                                  rows)
+                assert chunk % rows == 0
+                assert (nsplit - 1) * chunk < t <= nsplit * chunk
+                # one wave: no more blocks than fit on the SMs at once
+                assert nsplit == 1 or b * kv * nsplit <= per_sm * 132
     assert decode_ops.splits(8, 1, 1040, 132, 1) == (9, 128)
     assert decode_ops.splits(8, 1, 1040, 132, 0)[0] == 1
+    # the bf16 kernel at two blocks per SM fills a wave of 132 SMs at the
+    # main path's three decode shapes: llama3-8b (8, 8 KV heads, 1039
+    # rows), qwen2.5-3b (8, 2, 270), recurrentgemma-2b (8, 1, 1036)
+    for b, kv, t, d in ((8, 8, 1039, 128), (8, 2, 270, 128),
+                        (8, 1, 1036, 256)):
+        nsplit, _ = decode_ops.splits(b, kv, t, 132, 2,
+                                      decode_ops.BLOCK_K_BF16[d])
+        assert 132 <= b * kv * nsplit <= 2 * 132
+
+
+def _fake_cuda_plans(monkeypatch):
+    """Launch plans whose CUDA side is a recorder: the wrapper's whole
+    launch path runs on CPU tensors, and the kernel function's arguments
+    land in the returned list."""
+    calls = []
+
+    def resolve(plan):
+        plan.fn = lambda *args: calls.append(args) or 0
+        plan.per_sm, plan.n_sm = 2, 132
+        plan.get_device, plan.get_stream = (lambda: plan.index), (
+            lambda index: 7)
+
+    monkeypatch.setattr(decode_ops._Plan, "resolve", resolve)
+    monkeypatch.setattr(decode_ops, "_PLANS", {})
+    return calls
+
+
+def test_decode_launch_plan_is_built_once_and_reused(monkeypatch):
+    calls = _fake_cuda_plans(monkeypatch)
+    q = torch.zeros(8, 32, 128, dtype=torch.bfloat16)
+    cache = torch.zeros(8, 8, 1280, 128, dtype=torch.bfloat16)
+    lens = torch.full((8,), 1030, dtype=torch.int32)
+    before = decode_ops.launches
+    for t in (1030, 1031, 1032):
+        out = decode_ops._launch(q, cache[:, :, :t], cache[:, :, :t], lens,
+                                 None, None)
+        assert out.shape == q.shape and out.dtype == q.dtype
+    assert len(decode_ops._PLANS) == 1 and decode_ops.launches == before + 3
+    # (t, nsplit, chunk) of the last call, then the plan's C struct
+    assert calls[-1][5:8] == (1032,) + decode_ops.splits(8, 8, 1032, 132, 2,
+                                                         32)
+    (plan,) = decode_ops._PLANS.values()
+    st = plan.static
+    assert calls[-1][8] == ctypes.addressof(st)
+    assert (st.b, st.h, st.kv, st.d, st.bf16, st.stream) == (8, 32, 8, 128,
+                                                             1, 7)
+    assert list(st.st) == [32 * 128, 128, *cache.stride()[:3],
+                           *cache.stride()[:3], 32 * 128, 128]
+    assert st.scale == pytest.approx(128 ** -0.5) and st.window == 0
+
+
+def test_decode_launch_plan_still_rejects_bad_inputs(monkeypatch):
+    """Each input that the wrapper rejected before it kept launch plans is
+    rejected with the same words, also once a plan for the same shapes
+    and strides exists."""
+    _fake_cuda_plans(monkeypatch)
+    q = torch.zeros(2, 4, 32)
+    k = torch.zeros(2, 2, 16, 32)
+    lens = torch.full((2,), 16, dtype=torch.int32)
+    decode_ops._launch(q, k, k, lens, None, None)  # builds the plan
+    before = decode_ops.launches
+    bad = [
+        ("int32", (q, k, k, lens.float())),
+        ("int32", (q, k, k, lens[:1])),
+        ("int32", (q, k, k, torch.zeros(4, dtype=torch.int32)[::2])),
+        ("one device", (q, k, k, lens.to("meta"))),
+        ("one device", (q, k.to("meta"), k, lens)),
+        ("k, v", (q, k, k[:, :, :8], lens)),
+        ("one dtype", (q, k.double(), k, lens)),
+        ("f32 or bf16", (q.half(), k.half(), k.half(), lens)),
+        ("k, v", (q[0], k, k, lens)),
+        (r"\(D, H / KV\) is", (torch.zeros(2, 3, 32), k, k, lens)),
+        (r"\(D, H / KV\) is", (torch.zeros(2, 4, 48), torch.zeros(
+            2, 2, 16, 48), torch.zeros(2, 2, 16, 48), lens)),
+        ("contiguous last dim", (q, torch.zeros(2, 2, 32, 16).transpose(
+            2, 3), torch.zeros(2, 2, 32, 16).transpose(2, 3), lens)),
+        ("16-byte", (torch.zeros(2 * 4 * 32 + 1)[1:].view(2, 4, 32), k, k,
+                     lens)),
+    ]
+    for words, args in bad:
+        with pytest.raises(ValueError, match=words):
+            decode_ops._launch(*args, None, None)
+    assert decode_ops.launches == before
 
 
 def test_wrappers_reject_bad_options():
@@ -306,6 +394,51 @@ def test_decode_kernel_matches_plain(cuda, shape, dtype, kw):
         assert decode_ops.launches == before + 1
         _close(got.float().cpu(), decode_ref.decode_reference(
             q, k, v, lens, **kw).float().cpu(), dtype)
+
+
+#: sha256 (first 16 hex digits) of the f32 decode kernel's output on these
+#: inputs (lengths drawn from seed 1), as the CUDA-core kernel computed it
+#: before the bf16 path moved to the tensor cores (NVIDIA H100 80GB HBM3)
+F32_DECODE_BITS = {
+    ((2, 4, 2, 256, 64), ()): "948b595b9f90f8cd",
+    ((2, 4, 2, 256, 64), (("window", 128),)): "924a60ac37a0b06d",
+    ((2, 4, 2, 256, 64), (("softcap", 25.0),)): "10fc641a4f5c3a9d",
+    ((3, 10, 1, 1000, 256), ()): "092c249dcc59dcad",
+    ((2, 4, 4, 70, 32), ()): "df499395a8c4c3fb",
+    ((8, 32, 8, 1039, 128), ()): "baf6ec47de7e3f85",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", list(F32_DECODE_BITS))
+def test_decode_kernel_f32_bits_unchanged(cuda, shape, kw):
+    b, h, kv, t, d = shape
+    q, k, v = _cuda_inputs([(b, h, d), (b, kv, t, d), (b, kv, t, d)],
+                           "float32", sum(shape), cuda)
+    lens = torch.tensor(np.random.default_rng(1).integers(1, t + 1, b),
+                        dtype=torch.int32, device=cuda)
+    got = decode_ops.decode(q, k, v, lens, **dict(kw))
+    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    assert digest[:16] == F32_DECODE_BITS[(shape, kw)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [((8, 32, 8, 1039, 128), {}),
+                                      ((8, 16, 2, 270, 128), {}),
+                                      ((8, 10, 1, 1036, 256),
+                                       {"window": 2048})])
+def test_decode_kernel_bf16_at_the_main_path_shapes(cuda, shape, kw):
+    """Against the plain version in f32, within the output's rounding to
+    bf16 plus 1e-4 (phase 12's bar), with the cache cut into splits."""
+    b, h, kv, t, d = shape
+    q, k, v = _cuda_inputs([(b, h, d), (b, kv, t, d), (b, kv, t, d)],
+                           "bfloat16", sum(shape), cuda)
+    lens = torch.tensor(np.random.default_rng(2).integers(t - 15, t + 1, b),
+                        dtype=torch.int32, device=cuda)
+    got = decode_ops.decode(q, k, v, lens, **kw).float()
+    want = decode_ref.decode_reference(q.float(), k.float(), v.float(), lens,
+                                       **kw)
+    assert bool(((got - want).abs() <= 1e-4 + 2 ** -8 * want.abs()).all())
 
 
 @pytest.mark.cuda

@@ -169,8 +169,23 @@ def test_canny_kernel_bit_identical_to_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 65, 64), (1, 64, 65), (2, 130, 129),
+                                   (1, 200, 300)])
+@pytest.mark.parametrize("lo,hi", [(0.2, 0.5), (0.05, 0.1)])
+def test_canny_kernel_tiles_and_halos(cuda, shape, lo, hi):
+    """Frames one pixel past a 64 x 64 tile (a window clipped to the frame
+    on one side, a halo on the other) and frames of several tiles, at
+    thresholds low enough for the hysteresis to run far."""
+    x = torch.from_numpy(_rand(shape, sum(shape))).to(cuda)
+    torch.testing.assert_close(canny_ops.canny_edge(x, lo, hi),
+                               canny_ref.canny_edge(x, lo, hi), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
 def test_canny_kernel_ragged_batch(cuda):
-    frames = [_rand((100, 300), 1), _rand((64, 64), 2), _rand((65, 129), 3)]
+    frames = [_rand((100, 300), 1), _rand((64, 64), 2), _rand((65, 129), 3),
+              _rand((37, 50), 4), _rand((64, 100), 5)]
     for f, g in zip(frames, canny_ops.canny_edge_batch(frames)):
         want = canny_ref.canny_edge(torch.from_numpy(f)[None].to(cuda))[0]
         np.testing.assert_array_equal(g, want.cpu().numpy())

@@ -1,24 +1,31 @@
 """The rounding of the port's bf16 tensor-core kernels, emulated on the
-CPU: ``csrc/flash_attention.cu``'s ``flash_kernel_wgmma`` and
+CPU: ``csrc/flash_attention.cu``'s ``flash_kernel_wgmma``,
+``csrc/decode_attention.cu``'s ``decode_kernel_mma`` and
 ``csrc/ssd_scan.cu``'s three bf16 passes, operation by operation in plain
 PyTorch (bf16 operands, products summed in f32 per tile, the f32 operand
-of each product split into bf16 parts: two for flash's P, three for the
-SSD's folded operands), held to the bars that
+of each product split into bf16 parts: two for the attention kernels' P,
+three for the SSD's folded operands), held to the bars that
 ``chip_smoke.py`` and the ``cuda`` tests apply to the kernels themselves:
 
-- flash, bf16 output against the plain version in f32 (phase 12):
-  1e-4 + 2^-8 |want| per element;
+- flash and decode, bf16 output against the plain version in f32 (phase
+  12): 1e-4 + 2^-8 |want| per element;
 - SSD, bf16 y against the f32 plain version rounded to bf16 (phase 13):
   one bf16 ulp of |want| plus twice the f32 plain version's own error
   against f64; the final state within the JAX tests' atol 1e-4, rtol 1e-3.
 
 A rounding scheme that misses a bar here would miss it on the card.  The
+same goes for the Canny kernel's two schemes, which must give the plain
+version's bits: hysteresis on bit-packed rows (``hysteresis_bits``) and
+64 x 64 output tiles each computed on its own window, the tile and a
+12-pixel halo clipped to the frame (``canny_by_windows``).  The
 emulations live here only; no path of the port runs them.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.canny_fused import ref as canny_ref
+from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -160,6 +167,257 @@ def test_flash_needs_the_split_of_p():
     shape, kw, block_k = FLASH_CASES[0]
     assert _flash_share(shape, kw, sum(shape), block_k=block_k,
                         split=False) > 1
+
+
+def _softmax_merge(states):
+    """(max, denom, acc) of several online-softmax states in log2 units,
+    merged as the decode kernel merges its warps and its splits."""
+    m = torch.stack([st[0] for st in states])
+    w = torch.exp2(m - m.amax(0))
+    return (m.amax(0), (torch.stack([st[1] for st in states]) * w).sum(0),
+            (torch.stack([st[2] for st in states]) * w[..., None]).sum(0))
+
+
+def decode_emulation(q, k, v, lengths, *, window=None, softcap=None,
+                     block_k=64, split=True, chunk=None):
+    """``decode_kernel_mma``'s arithmetic: each split of ``chunk`` cache
+    rows (one piece when None) in block tiles of ``block_k`` rows, of
+    which each of ``block_k // 16`` warps takes 16 and keeps its own
+    online softmax (exact bf16 products summed in f32, scale and softcap
+    in log2 units, exp2, P V with P as bf16 hi + lo (``split``) or rounded
+    to bf16 once); the warps' states merged, then the splits'; the output
+    rounded to bf16."""
+    b, h, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    out = torch.empty(b, h, d)
+    for bi in range(b):
+        n = int(lengths[bi])
+        lo = max(0, n - window) if window is not None else 0
+        qf = q[bi].float().reshape(kv, h // kv, d)
+        kf, vf = k[bi].float(), v[bi].float()
+        states = []
+        for s0 in range(0, t, chunk or t):
+            begin, end = max(lo, s0), min(n, t, s0 + (chunk or t))
+            warps = [(torch.full((kv, h // kv), NEG_INF),
+                      torch.zeros(kv, h // kv), torch.zeros(kv, h // kv, d))
+                     for _ in range(block_k // 16)]
+            for c0 in range(begin, end, block_k):
+                for w, (m, l, acc) in enumerate(warps):
+                    r0 = c0 + 16 * w
+                    if r0 >= end:
+                        continue
+                    sc = qf @ kf[:, r0:min(r0 + 16, end)].transpose(-1, -2)
+                    if softcap is not None:
+                        sc = torch.tanh(sc * d ** -0.5 / softcap) \
+                            * softcap * LOG2E
+                    else:
+                        sc = sc * (d ** -0.5 * LOG2E)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(sc - m_new[..., None])
+                    acc = acc * alpha[..., None]
+                    for part in _parts(p, 2 if split else 1):
+                        acc = acc + part @ vf[:, r0:r0 + p.shape[-1]]
+                    warps[w] = (m_new, l * alpha + p.sum(-1), acc)
+            states.append(_softmax_merge(warps))
+        _, l, acc = _softmax_merge(states)
+        out[bi] = (acc / l.clamp_min(1e-30)[..., None]).reshape(h, d)
+    return out.bfloat16()
+
+
+def _decode_share(shape, kw, lengths, **emu):
+    """The largest share of phase 12's bar an output element takes."""
+    b, h, kv, t, d = shape
+    q, k, v = _normal([(b, h, d), (b, kv, t, d), (b, kv, t, d)], sum(shape))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    got = decode_emulation(q, k, v, lens, **kw, **emu).float()
+    want = decode_ref.decode_reference(q.float(), k.float(), v.float(), lens,
+                                       **kw)
+    return float(((got - want).abs() / (1e-4 + 2 ** -8 * want.abs())).max())
+
+
+#: decode at reduced main-path shapes: llama3-8b's head dim and group 4,
+#: qwen2.5-3b's group 8 (64-row block tiles of 4 warps), recurrentgemma-2b's
+#: group 10 at D = 256 with window 2048 (32-row tiles of 2 warps), a softcap;
+#: each with lengths random, 1, full and short, in one piece and in splits
+DECODE_CASES = [((3, 8, 2, 300, 128), {}, 64),
+                ((3, 16, 2, 270, 128), {}, 64),
+                ((3, 10, 1, 300, 256), {"window": 2048}, 32),
+                ((3, 8, 2, 300, 128), {"softcap": 25.0}, 64)]
+DECODE_LENGTHS = {"random": lambda t: np.random.default_rng(t).integers(
+                      1, t + 1, 3),
+                  "one": lambda t: np.ones(3, int),
+                  "full": lambda t: np.full(3, t),
+                  "short": lambda t: np.array([2, 3, 5])}
+
+
+@pytest.mark.parametrize("lengths", DECODE_LENGTHS)
+@pytest.mark.parametrize("shape,kw,block_k", DECODE_CASES)
+def test_decode_rounding_meets_the_f32_bar(shape, kw, block_k, lengths):
+    lens = DECODE_LENGTHS[lengths](shape[3])
+    for chunk in (None, 64):
+        assert _decode_share(shape, kw, lens, block_k=block_k,
+                             chunk=chunk) <= 1
+
+
+def test_decode_needs_the_split_of_p():
+    """One bf16 rounding of P misses phase 12's bar (by ~14x at short
+    lengths, where each probability weighs most)."""
+    shape, kw, block_k = DECODE_CASES[0]
+    assert _decode_share(shape, kw, DECODE_LENGTHS["short"](0),
+                         block_k=block_k, split=False) > 1
+
+
+def _pack(x):
+    """[H, W] bool -> [H, ceil(W / 32)] int64 words of 32 bits: bit c of
+    word s is column 32 s + c, as ``__ballot_sync`` packs a warp's row."""
+    h, w = x.shape
+    nseg = -(-w // 32)
+    bits = torch.zeros(h, nseg * 32, dtype=torch.int64)
+    bits[:, :w] = x
+    return (bits.reshape(h, nseg, 32) << torch.arange(32)).sum(-1)
+
+
+def _unpack(words, w):
+    bits = (words[..., None] >> torch.arange(32)) & 1
+    return bits.reshape(words.shape[0], -1)[:, :w].bool()
+
+
+def hysteresis_bits(strong, weak, iters=canny_ref.HYSTERESIS_ITERS):
+    """The Canny kernel's hysteresis on packed rows: each round ORs every
+    word with its shifts by one column (carrying across words) and with
+    the rows above and below (zero past the edges), then ANDs weak."""
+    st, wk = _pack(strong), _pack(weak)
+    word = 0xFFFFFFFF
+    zcol = torch.zeros(st.shape[0], 1, dtype=torch.int64)
+    zrow = torch.zeros(1, st.shape[1], dtype=torch.int64)
+    for _ in range(iters):
+        prev = torch.cat([zcol, st[:, :-1]], 1)   # word s - 1
+        nxt = torch.cat([st[:, 1:], zcol], 1)     # word s + 1
+        hd = (st | ((st << 1) & word) | (prev >> 31) | (st >> 1)
+              | ((nxt << 31) & word))
+        st = wk & (torch.cat([zrow, hd[:-1]]) | hd
+                   | torch.cat([hd[1:], zrow]))
+    return _unpack(st, strong.shape[1])
+
+
+def _thin(h, w, seed):
+    """A random thinned-magnitude frame with strong (> 1.0) and weak
+    (> 0.6) pixels, strong edges sparse and weak ones plentiful."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(
+        np.float32([0.0, 0.7, 1.5]), (h, w), p=[0.35, 0.6, 0.05]))
+
+
+@pytest.mark.parametrize("widths", [range(1, 65), range(65, 131)],
+                         ids=["1-64", "65-130"])
+def test_packed_hysteresis_equals_the_plain_version(widths):
+    for w in widths:
+        for h in (1, 7, 40):
+            thin = _thin(h, w, 1000 * h + w)
+            got = hysteresis_bits(thin > 1.0, thin > 0.6)
+            assert torch.equal(got, canny_ref.hysteresis(thin[None], 0.6,
+                                                         1.0)[0]), (h, w)
+
+
+@pytest.mark.parametrize("array,frame", [((64, 128), (64, 64)),
+                                         ((64, 64), (64, 64)),
+                                         ((64, 128), (37, 100)),
+                                         ((130, 96), (129, 65))])
+def test_packed_hysteresis_at_ragged_dims(array, frame):
+    """Strong and weak False past the frame's true extent, as the kernel
+    thresholds them: the frame's hysteresis, False beyond it."""
+    thin = torch.zeros(array)
+    thin[:frame[0], :frame[1]] = _thin(*frame, sum(frame))
+    want = torch.zeros(array, dtype=torch.bool)
+    want[:frame[0], :frame[1]] = canny_ref.hysteresis(
+        thin[None, :frame[0], :frame[1]], 0.6, 1.0)[0]
+    assert torch.equal(hysteresis_bits(thin > 1.0, thin > 0.6), want)
+
+
+def canny_dir(gx, gy):
+    """The Canny kernel's direction bin without atan2 (its ``canny_dir``):
+    0 below tan(pi / 8), 2 above tan(3 pi / 8), 1 or 3 between (by the
+    signs), where |gy| / |gx| lies 2^-10 of itself clear of both; -1 where
+    the kernel asks atan2."""
+    t1, t2 = np.float32(0.414213562373095), np.float32(2.414213562373095)
+    e = np.float32(1 / 1024)
+    ax, ay = np.abs(gx), np.abs(gy)
+    ok = (ax + ay > np.float32(1e-30)) & (ax + ay < np.float32(1e30))
+    out = np.full(gx.shape, -1)
+    low = ok & (ay < ax * np.float32(t1 * (1 - e)))
+    high = ok & ~low & (ay > ax * np.float32(t2 * (1 + e)))
+    mid = ok & ~low & ~high & (ay > ax * np.float32(t1 * (1 + e))) \
+        & (ay < ax * np.float32(t2 * (1 - e)))
+    out[low], out[high] = 0, 2
+    out[mid] = np.where((gx[mid] > 0) == (gy[mid] > 0), 1, 3)
+    return out
+
+
+def test_canny_direction_without_atan2_where_it_decides():
+    """Wherever the kernel skips atan2, its bin is the plain version's, at
+    random angles, at angles within ~1e-3 rad of every bin edge, and at
+    magnitudes from 1e-26 to 1e26."""
+    rng = np.random.default_rng(0)
+    ang = np.concatenate([rng.uniform(-np.pi, np.pi, 200_000), np.repeat(
+        np.pi / 8 * np.arange(-8, 9), 2000) + rng.normal(0, 1e-3, 34_000)])
+    r = np.exp(rng.uniform(-60, 60, ang.size))
+    gx = (r * np.cos(ang)).astype(np.float32)
+    gy = (r * np.sin(ang)).astype(np.float32)
+    got = canny_dir(gx, gy)
+    quarter = torch.tensor(np.float32(np.pi / 4))
+    angle = torch.atan2(torch.from_numpy(gy), torch.from_numpy(gx))
+    want = (torch.round(angle / quarter).to(torch.int32) % 4).numpy()
+    decided = got >= 0
+    assert decided.mean() > 0.95
+    np.testing.assert_array_equal(got[decided], want[decided])
+
+
+def canny_by_windows(img, h, w, lo, hi, tile=64,
+                     halo=4 + canny_ref.HYSTERESIS_ITERS):
+    """The Canny kernel's tiling of one [H, W] frame whose true extent is
+    h x w: each tile of the array is cut from the plain version run on its
+    window, the tile and ``halo`` pixels around it clipped to the true
+    extent, with the frame's edge rules at the window's edges; False past
+    the true extent."""
+    out = torch.zeros(img.shape, dtype=torch.bool)
+    for r in range(0, img.shape[0], tile):
+        for c in range(0, img.shape[1], tile):
+            r0, c0 = max(0, r - halo), max(0, c - halo)
+            r1, c1 = min(h, r + tile + halo), min(w, c + tile + halo)
+            if r1 <= r0 or c1 <= c0:
+                continue
+            win = canny_ref.canny_edge(img[None, r0:r1, c0:c1], lo, hi)[0]
+            got = win[r - r0:r - r0 + tile, c - c0:c - c0 + tile]
+            out[r:r + got.shape[0], c:c + got.shape[1]] = got
+    return out
+
+
+@pytest.mark.parametrize("array,frame", [((64, 64), (64, 64)),
+                                         ((64, 128), (41, 64)),
+                                         ((150, 200), (150, 200)),
+                                         ((192, 256), (150, 200)),
+                                         ((65, 64), (65, 64))])
+@pytest.mark.parametrize("lo,hi", [(0.2, 0.5), (0.1, 0.4), (0.05, 0.1)])
+def test_canny_by_windows_equals_the_plain_version(array, frame, lo, hi):
+    """A halo of 2 (blur) + 1 (Sobel) + 1 (NMS) + 8 (hysteresis) pixels
+    keeps every tile exact."""
+    img = torch.from_numpy(np.random.default_rng(sum(frame)).random(
+        array, np.float32))
+    h, w = frame
+    want = torch.zeros(array, dtype=torch.bool)
+    want[:h, :w] = canny_ref.canny_edge(img[None, :h, :w], lo, hi)[0]
+    assert torch.equal(canny_by_windows(img, h, w, lo, hi), want)
+
+
+def test_canny_by_windows_needs_the_hysteresis_halo():
+    """A halo that covers the stencils and only 2 of the 8 hysteresis
+    rounds gets tiles wrong."""
+    img = torch.from_numpy(np.random.default_rng(1).random((130, 130),
+                                                           np.float32))
+    want = canny_ref.canny_edge(img[None], 0.1, 0.4)[0]
+    assert not torch.equal(canny_by_windows(img, 130, 130, 0.1, 0.4,
+                                            halo=6), want)
 
 
 def _ssd_inputs(shape, seed, mamba):
