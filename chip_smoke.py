@@ -94,7 +94,32 @@ Phases, each printed as it ends; any failure exits non-zero:
     1024-token prompt: logits within 1e-3 and equal tokens;
 20. RG-LRU kernel and plain-version times at recurrentgemma-2b's prefill
     shape against the kernel's bound (no PyTorch call computes the
-    recurrence).
+    recurrence);
+21. the paper's routing comparison on the card: one
+    ``Gateway.process_stream`` over phase 5's detectors and 256 scenes
+    (open loop, the thermal drift, δ = 5, batches of 32) for each of
+    {ED, SF, OB, GT} x {Algorithm 1, ``WeightedRouter``, ``ParetoRouter``}
+    and RR, Rnd (seed 0), LE, LI, HM, HMG and the oracle, with the Canny
+    launch count set to 0 just before each row and read just after (every
+    ED row launches it), SF's detector and the profile state on the card,
+    every histogram summing to 256; the first 64 scenes of every row again
+    on the CPU with equal decisions (SF's may differ only on a frame where
+    its detector's objectness crosses 0.5 between the two, OB's on the
+    frame after one where a backend's does; the objectness itself within
+    atol 1e-6 + rtol 1e-5); SF's call and device time on 32 frames;
+22. ``EcoreService(max_wait_ms=5)`` with its flusher thread on the real
+    clock over detector backends on the card: 24 requests in groups of 3
+    (max_batch 8) all served by deadline flushes, their pairs equal and
+    their detections within the detector tests' bar of the same 24 served
+    at once; then the same through ``AsyncEcoreService`` under
+    ``asyncio.run``; every wait bounded by 10 s;
+23. the fault storm of ``tests/test_faults.py`` (errors at rate 0.4,
+    10 s stalls at 0.3, a crash window over a fifth of the uids, on
+    orin_nano) over 400 requests to faulty detector backends on the card:
+    ``ResilientService`` (deadline 500 ms, 3 retries, oracle routing at
+    δ = 2, a fake clock) serves >= 99 % within the deadline and fails
+    none, the bare ``EcoreService`` < 50 %, and every uid's outcome (pair,
+    attempts, exception) equals the same storm on the CPU.
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -1033,6 +1058,382 @@ def lru_timing(dev):
     return kern, plain, bnd, by
 
 
+#: phase 21's rows: (estimator, router); None = no estimator
+ROUTING_ROWS = ([(e, r) for e in ("ED", "SF", "OB", "GT")
+                 for r in ("greedy", "Wgt", "Par")]
+                + [(None, r) for r in ("RR", "Rnd", "LE", "LI", "HM", "HMG")]
+                + [("GT", "Orc")])
+#: a raw objectness score this close to the 0.5 threshold may land on
+#: either side on the card and on the CPU
+SCORE_EDGE = 1e-5
+#: every wait on a future in phases 22 and 23, seconds
+WAIT_S = 10.0
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def routing_episode(est_name, router_name, stream, params, dev, log,
+                    sf_calls=None):
+    """One ``Gateway.process_stream`` of the paper's comparison on ``dev``
+    (open loop, the thermal drift on the fleet, δ = 5, batches of 32);
+    every decision lands in ``log`` by uid, and every SF detector launch
+    adds one to ``sf_calls[0]``."""
+    from repro_torch.core import estimators as est_mod
+    from repro_torch.core import router as rt
+    from repro_torch.core.gateway import Gateway
+    from repro_torch.detection.devices import (drift_scenario,
+                                               nominal_profile_table)
+    table = nominal_profile_table(device=dev)
+    est = {"ED": lambda: est_mod.EdgeDetectionEstimator(device=dev),
+           "SF": lambda: est_mod.SSDFrontEndEstimator(
+               params["ssd_v1"], "ssd_v1", device=dev),
+           "OB": est_mod.OutputBasedEstimator,
+           "GT": est_mod.OracleEstimator, None: lambda: None}[est_name]()
+    cls = {"greedy": rt.GreedyEstimateRouter, "Wgt": rt.WeightedRouter,
+           "Par": rt.ParetoRouter, "RR": rt.RoundRobinRouter,
+           "Rnd": rt.RandomRouter, "LE": rt.LowestEnergyRouter,
+           "LI": rt.LowestInferenceRouter, "HM": rt.HighestMAPRouter,
+           "HMG": rt.HighestMAPPerGroupRouter,
+           "Orc": rt.OracleRouter}[router_name]
+    gw = Gateway(cls(table, 5.0), table, params, est,
+                 fleet=drift_scenario("thermal"), max_batch=32, device=dev)
+    decide, decide_batch = gw.policy.decide, gw.policy.decide_batch
+
+    def keep(d):
+        log[d.uid] = (d.pair, d.est_complexity)
+        return d
+
+    gw.policy.decide = lambda req: keep(decide(req))
+    gw.policy.decide_batch = lambda reqs: [keep(d) for d in
+                                           decide_batch(reqs)]
+    if est_name == "SF" and sf_calls is not None:
+        for name in ("estimate", "estimate_batch"):
+            def counted(*a, _f=getattr(est, name)):
+                sf_calls[0] += 1
+                return _f(*a)
+            setattr(est, name, counted)
+    return gw, est, gw.process_stream(stream)
+
+
+def objectness(model, images, dev):
+    """The detector's raw objectness scores [B, 8, 8] on ``dev``, the
+    sigmoid taken on the host as ``decode_detections`` takes it."""
+    import numpy as np
+    import torch
+    x = torch.as_tensor(images, device=dev)[..., None]
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        raw = model.to(dev)(x)[..., 0].cpu().numpy()
+    return 1 / (1 + np.exp(-raw))
+
+
+def routing_comparison(params, scenes, dev, canny_ops):
+    """Phase 21: every row of the paper's routing comparison on ``dev``,
+    its first 64 scenes again on the CPU.  Returns the Canny launches of
+    the ED rows."""
+    import copy
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
+    n_cpu = 64
+    images = np.stack([s.image for s in scenes[:n_cpu]])
+    near, flips, worst = set(), {}, 0.0
+    for m in params:
+        a = objectness(params[m], images, dev)
+        b = objectness(cpu_params[m], images, cpu)
+        ratio = float((np.abs(a - b) / (1e-6 + 1e-5 * np.abs(b))).max())
+        worst = max(worst, ratio)
+        if ratio > 1:
+            fail(f"{m}'s objectness differs between {dev} and cpu beyond "
+                 f"atol 1e-6 + rtol 1e-5: {ratio:.3g} x the bar")
+        edge = (np.abs(a - 0.5) < SCORE_EDGE) | (np.abs(b - 0.5) < SCORE_EDGE)
+        near |= set(np.nonzero(edge.any(axis=(1, 2)))[0].tolist())
+        # frames where a score lands on the other side of 0.5 (within the
+        # bar above, so within SCORE_EDGE of it)
+        flips[m] = set(np.nonzero(((a >= 0.5) != (b >= 0.5))
+                                  .any(axis=(1, 2)))[0].tolist())
+    print(f"routing: objectness {dev} vs cpu over {n_cpu} scenes x "
+          f"{len(params)} detectors within {worst:.3f} of the bar (atol "
+          f"1e-6 + rtol 1e-5); frames with a score within {SCORE_EDGE} of "
+          f"0.5: {len(near)}; frames where a score crosses 0.5: "
+          f"{ {m: sorted(f) for m, f in flips.items()} }")
+    # SF's count can move only where its detector's score crossed; OB's
+    # estimate only on the frame after one where a backend's score did
+    allowed = {"SF": flips["ssd_v1"],
+               "OB": {u + 1 for f in flips.values() for u in f}}
+    canny_launches = 0
+    for est_name, rname in ROUTING_ROWS:
+        log, cpu_log, sf_calls = {}, {}, [0]
+        canny_ops.launches = 0
+        sync(dev)
+        t1 = time.perf_counter()
+        gw, est, st = routing_episode(est_name, rname, scenes, params, dev,
+                                      log, sf_calls)
+        sync(dev)
+        wall = time.perf_counter() - t1
+        n_canny = canny_ops.launches
+        canny_launches += n_canny
+        row = f"{est_name or '-'}/{rname}"
+        if sum(st.pair_histogram.values()) != len(scenes):
+            fail(f"routing row {row} served {st.pair_histogram}")
+        if est_name == "ED" and dev.type == "cuda" and n_canny < 1:
+            fail(f"routing row {row} never launched the canny kernel")
+        state_dev = gw.table.as_state().map_pct.device
+        if state_dev.type != dev.type:
+            fail(f"routing row {row}'s profile state is on {state_dev}")
+        extra = ""
+        if est_name == "SF":
+            where = next(est.detector.parameters()).device
+            if where.type != dev.type:
+                fail(f"SF's detector is on {where}")
+            extra = f", SF detector launches {sf_calls[0]} (on {where})"
+        routing_episode(est_name, rname, scenes[:n_cpu], cpu_params, cpu,
+                        cpu_log)
+        diff = {u for u in range(n_cpu) if log[u] != cpu_log[u]}
+        if diff - allowed.get(est_name, set()):
+            fail(f"routing row {row}: {dev} and cpu decide differently on "
+                 f"scenes {sorted(diff)}")
+        print(f"routing {row}: {wall:.3f} s wall, backend "
+              f"{st.backend_energy_mwh:.4f} mWh / {st.backend_time_ms:.1f} "
+              f"ms, mAP {st.map_pct:.2f}, gateway "
+              f"{st.gateway_energy_mwh:.6f} mWh, canny launches {n_canny}"
+              f"{extra}; {dev} == cpu on {n_cpu - len(diff)}/{n_cpu} "
+              f"decisions; pairs {st.pair_histogram}")
+    # SF's gateway cost: one detector launch per batch of 32 frames
+    from repro_torch.core.estimators import SSDFrontEndEstimator
+    sf = SSDFrontEndEstimator(params["ssd_v1"], "ssd_v1", device=dev)
+    batch = np.stack([s.image for s in scenes[:32]])
+    if dev.type == "cuda":
+        call = median_ms(lambda: sf.estimate_batch(batch), reps=10, inner=3)
+        busy = device_total_ms(lambda: sf.estimate_batch(batch))
+        print(f"SF at the gateway, 32 frames: {call:.4f} ms a call, device "
+              f"time {busy} ms")
+    phase("21 routing comparison", t0)
+    return canny_launches
+
+
+def served_equal(name, got, want) -> None:
+    """Same pair and the detections within the detector tests' bar
+    (boxes atol 1e-4, scores atol 1e-6, rtol 1e-5; classes equal)."""
+    import numpy as np
+    for uid, w in want.items():
+        g = got.get(uid)
+        if g is None or g.decision.pair != w.decision.pair:
+            fail(f"{name}: uid {uid} served {g and g.decision.pair}, "
+                 f"{w.decision.pair} in full batches")
+        (b1, s1, c1), (b2, s2, c2) = g.result.detections, w.result.detections
+        if not (b1.shape == b2.shape and np.allclose(b1, b2, 1e-5, 1e-4)
+                and np.allclose(s1, s2, 1e-5, 1e-6)
+                and np.array_equal(c1, c2)):
+            fail(f"{name}: uid {uid}'s detections differ from full batches")
+
+
+def deadline_flushing(params, scenes, dev):
+    """Phase 22: ``EcoreService`` with ``max_wait_ms=5`` and its flusher
+    thread on the real clock, then ``AsyncEcoreService``: 24 requests in
+    groups of 3 (max_batch 8) against the same 24 served at once."""
+    import asyncio
+    import concurrent.futures
+    import numpy as np
+    from repro_torch.core.estimators import EdgeDetectionEstimator
+    from repro_torch.core.policy import DetectionPolicy, RouteRequest
+    from repro_torch.core.router import GreedyEstimateRouter
+    from repro_torch.detection.devices import nominal_profile_table
+    from repro_torch.serving.aio import AsyncEcoreService
+    from repro_torch.serving.backend import DetectorBackend
+    from repro_torch.serving.service import EcoreService
+    t0 = time.perf_counter()
+    reqs = [RouteRequest(uid=i, payload=s.image, true_complexity=s.count)
+            for i, s in enumerate(scenes[:24])]
+
+    def policy():
+        table = nominal_profile_table(device=dev)
+        return DetectionPolicy(GreedyEstimateRouter(table, 5.0), table,
+                               EdgeDetectionEstimator(device=dev))
+
+    def factory(d):
+        return DetectorBackend(*d.pair, params[d.pair[0]], max_batch=8,
+                               device=dev)
+
+    def result(fut):
+        try:
+            return fut.result(timeout=WAIT_S)
+        except concurrent.futures.TimeoutError:
+            fail(f"phase 22: a request waited past {WAIT_S} s")
+
+    ref = EcoreService(policy(), factory)
+    futs = ref.submit_batch(reqs)
+    ref.drain()
+    want = {s.request.uid: s for s in map(result, futs)}
+    ref.close()
+
+    def report(name, got, flushes, stats, wall):
+        waits = np.asarray(stats["queue_wait_ms"])
+        if len(got) != len(reqs) or flushes < 1:
+            fail(f"{name}: {len(got)} served, {flushes} deadline flushes")
+        served_equal(name, got, want)
+        print(f"{name}: 24 requests in groups of 3 in {wall:.3f} s, "
+              f"{stats['serve_calls']} serve_batch calls, {flushes} "
+              f"deadline flushes; queue wait p50 "
+              f"{np.percentile(waits, 50):.3f} ms, p99 "
+              f"{np.percentile(waits, 99):.3f} ms; pairs and detections "
+              f"== the same 24 served at once")
+
+    svc = EcoreService(policy(), factory, max_wait_ms=5.0)
+    got = {}
+    t1 = time.perf_counter()
+    for g in range(0, len(reqs), 3):
+        for s in map(result, [svc.submit(r) for r in reqs[g:g + 3]]):
+            got[s.request.uid] = s
+    wall = time.perf_counter() - t1
+    report("deadline flusher", got, svc.deadline_flushes, svc.stats(), wall)
+    svc.close()
+
+    async def drive():
+        asvc = AsyncEcoreService(policy(), factory, max_wait_ms=5.0)
+        out = {}
+        try:
+            for g in range(0, len(reqs), 3):
+                futs = [asvc.submit_nowait(r) for r in reqs[g:g + 3]]
+                for s in await asyncio.wait_for(asyncio.gather(*futs),
+                                                WAIT_S):
+                    out[s.request.uid] = s
+            return out, asvc.deadline_flushes, asvc.stats()
+        finally:
+            await asyncio.wait_for(asvc.close(), WAIT_S)
+
+    t1 = time.perf_counter()
+    try:
+        got, flushes, stats = asyncio.run(drive())
+    except asyncio.TimeoutError:
+        fail(f"phase 22: an awaited request waited past {WAIT_S} s")
+    report("async facade", got, flushes, stats, time.perf_counter() - t1)
+    phase("22 deadline flushing and the async facade", t0)
+
+
+class SeenBackend:
+    """Counts each uid's appearances in ``serve_batch`` calls (its
+    attempts) in front of a backend."""
+
+    def __init__(self, inner, seen):
+        self.inner, self.seen = inner, seen
+        self.name, self.max_batch = inner.name, inner.max_batch
+
+    def serve_batch(self, requests):
+        for r in requests:
+            self.seen[r.uid] = self.seen.get(r.uid, 0) + 1
+        return self.inner.serve_batch(requests)
+
+    def profile_row(self):
+        return self.inner.profile_row()
+
+
+def storm_run(params, stream, dev, resilient):
+    """The fault storm of ``tests/test_faults.py`` on orin_nano over
+    ``stream``: per uid (served pair, attempts, exception type, served
+    within the 500 ms deadline), and the service's counters."""
+    import numpy as np
+    from repro_torch.core.policy import DetectionPolicy, RouteRequest
+    from repro_torch.core.router import OracleRouter
+    from repro_torch.detection.devices import nominal_profile_table
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.faults import FaultSpec, InjectedFault
+    from repro_torch.serving.resilience import ResilientService, RetryPolicy
+    from repro_torch.serving.service import EcoreService
+    n, deadline = len(stream), 500.0
+    storm = {"orin_nano": [
+        FaultSpec("error", rate=0.4, seed=3),
+        FaultSpec("stall", rate=0.3, seed=5, stall_ms=10_000.0),
+        FaultSpec("crash_window", start=n // 2, end=n // 2 + n // 5)]}
+    seen = {}
+    table = nominal_profile_table(device=dev)
+    pol = DetectionPolicy(OracleRouter(table, 2.0), table)
+
+    def factory(d):
+        model, edge = d.pair
+        return SeenBackend(make_backend(
+            "faulty:detector", model, edge, params[model], max_batch=4,
+            faults=storm.get(edge, []), device=dev), seen)
+
+    reqs = [RouteRequest(uid=u, payload=s.image, true_complexity=s.count)
+            for u, s in enumerate(stream)]
+    clock = lambda: 0.0   # noqa: E731  (the injectable fake clock)
+    futs = []
+    if resilient:
+        svc = ResilientService(pol, factory, clock=clock,
+                               retry=RetryPolicy(deadline_ms=deadline,
+                                                 max_retries=3))
+        futs = [svc.submit(r) for r in reqs]
+        svc.drain()
+    else:
+        svc = EcoreService(pol, factory, clock=clock, retain_results=False,
+                           buffer_errors=False)
+        for r in reqs:
+            try:
+                futs.append(svc.submit(r))
+            except InjectedFault:   # an inline flush's error
+                pass
+        try:
+            svc.drain()
+        except InjectedFault:       # a partial batch's error, re-raised
+            pass
+    stats = svc.stats()
+    svc.close()
+    out = []
+    for f in futs:
+        exc = f.exception(timeout=WAIT_S)
+        res = None if exc is not None else f.result().result
+        uid = getattr(exc, "uid", None) if exc is not None else res.uid
+        ok = (res is not None and np.isfinite(res.time_ms)
+              and res.time_ms <= deadline)
+        out.append((uid, None if exc is not None else
+                    f.result().decision.pair, seen.get(uid, 0),
+                    None if exc is None else type(exc).__name__, ok))
+    return out, stats
+
+
+def fault_storm(params, dev):
+    """Phase 23: ``ResilientService`` over faulty detector backends on
+    ``dev`` (real detectors, 64x64 scenes) under the storm; the bare
+    service under the same storm; each uid's outcome against the CPU's."""
+    import copy
+    import torch
+    from repro_torch.detection import scenes as sc
+    t0 = time.perf_counter()
+    stream = sc.drifting_dataset(400, seed=6)
+    sync(dev)
+    t1 = time.perf_counter()
+    got, stats = storm_run(params, stream, dev, resilient=True)
+    sync(dev)
+    wall = time.perf_counter() - t1
+    good = sum(o[-1] for o in got) / len(got)
+    bare, _ = storm_run(params, stream, dev, resilient=False)
+    bare_good = sum(o[-1] for o in bare) / len(stream)
+    cpu = torch.device("cpu")
+    cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
+    want, _ = storm_run(cpu_params, stream, cpu, resilient=True)
+    print(f"fault storm ({len(stream)} requests, deadline 500 ms, 3 "
+          f"retries): resilient goodput {good:.4f} in {wall:.3f} s wall, "
+          f"retries {stats['retries']}, hedges {stats['hedges']}, deadline "
+          f"misses {stats['deadline_misses']}, failed {stats['failed']}; "
+          f"bare goodput {bare_good:.4f}")
+    if good < 0.99 or stats["failed"] != 0 or bare_good >= 0.5:
+        fail(f"fault storm: goodput {good} (failed {stats['failed']}), "
+             f"bare {bare_good}")
+    diff = [a[0] for a, b in zip(got, want) if a != b]
+    if diff:
+        fail(f"fault storm: {dev} and cpu differ on uids {diff[:10]}")
+    print(f"fault storm: every uid's outcome (pair, attempts, exception) on "
+          f"{dev} == cpu")
+    phase("23 fault storm", t0)
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1297,6 +1698,11 @@ def main() -> None:
     llm_cuda_vs_cpu("recurrentgemma-2b", 1024,
                     "19 recurrentgemma-2b cuda vs cpu", num_layers=5)
     lru_row = lru_timing(dev)
+
+    main_launches["canny_fused"] += routing_comparison(params, scenes, dev,
+                                                       canny_ops)
+    deadline_flushing(params, scenes, dev)
+    fault_storm(params, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

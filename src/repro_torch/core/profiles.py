@@ -13,10 +13,13 @@ stream with the state kept on the device.  ``ProfileTable`` owns the
 entries and the device the state lives on: ``as_state()`` exports the
 state, ``load_state()`` folds an updated state back into the entries, and
 ``observe``/``observe_pair`` are the scalar mirrors of ``observe_state``.
+``add_pair``/``retire_pair`` grow and shrink the fleet on the state.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import operator
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -129,6 +132,58 @@ def probe_state(state: ProfileState, pair_idx, success) -> ProfileState:
                           state.fails))
 
 
+def add_pair(state: ProfileState, *, map_pct, time_ms, energy_mwh,
+             pair_idx: Optional[int] = None) -> Tuple[ProfileState, int]:
+    """A NEW (model, device) pair joins the profile as one column appended
+    on every group row, on the state's device.  Returns the new state and
+    the pair's index (default: one past the current maximum).
+
+    Each profile argument is a scalar (replicated across groups) or a
+    length-[G] vector.  The column is appended LAST, so the masked argmin
+    in ``decide_state`` sees every existing cell at the same position with
+    the same tie-break order.  Host-side by contract: the shapes change,
+    and the default index is the one value read back from the device."""
+    G = state.pair_id.shape[0]
+    dev = state.pair_id.device
+    if pair_idx is None:
+        pair_idx = operator.index(state.pair_id.max().cpu()) + 1
+
+    def col(v, dtype=torch.float32):
+        return torch.as_tensor(v, dtype=dtype, device=dev).expand(G)[:, None]
+
+    def cat(old, new):
+        return torch.cat([old, new], dim=1)
+
+    new = state._replace(
+        map_pct=cat(state.map_pct, col(map_pct)),
+        time_ms=cat(state.time_ms, col(time_ms)),
+        energy_mwh=cat(state.energy_mwh, col(energy_mwh)),
+        valid=cat(state.valid, torch.ones((G, 1), dtype=torch.bool,
+                                          device=dev)),
+        pair_id=cat(state.pair_id, col(pair_idx, state.pair_id.dtype)),
+        fails=(None if state.fails is None else
+               cat(state.fails, torch.zeros((G, 1), dtype=torch.int32,
+                                            device=dev))))
+    return new, pair_idx
+
+
+def retire_pair(state: ProfileState, pair_idx) -> ProfileState:
+    """Every cell of ``pair_idx`` becomes a pad (-inf mAP, +inf costs,
+    invalid, ``pair_id=-1``, breaker reset): the pair leaves every group's
+    feasible set without changing any shape, and ``pair_idx`` may be a
+    device tensor (no host read).  ``add_pair`` followed by
+    ``retire_pair`` of the same index restores decisions bit for bit."""
+    gone = state.pair_id == pair_idx
+    return state._replace(
+        map_pct=state.map_pct.masked_fill(gone, -torch.inf),
+        time_ms=state.time_ms.masked_fill(gone, torch.inf),
+        energy_mwh=state.energy_mwh.masked_fill(gone, torch.inf),
+        valid=state.valid & ~gone,
+        pair_id=state.pair_id.masked_fill(gone, -1),
+        fails=(None if state.fails is None else
+               state.fails.masked_fill(gone, 0)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ProfileArrays:
     """Snapshot binding a ``ProfileState`` to one table's identity: group
@@ -170,6 +225,16 @@ class ProfileTable:
                 seen.add(e.pair)
                 out.append(e.pair)
         return out
+
+    def entry(self, pair: Tuple[str, str], group: int) -> ProfileEntry:
+        for e in self.entries:
+            if e.pair == pair and e.group == group:
+                return e
+        raise KeyError((pair, group))
+
+    def mean_map(self, pair: Tuple[str, str]) -> float:
+        rows = [e.map_pct for e in self.entries if e.pair == pair]
+        return sum(rows) / len(rows)
 
     def as_arrays(self) -> ProfileArrays:
         """Padded per-group snapshot on ``self.device`` (cached; rebuilt
@@ -240,6 +305,13 @@ class ProfileTable:
                 time_ms=float(t[g, p]), energy_mwh=float(e[g, p]))
         self.version += 1
 
+    def with_state(self, state: ProfileState) -> "ProfileTable":
+        """Independent table (same device) with ``state``'s values folded
+        in — the non-mutating half of the state<->table round trip."""
+        out = self.copy()
+        out.load_state(state)
+        return out
+
     # ----------------------------------------------------- dynamic profiling
     def observe(self, pair: Tuple[str, str], group: int, *,
                 time_ms: Optional[float] = None,
@@ -281,3 +353,16 @@ class ProfileTable:
         """Independent table with the same (immutable) entries on the same
         device."""
         return ProfileTable(self.entries, device=self.device)
+
+    # ------------------------------------------------------------------ io
+    def to_json(self, path: str) -> None:
+        """The JAX package's file format: a list of entry dicts."""
+        with open(path, "w") as f:
+            json.dump([dataclasses.asdict(e) for e in self.entries], f,
+                      indent=1)
+
+    @classmethod
+    def from_json(cls, path: str, *, device="cuda") -> "ProfileTable":
+        with open(path) as f:
+            return cls((ProfileEntry(**row) for row in json.load(f)),
+                       device=device)

@@ -7,10 +7,15 @@ Algorithm 1 (faithful):
   12-13 keep pairs with mAP >= mAP_min (feasible set F)
   14-15 return argmin energy over F
 
-The baseline routers of ``repro.core.router`` wait for a later slice.
+Beside it: the paper's baselines (RR, Rnd, LE, LI, HM, HMG, Orc) and the
+repo's multi-objective ``WeightedRouter`` and ``ParetoRouter``.  The
+scalar routers compare the entries' Python floats (float64) on the host;
+the tensorized ``decide_state``/``route_batch`` compare in f32 on the
+state's device, as the JAX package's jitted router does.
 """
 from __future__ import annotations
 
+import random
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,13 +41,50 @@ def feasible_set(group: int, profiling_data: ProfileTable,
     return [e for e in group_data if e.map_pct >= map_min]  # lines 12-13
 
 
+def feasible_for_count(count: int, profiling_data: ProfileTable,
+                       delta_map: float,
+                       group_rules: Sequence = DEFAULT_GROUP_RULES
+                       ) -> List[ProfileEntry]:
+    """Algorithm 1 lines 1-13: group lookup + feasible set."""
+    group = group_of(count, group_rules)                    # lines 1-7
+    return feasible_set(group, profiling_data, delta_map)
+
+
+def pareto_front(entries: Sequence[ProfileEntry]) -> List[ProfileEntry]:
+    """Entries not dominated in BOTH (energy, time) by another entry, in
+    their input order."""
+    return [e for e in entries
+            if not any(o.energy_mwh <= e.energy_mwh and o.time_ms <= e.time_ms
+                       and o is not e
+                       and (o.energy_mwh < e.energy_mwh
+                            or o.time_ms < e.time_ms)
+                       for o in entries)]
+
+
 def greedy_route(number_of_objects: int, profiling_data: ProfileTable,
                  delta_map: float,
                  group_rules: Sequence = DEFAULT_GROUP_RULES) -> ProfileEntry:
     """Algorithm 1, line for line."""
-    group = group_of(number_of_objects, group_rules)        # lines 1-7
-    refined = feasible_set(group, profiling_data, delta_map)  # lines 8-13
+    refined = feasible_for_count(number_of_objects, profiling_data,
+                                 delta_map, group_rules)    # lines 1-13
     return min(refined, key=lambda e: e.energy_mwh)         # lines 14-15
+
+
+def runner_up_route(number_of_objects: int, profiling_data: ProfileTable,
+                    delta_map: float, exclude: Sequence[Pair],
+                    group_rules: Sequence = DEFAULT_GROUP_RULES
+                    ) -> Optional[ProfileEntry]:
+    """Algorithm 1's NEXT pick: the argmin-energy entry of the feasible set
+    without the ``exclude``d pairs — where a hedged retry goes when the
+    first pick's device fails (``serving.resilience``).  An empty
+    exclusion gives the greedy pick; None when every feasible pair is
+    excluded."""
+    excluded = set(exclude)
+    refined = [e for e in feasible_for_count(number_of_objects,
+                                             profiling_data, delta_map,
+                                             group_rules)
+               if e.pair not in excluded]
+    return min(refined, key=lambda e: e.energy_mwh) if refined else None
 
 
 # ------------------------------------------------------- tensorized routing
@@ -191,3 +233,117 @@ class OracleRouter(Router):
 
     def route_batch(self, *, estimated_counts=None, true_counts=None):
         return self._route_batch_greedy([int(c) for c in true_counts])
+
+
+class RoundRobinRouter(Router):
+    name = "RR"
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._i = 0
+        self._pairs = self.table.pairs()
+
+    def route(self, **_) -> Pair:
+        p = self._pairs[self._i % len(self._pairs)]
+        self._i += 1
+        return p
+
+    def reset(self):
+        self._i = 0
+
+
+class RandomRouter(Router):
+    """Rnd: a uniform pick from an explicit ``random.Random(seed)``, so the
+    choices equal the JAX router's for the same seed; ``reset`` reseeds."""
+    name = "Rnd"
+
+    def __init__(self, *a, seed: int = 0, **kw):
+        super().__init__(*a, **kw)
+        self._seed = seed
+        self._rng = random.Random(seed)
+        self._pairs = self.table.pairs()
+
+    def route(self, **_) -> Pair:
+        return self._rng.choice(self._pairs)
+
+    def reset(self):
+        self._rng = random.Random(self._seed)
+
+
+class LowestEnergyRouter(Router):
+    name = "LE"
+
+    def route(self, **_) -> Pair:
+        return min(self.table.entries, key=lambda e: e.energy_mwh).pair
+
+
+class LowestInferenceRouter(Router):
+    name = "LI"
+
+    def route(self, **_) -> Pair:
+        return min(self.table.entries, key=lambda e: e.time_ms).pair
+
+
+class HighestMAPRouter(Router):
+    """HM: highest overall mAP, independent of object count."""
+    name = "HM"
+
+    def route(self, **_) -> Pair:
+        return max(self.table.pairs(), key=self.table.mean_map)
+
+
+class HighestMAPPerGroupRouter(Router):
+    """HMG: best mAP within the (true) object-count group; the paper's
+    accuracy upper bound."""
+    name = "HMG"
+    uses_ground_truth = True
+
+    def route(self, *, estimated_count=None, true_count=None) -> Pair:
+        group = group_of(int(true_count), self.rules)
+        return max(self.table.for_group(group), key=lambda e: e.map_pct).pair
+
+
+class WeightedRouter(Router):
+    """Multi-objective greedy (the paper's §6 future work):
+    min  w_e * energy/energy_max + w_t * time/time_max
+    s.t. group match and mAP >= mAP_max - delta.
+    (w_e, w_t) = (1, 0) recovers Algorithm 1.  The normalizers are
+    recomputed on every call, because closed-loop ``observe`` mutates the
+    table; so the router is not batchable."""
+    name = "Wgt"
+    uses_estimate = True
+    batchable = False
+
+    def __init__(self, table: ProfileTable, delta_map: float = 5.0,
+                 group_rules: Sequence = DEFAULT_GROUP_RULES,
+                 w_energy: float = 0.5, w_time: float = 0.5):
+        super().__init__(table, delta_map, group_rules)
+        self.w_energy, self.w_time = w_energy, w_time
+
+    def route(self, *, estimated_count=None, true_count=None) -> Pair:
+        feasible = feasible_for_count(int(estimated_count or 0), self.table,
+                                      self.delta, self.rules)
+        e_max = max(e.energy_mwh for e in self.table.entries)
+        t_max = max(e.time_ms for e in self.table.entries)
+        return min(feasible, key=lambda e: (
+            self.w_energy * e.energy_mwh / e_max
+            + self.w_time * e.time_ms / t_max)).pair
+
+
+class ParetoRouter(Router):
+    """Restrict the feasible set to its (energy, time) Pareto front before
+    the greedy pick: never selects a pair dominated in both objectives.
+    The front is not tensorized, so the router is not batchable."""
+    name = "Par"
+    uses_estimate = True
+    batchable = False
+
+    def route(self, *, estimated_count=None, true_count=None) -> Pair:
+        feasible = feasible_for_count(int(estimated_count or 0), self.table,
+                                      self.delta, self.rules)
+        return min(pareto_front(feasible), key=lambda e: e.energy_mwh).pair
+
+
+BASELINE_ROUTERS = (OracleRouter, RoundRobinRouter, RandomRouter,
+                    LowestEnergyRouter, LowestInferenceRouter,
+                    HighestMAPRouter, HighestMAPPerGroupRouter)

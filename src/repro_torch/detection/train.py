@@ -1,5 +1,7 @@
-"""Running the detector family.  Training and offline profiling wait for a
-later slice of the port."""
+"""Running the detector family: the backends' forward and the SF
+estimator's.  The port has no training or offline profiling of
+detectors; its detectors carry seeded or JAX-trained weights
+(``init_detector``, ``params_from_jax``)."""
 from __future__ import annotations
 
 import numpy as np

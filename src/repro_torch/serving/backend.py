@@ -26,7 +26,8 @@ a factory) instead of forking another serving loop.  Two faces ship here:
     (optionally through a ``DriftingFleet``, using each request's ``uid``
     as the fleet timestep) — registered as ``"detector"``
 
-The fault-injection wrapper of ``repro.serving`` waits for a later slice.
+``make_backend("faulty:<inner>", ..., faults=[...])`` wraps any of them in
+the fault-injection plane's ``FaultyBackend`` (``serving/faults.py``).
 """
 from __future__ import annotations
 
@@ -83,7 +84,17 @@ def ensure_backend(obj) -> ExecutionBackend:
 
 
 def make_backend(kind: str, *args, **kwargs) -> ExecutionBackend:
-    """Build a registered backend and validate it against the protocol."""
+    """Build a registered backend and validate it against the protocol.
+
+    ``"faulty:<inner>"`` builds ``<inner>`` through its registered factory
+    and wraps it in ``FaultyBackend``; the ``faults`` kwarg (a sequence of
+    ``FaultSpec``) belongs to the wrapper, the rest to the inner factory."""
+    if kind.startswith("faulty:"):
+        # lazy: faults.py imports this module
+        from repro_torch.serving.faults import FaultyBackend
+        faults = kwargs.pop("faults", ())
+        inner = make_backend(kind[len("faulty:"):], *args, **kwargs)
+        return ensure_backend(FaultyBackend(inner, faults))
     try:
         factory = _REGISTRY[kind]
     except KeyError:

@@ -120,27 +120,62 @@ class Backend:
 
 
 class DispatchQueue:
-    """Per-backend request queue with batched flush.
+    """Per-backend request queue with batched, latency-bounded flush.
 
     Requests accumulate until ``backend.max_batch`` is reached, then go out
     batched.  Each flush makes one ``serve_batch`` call per distinct
     payload LENGTH (``len`` of the payload: the prompt length for the LLM
     face, the frame height for the detection face), so every call
-    receives payloads it can stack.  The
-    JAX package's ``max_wait_ms`` deadline waits for the traffic plane's
-    slice of the port."""
+    receives payloads it can stack.
 
-    def __init__(self, backend):
+    ``max_wait_ms`` bounds how long the OLDEST pending request waits for
+    the batch to fill: once the deadline passes, the next ``submit`` or
+    ``poll`` serves the partial batch, and ``next_deadline`` tells a
+    flusher thread when to wake.  ``clock`` is injectable for
+    deterministic tests (default ``time.monotonic``, seconds)."""
+
+    def __init__(self, backend, *, max_wait_ms: Optional[float] = None,
+                 clock=time.monotonic):
         self.backend = backend
+        self.max_wait_ms = max_wait_ms
+        self._clock = clock
+        self._oldest: Optional[float] = None
         self.pending: List[Request] = []
         self.calls = 0
         self.served = 0
+        #: partial batches served because the deadline expired — via
+        #: submit, poll, or the service's flusher (which bumps it itself)
+        self.deadline_flushes = 0
+
+    def _deadline_passed(self) -> bool:
+        return (self.max_wait_ms is not None and self._oldest is not None
+                and (self._clock() - self._oldest) * 1e3 >= self.max_wait_ms)
+
+    def next_deadline(self) -> Optional[float]:
+        """Clock time (seconds) when the oldest pending request's wait
+        bound expires; None without a deadline or with nothing pending."""
+        if self.max_wait_ms is None or self._oldest is None or not self.pending:
+            return None
+        return self._oldest + self.max_wait_ms / 1e3
 
     def submit(self, req: Request) -> List[Result]:
-        """Enqueue; returns flushed results when the batch fills, else
-        []."""
+        """Enqueue; returns flushed results when the batch fills (or the
+        oldest pending request's deadline has passed), else []."""
+        if not self.pending:
+            self._oldest = self._clock()
         self.pending.append(req)
         if len(self.pending) >= self.backend.max_batch:
+            return self.flush()
+        if self._deadline_passed():
+            self.deadline_flushes += 1
+            return self.flush()
+        return []
+
+    def poll(self) -> List[Result]:
+        """Serve the pending partial batch if it has waited past
+        ``max_wait_ms``; [] otherwise."""
+        if self.pending and self._deadline_passed():
+            self.deadline_flushes += 1
             return self.flush()
         return []
 
@@ -148,6 +183,7 @@ class DispatchQueue:
         if not self.pending:
             return []
         batch, self.pending = self.pending, []
+        self._oldest = None
         by_len: Dict[int, List[Request]] = {}
         for r in batch:
             by_len.setdefault(len(r.prompt), []).append(r)

@@ -249,13 +249,26 @@ def test_gateway_matches_jax(detectors, path, delta, drifting):
         _assert_states_close(jt.as_state(), tt.as_state())
 
 
-def test_entry_points_need_a_gpu_unless_told_cpu():
+def test_entry_points_need_a_gpu_unless_told_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU, so the default device works")
+    from repro_torch.core.estimators import SSDFrontEndEstimator
+    from repro_torch.detection.detectors import (DETECTOR_CONFIGS,
+                                                 init_detector)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         devices.nominal_profile_table()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EdgeDetectionEstimator()
+    detector = init_detector(DETECTOR_CONFIGS["ssd_v1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSDFrontEndEstimator(detector)
+    path = str(tmp_path / "profile.json")
+    devices.nominal_profile_table(device="cpu").to_json(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profiles.ProfileTable.from_json(path)
+    assert SSDFrontEndEstimator(detector, device="cpu").device.type == "cpu"
+    assert profiles.ProfileTable.from_json(path, device="cpu").device.type \
+        == "cpu"
 
 
 def test_detector_backend_edge_stage_and_costs_match_jax():
