@@ -119,7 +119,29 @@ Phases, each printed as it ends; any failure exits non-zero:
     ``ResilientService`` (deadline 500 ms, 3 retries, oracle routing at
     δ = 2, a fake clock) serves >= 99 % within the deadline and fails
     none, the bare ``EcoreService`` < 50 %, and every uid's outcome (pair,
-    attempts, exception) equals the same storm on the CPU.
+    attempts, exception) equals the same storm on the CPU;
+24. the cluster plane: ``select_pods`` on the card equal to the scalar
+    reference over bench_cluster's 2048 uids (4 and 6 pods, both shard
+    modes, with and without pod 1 dead) and the µs a request of both; an
+    ``EcoreCluster`` of 4 pods (ED and Algorithm 1 at δ = 5 in each,
+    phase 5's detectors, ``max_batch`` 8) over the 256 scenes through
+    ``submit_batch`` in each shard mode, with the Canny launch count set
+    to 0 just before and read just after (one launch per pod with a
+    shard), every uid's pod the reference's pick and the first 64 scenes'
+    (pod, pair, estimate) equal to the same cluster on the CPU;
+    degradation (3 pinned pods, ``pod_fail_after=2``, pod 0's device down):
+    at most one failure, pod 0 masked, requests resubmitted, uid-keyed
+    observations in the pods that served; and, a finding without a bar,
+    the requests per second at 1, 2 and 4 pods with the real detectors
+    and in bench_cluster's setting (48 requests, ``realtime_scale=1``);
+25. the traffic plane: ``BENCH_gateway.json`` entry [9] (bench_load's
+    four open-loop runs on the manual clock through a 2-to-6-pod cluster)
+    replayed through the port and equal to the file (integers exactly,
+    floats within 1e-12 relative); then a 1 s flash crowd of rendered
+    scenes whose autoscaled pods run ED per request and the detectors on
+    the card: one Canny launch per request (counted), none failed, and
+    the SLO summary, window records and autoscaler events equal to the
+    same replay on the CPU; its wall time and the device's busy share.
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -1241,25 +1263,16 @@ def deadline_flushing(params, scenes, dev):
     import asyncio
     import concurrent.futures
     import numpy as np
-    from repro_torch.core.estimators import EdgeDetectionEstimator
-    from repro_torch.core.policy import DetectionPolicy, RouteRequest
-    from repro_torch.core.router import GreedyEstimateRouter
-    from repro_torch.detection.devices import nominal_profile_table
+    from repro_torch.core.policy import RouteRequest
     from repro_torch.serving.aio import AsyncEcoreService
-    from repro_torch.serving.backend import DetectorBackend
     from repro_torch.serving.service import EcoreService
     t0 = time.perf_counter()
     reqs = [RouteRequest(uid=i, payload=s.image, true_complexity=s.count)
             for i, s in enumerate(scenes[:24])]
+    factory = detector_factory(params, dev, 8)
 
     def policy():
-        table = nominal_profile_table(device=dev)
-        return DetectionPolicy(GreedyEstimateRouter(table, 5.0), table,
-                               EdgeDetectionEstimator(device=dev))
-
-    def factory(d):
-        return DetectorBackend(*d.pair, params[d.pair[0]], max_batch=8,
-                               device=dev)
+        return ed_policy(dev)
 
     def result(fut):
         try:
@@ -1432,6 +1445,415 @@ def fault_storm(params, dev):
     print(f"fault storm: every uid's outcome (pair, attempts, exception) on "
           f"{dev} == cpu")
     phase("23 fault storm", t0)
+
+
+#: phase 24's shard-selection inputs: bench_cluster's 2048 uids
+SHARD_UIDS = 2048
+#: the tolerance of a float that two replays sum in another order (a
+#: cluster drain completes the pods' last batches from several threads)
+REPLAY_RTOL = 1e-12
+
+
+def replay_close(got, want, where):
+    """Integers, strings and structure equal; floats bit-equal or within
+    ``REPLAY_RTOL`` relative; fails naming the quantity that differs."""
+    import math
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            fail(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            replay_close(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{where}: {len(got)} items != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            replay_close(g, w, f"{where}[{i}]")
+    elif isinstance(want, float):
+        if not (isinstance(got, float) and (got == want or math.isclose(
+                got, want, rel_tol=REPLAY_RTOL, abs_tol=0.0))):
+            fail(f"{where}: {got!r} != {want!r} beyond {REPLAY_RTOL} "
+                 "relative")
+    elif type(got) is not type(want) or got != want:
+        fail(f"{where}: {got!r} != {want!r}")
+
+
+class PinnedPolicy:
+    """A pod's policy that routes every request to one pair; ``observed``
+    keeps the uids of the observations folded into it."""
+    batchable = True
+
+    def __init__(self, pair):
+        self.pair, self.observed = pair, []
+
+    def decide(self, req):
+        from repro_torch.core.policy import RouteDecision
+        return RouteDecision(uid=req.uid, pair=self.pair, group=0)
+
+    def decide_batch(self, reqs):
+        return [self.decide(r) for r in reqs]
+
+    def observe(self, obs):
+        self.observed.append(obs.uid)
+
+
+def ed_policy(dev):
+    """ED and Algorithm 1 at δ = 5 over the nominal profile on ``dev``."""
+    from repro_torch.core.estimators import EdgeDetectionEstimator
+    from repro_torch.core.policy import DetectionPolicy
+    from repro_torch.core.router import GreedyEstimateRouter
+    from repro_torch.detection.devices import nominal_profile_table
+    table = nominal_profile_table(device=dev)
+    return DetectionPolicy(GreedyEstimateRouter(table, 5.0), table,
+                           EdgeDetectionEstimator(device=dev))
+
+
+def detector_factory(params, dev, max_batch):
+    """Backends of the seeded detectors on ``dev``."""
+    from repro_torch.serving.backend import DetectorBackend
+    return lambda d: DetectorBackend(*d.pair, params[d.pair[0]],
+                                     max_batch=max_batch, device=dev)
+
+
+def ed_cluster(params, scenes, dev, pods, shard):
+    """Phase 24's cluster: ``pods`` ED pods over detector backends
+    (max_batch 8) on ``dev``, ``scenes`` through ``submit_batch`` and
+    ``drain``; per uid (pod, pair, estimated count), the pair histogram
+    and the wall seconds."""
+    import collections
+    from repro_torch.core.policy import RouteRequest
+    from repro_torch.serving.cluster import EcoreCluster
+    reqs = [RouteRequest(uid=u, payload=s.image, true_complexity=s.count)
+            for u, s in enumerate(scenes)]
+    with EcoreCluster(lambda i: ed_policy(dev),
+                      detector_factory(params, dev, 8), pods=pods,
+                      shard=shard, device=dev) as cl:
+        sync(dev)
+        t0 = time.perf_counter()
+        futs = cl.submit_batch(reqs)
+        cl.drain()
+        served = [f.result(timeout=WAIT_S) for f in futs]
+        sync(dev)
+        wall = time.perf_counter() - t0
+        per_uid = {s.request.uid: (cl.owner_of(s.request.uid),
+                                   s.decision.pair,
+                                   s.decision.est_complexity)
+                   for s in served}
+    hist = collections.Counter(p for _, p, _ in per_uid.values())
+    return per_uid, hist, wall
+
+
+def shard_selection(dev):
+    """Phase 24's shard selection: the picks on ``dev`` against the scalar
+    reference, and the µs per request of both (each a call with the copy
+    back)."""
+    import numpy as np
+    from repro_torch.serving.cluster import (select_pods,
+                                             select_pods_reference)
+    uids = np.random.default_rng(1).integers(0, 2**31, size=SHARD_UIDS)
+    for pods in (4, 6):
+        depths = np.random.default_rng(pods).integers(0, 9, size=pods)
+        for mode in ("least_loaded", "rendezvous"):
+            for dead in (None, 1):
+                alive = None if dead is None else np.arange(pods) != dead
+                got = select_pods(uids, depths, mode, alive, device=dev)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    got = select_pods(uids, depths, mode, alive, device=dev)
+                us = (time.perf_counter() - t0) / 20 / SHARD_UIDS * 1e6
+                t0 = time.perf_counter()
+                want = select_pods_reference(uids, depths, mode, alive)
+                ref_us = (time.perf_counter() - t0) / SHARD_UIDS * 1e6
+                if not np.array_equal(got, want):
+                    fail(f"select_pods on {dev} differs from the reference "
+                         f"({pods} pods, {mode}, pod {dead} dead) at "
+                         f"{int(np.sum(got != want))} of {SHARD_UIDS} uids")
+                print(f"shard selection, {SHARD_UIDS} uids, {pods} pods, "
+                      f"{mode}, dead pod {dead}: picks == reference; "
+                      f"{us:.3f} µs a request on {dev} (20 calls, copy back "
+                      f"included), reference {ref_us:.3f} µs")
+
+
+def degradation(params, scenes, dev):
+    """Phase 24's degradation: 3 pinned pods, ``pod_fail_after=2``, pod 0's
+    pair served by a detector whose device is down from uid 0."""
+    from repro_torch.core.policy import Observation, RouteRequest
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.cluster import EcoreCluster
+    from repro_torch.serving.faults import FaultSpec
+    pairs = [("ssd_v1", "orin_nano"), ("ssd_lite", "pi5"),
+             ("yolov8_n", "pi5_tpu")]
+    pols = [PinnedPolicy(p) for p in pairs]
+
+    def factory(d):
+        faults = [FaultSpec("crash_window", start=0)] if d.pair == pairs[0] \
+            else []
+        return make_backend("faulty:detector", *d.pair, params[d.pair[0]],
+                            max_batch=1, faults=faults, device=dev)
+
+    n = 40
+    cl = EcoreCluster(lambda i: pols[i], factory, pods=3, pod_fail_after=2,
+                      device=dev)
+    try:
+        futs = cl.submit_batch([RouteRequest(uid=u, payload=s.image)
+                                for u, s in enumerate(scenes[:n])])
+        cl.drain()
+        served = [f.result(timeout=WAIT_S) for f in futs
+                  if f.exception(timeout=WAIT_S) is None]
+        for s in served:
+            cl.observe(Observation(pair=s.decision.pair, uid=s.request.uid,
+                                   time_ms=s.result.time_ms))
+        stats = cl.stats()
+    finally:
+        cl.close()
+    by_pod = [{s.request.uid for s in served
+               if s.result.backend == "@".join(p)} for p in pairs]
+    print(f"degradation: {n} requests, {n - len(served)} failed, alive "
+          f"{stats['alive']}, resubmitted {stats['resubmitted']}, served "
+          f"by pod {[len(b) for b in by_pod]}, stale observations "
+          f"{stats['stale_observations']}")
+    if (n - len(served) > 1 or stats["alive"] != [False, True, True]
+            or stats["resubmitted"] < 1 or by_pod[0]
+            or stats["stale_observations"] != 0 or pols[0].observed
+            or any(set(pols[i].observed) != by_pod[i] for i in (1, 2))):
+        fail("degradation outside its bounds")
+
+
+def scaling(params, scenes, dev):
+    """Phase 24's finding (no bar): requests per second at 1, 2 and 4 pods,
+    with the real detectors over the 256 scenes, and in bench_cluster's
+    setting (48 requests, null detectors, ``realtime_scale=1``)."""
+    import numpy as np
+    from repro_torch.core.policy import DetectionPolicy, RouteRequest
+    from repro_torch.core.router import OracleRouter
+    from repro_torch.detection.devices import nominal_profile_table
+    from repro_torch.serving.backend import make_backend, null_run
+    from repro_torch.serving.cluster import EcoreCluster
+    counts = np.random.default_rng(0).integers(0, 9, size=48)
+    frame = np.zeros((8, 8), np.float32)
+
+    def oracle(i):
+        table = nominal_profile_table(device=dev)
+        return DetectionPolicy(OracleRouter(table, 5.0), table)
+
+    def sleeper(d):
+        return make_backend("detector", *d.pair, None, max_batch=4,
+                            run_fn=null_run, realtime_scale=1.0, device=dev)
+
+    real, modeled = {}, {}
+    for pods in (1, 2, 4):
+        real[pods] = len(scenes) / ed_cluster(params, scenes, dev, pods,
+                                              "least_loaded")[2]
+        with EcoreCluster(oracle, sleeper, pods=pods, device=dev) as cl:
+            reqs = [RouteRequest(uid=i, payload=frame, true_complexity=int(c))
+                    for i, c in enumerate(counts)]
+            t0 = time.perf_counter()
+            futs = cl.submit_batch(reqs)
+            cl.drain()
+            for f in futs:
+                f.result(timeout=WAIT_S)
+            modeled[pods] = len(reqs) / (time.perf_counter() - t0)
+    if dev.type == "cuda":
+        for pods in (1, 4):
+            print(f"scaling, real detectors, {pods} pods under the profiler: "
+                  + busy_share(lambda: ed_cluster(params, scenes, dev, pods,
+                                                  "least_loaded")))
+    for name, rps in (("real detectors, 256 scenes", real),
+                      ("bench_cluster (48, null_run, realtime_scale=1)",
+                       modeled)):
+        print(f"scaling, {name}: " + ", ".join(
+            f"{p} pods {v:.1f} req/s" for p, v in rps.items())
+            + f"; 2 pods {rps[2] / rps[1]:.3f}x, 4 pods "
+            f"{rps[4] / rps[1]:.3f}x of 1 pod")
+
+
+def busy_share(fn) -> str:
+    """``fn()`` once under the profiler: its wall seconds and the device's
+    busy time and share of them (every kernel of every thread)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced(fn)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return (f"{wall:.3f} s, device busy {busy_us / 1e3:.2f} ms = "
+            f"{busy_us / 1e6 / wall:.2%} of the wall time")
+
+
+def cluster_plane(params, scenes, dev, canny_ops):
+    """Phase 24: shard selection, the 4-pod ED cluster over 256 scenes in
+    both shard modes (its first 64 scenes again on the CPU), degradation
+    and the scaling finding.  Returns the Canny launches of the counted
+    runs."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.serving.cluster import select_pods_reference
+    t0 = time.perf_counter()
+    shard_selection(dev)
+    cpu = torch.device("cpu")
+    cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
+    ed_cluster(params, scenes[:32], dev, 4, "least_loaded")  # warm-up
+    launches = 0
+    for shard in ("least_loaded", "rendezvous"):
+        canny_ops.launches = 0
+        per_uid, hist, wall = ed_cluster(params, scenes, dev, 4, shard)
+        n_canny = canny_ops.launches
+        launches += n_canny
+        pods = [per_uid[u][0] for u in range(len(scenes))]
+        want = select_pods_reference(range(len(scenes)), np.zeros(4, int),
+                                     shard)
+        print(f"cluster, 4 pods, {shard}: {len(scenes)} scenes in {wall:.3f} "
+              f"s; canny launches {n_canny}; shards "
+              f"{np.bincount(pods, minlength=4).tolist()}; pairs "
+              f"{dict(hist)}")
+        if pods != want.tolist():
+            fail(f"cluster ({shard}): a uid's pod differs from the "
+                 "reference's pick")
+        if dev.type == "cuda" and n_canny != len(set(pods)):
+            fail(f"cluster ({shard}): {n_canny} canny launches for "
+                 f"{len(set(pods))} pods with a shard")
+        if sum(hist.values()) != len(scenes):
+            fail(f"cluster ({shard}) served {dict(hist)}")
+        cpu_uid, _, _ = ed_cluster(cpu_params, scenes[:64], cpu, 4, shard)
+        diff = sorted(u for u in cpu_uid if cpu_uid[u] != per_uid[u])
+        if diff:
+            fail(f"cluster ({shard}): {dev} and cpu differ on uids {diff}")
+        print(f"cluster, 4 pods, {shard}: (pod, pair, estimate) on {dev} == "
+              f"cpu on 64/64 uids")
+    degradation(params, scenes, dev)
+    scaling(params, scenes, dev)
+    phase("24 cluster plane", t0)
+    return launches
+
+
+def load_settings(dev):
+    """bench_load's steady rate and deadline: the nominal profile's mean
+    service time over 256 draws of ``COUNT_PROBS`` (seed 0)."""
+    import numpy as np
+    from repro_torch.core.router import greedy_route
+    from repro_torch.detection import scenes as sc
+    from repro_torch.detection.devices import nominal_profile_table
+    table = nominal_profile_table(device=dev)
+    mix = np.random.default_rng(0).choice(len(sc.COUNT_PROBS),
+                                          p=sc.COUNT_PROBS, size=256)
+    mean_ms = float(np.mean([greedy_route(int(c), table, 5.0).time_ms
+                             for c in mix]))
+    return 0.5 * 2 * 1e3 / mean_ms, 4.0 * (20.0 + mean_ms)
+
+
+def load_replay(policy_for, backend_for, dev, pattern, autoscale,
+                duration_s, window_s, scene_images=False):
+    """One bench_load episode through the port: 2 pods (up to 6 under the
+    autoscaler: watermarks 10 and 1, cooldown 0.5 s), ``max_wait_ms`` 20,
+    arrivals seed 7, tenant seed 1, on a manual clock; the SLO summary,
+    window records, autoscaler events and request count."""
+    import repro_torch.traffic as tr
+    from repro_torch.serving.cluster import Autoscaler, EcoreCluster
+    steady_hz, deadline_ms = load_settings(dev)
+    clock = tr.ManualClock()
+    cl = EcoreCluster(policy_for, backend_for, pods=2, max_pods=6,
+                      max_wait_ms=20.0, clock=clock, retain_results=False,
+                      flusher=False, device=dev)
+    auto = Autoscaler(cl, clock, min_pods=2, max_pods=6,
+                      high_backlog_per_pod=10.0, low_backlog_per_pod=1.0,
+                      cooldown_s=0.5) if autoscale else None
+    work = tr.merge_tenants([tr.detector_tenant(
+        "cams", tr.make_arrivals(pattern, steady_hz, duration_s, seed=7),
+        seed=1, deadline_ms=deadline_ms, scene_images=scene_images)])
+    driver = tr.LoadDriver(cl, clock, autoscaler=auto, window_s=window_s)
+    try:
+        driver.run(work)
+    finally:
+        cl.close()
+    return {"summary": driver.slo.summary(),
+            "windows": driver.slo.window_records(),
+            "autoscaler_events": auto.events if auto else [],
+            "requests": len(work)}
+
+
+def traffic_plane(params, dev, canny_ops):
+    """Phase 25: BENCH_gateway.json entry [9] replayed through the port,
+    then a 1 s flash crowd of rendered scenes whose pods run ED per
+    request and the detectors on ``dev``, against the same replay on the
+    CPU.  Returns the Canny launches of the counted replay."""
+    import copy
+    import torch
+    from repro_torch.core.policy import DetectionPolicy
+    from repro_torch.core.router import OracleRouter
+    from repro_torch.detection.devices import nominal_profile_table
+    from repro_torch.serving.backend import make_backend, null_run
+    t0 = time.perf_counter()
+    entry = json.loads((ROOT / "BENCH_gateway.json").read_text())[9]["load"]
+    steady_hz, deadline_ms = load_settings(dev)
+    replay_close([steady_hz, deadline_ms], [entry["settings"]["steady_hz"],
+                                            entry["settings"]["deadline_ms"]],
+                 "entry9.settings")
+
+    def oracle(i):
+        table = nominal_profile_table(device=dev)
+        return DetectionPolicy(OracleRouter(table, 5.0), table)
+
+    def null_backend(d):
+        return make_backend("detector", *d.pair, None, max_batch=4,
+                            run_fn=null_run, device=dev)
+
+    runs = {}
+    for pattern in ("poisson", "flash"):
+        for fleet in ("fixed", "autoscaled"):
+            t1 = time.perf_counter()
+            r = load_replay(oracle, null_backend, dev, pattern,
+                            fleet == "autoscaled", 12.0, 2.0)
+            cell = f"{pattern}_{fleet}"
+            replay_close(r, entry["runs"][cell], f"entry9.{cell}")
+            runs[cell] = s = r["summary"]
+            print(f"entry [9] {cell}: {r['requests']} requests, goodput "
+                  f"{s['goodput_fraction']:.4f}, p50 {s['p50_ms']:.1f}, p95 "
+                  f"{s['p95_ms']:.1f}, p99 {s['p99_ms']:.1f} ms, "
+                  f"{s['joules_per_request']:.6f} J/request, "
+                  f"{len(r['autoscaler_events'])} scale events == "
+                  f"BENCH_gateway.json ({time.perf_counter() - t1:.2f} s)")
+    fixed, auto = runs["flash_fixed"], runs["flash_autoscaled"]
+    if not (auto["p99_ms"] < fixed["p99_ms"]
+            and auto["goodput_fraction"] > fixed["goodput_fraction"]):
+        fail("entry [9]: the autoscaled flash crowd does not beat the fixed "
+             "fleet")
+
+    def real(dev_, params_):
+        return load_replay(lambda i: ed_policy(dev_),
+                           detector_factory(params_, dev_, 4), dev_,
+                           "flash", True, 1.0, 0.25, scene_images=True)
+
+    cpu = torch.device("cpu")
+    cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
+    canny_ops.launches = 0
+    sync(dev)
+    t1 = time.perf_counter()
+    got = real(dev, params)
+    sync(dev)
+    wall = time.perf_counter() - t1
+    n_canny = canny_ops.launches
+    s = got["summary"]
+    print(f"real-work replay: {got['requests']} requests (1 s virtual, "
+          f"flash crowd of 64x64 scenes) in {wall:.3f} s wall = "
+          f"{got['requests'] / wall:.1f} requests a wall second; canny "
+          f"launches {n_canny}; goodput {s['goodput_fraction']:.4f}, p99 "
+          f"{s['p99_ms']:.1f} ms, failed {s['failed']}; scale events "
+          f"{[(e['action'], e['pod']) for e in got['autoscaler_events']]}")
+    if dev.type == "cuda" and n_canny != got["requests"]:
+        fail(f"real-work replay: {n_canny} canny launches for "
+             f"{got['requests']} requests")
+    if s["completions"] != got["requests"] or s["failed"]:
+        fail(f"real-work replay: {s['completions']} completions, "
+             f"{s['failed']} failed of {got['requests']}")
+    replay_close(got, real(cpu, cpu_params), "real-work replay vs cpu")
+    print(f"real-work replay: summary, {len(got['windows'])} window records "
+          f"and autoscaler events on {dev} == cpu")
+    if dev.type == "cuda":
+        print(f"real-work replay under the profiler: "
+              f"{busy_share(lambda: real(dev, params))}")
+    phase("25 traffic plane", t0)
+    return n_canny
 
 
 def main() -> None:
@@ -1703,6 +2125,9 @@ def main() -> None:
                                                        canny_ops)
     deadline_flushing(params, scenes, dev)
     fault_storm(params, dev)
+    main_launches["canny_fused"] += cluster_plane(params, scenes, dev,
+                                                  canny_ops)
+    main_launches["canny_fused"] += traffic_plane(params, dev, canny_ops)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

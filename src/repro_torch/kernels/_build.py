@@ -17,6 +17,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
+#: guards every wrapper's ``launches`` count: pods of a cluster launch from
+#: their own threads, and ``+=`` on a module global is not atomic
+_count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], object] = {}
 
@@ -114,3 +118,12 @@ def function(name: str, symbol: str, argtypes: Sequence) -> object:
         fn.restype = ctypes.c_int
         _functions[key] = fn
     return fn
+
+
+def count_launch(module: str) -> None:
+    """Add one to the ``launches`` count of the wrapper module ``module``
+    (its ``__name__``), under a lock: callers set the count to 0 and read
+    it back as a plain module attribute."""
+    mod = sys.modules[module]
+    with _count_lock:
+        mod.launches += 1

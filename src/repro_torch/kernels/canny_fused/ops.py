@@ -38,7 +38,6 @@ def _gauss_weights() -> Tuple[float, ...]:
 
 def _launch(img: torch.Tensor, dims: Optional[torch.Tensor], lo: float,
             hi: float) -> torch.Tensor:
-    global launches
     if img.dtype != torch.float32 or img.dim() != 3 \
             or not img.is_contiguous():
         raise ValueError("canny kernel takes a contiguous [B, H, W] float32 "
@@ -61,7 +60,7 @@ def _launch(img: torch.Tensor, dims: Optional[torch.Tensor], lo: float,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"canny kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(__name__)
     return out
 
 

@@ -40,7 +40,6 @@ def check_rows(name: str, x: torch.Tensor) -> None:
 
 
 def _launch(q, k, v, window, softcap):
-    global launches
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -74,7 +73,7 @@ def _launch(q, k, v, window, softcap):
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(__name__)
     return o
 
 

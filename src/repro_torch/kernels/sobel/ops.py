@@ -22,7 +22,6 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 
 
 def _launch(img: torch.Tensor):
-    global launches
     if img.dtype != torch.float32 or img.dim() != 3 \
             or not img.is_contiguous():
         raise ValueError("sobel kernel takes a contiguous [B, H, W] float32 "
@@ -38,7 +37,7 @@ def _launch(img: torch.Tensor):
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sobel kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(__name__)
     return mag, direction
 
 

@@ -30,7 +30,6 @@ _ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (
 
 
 def _launch(x, dt, A, B, C, D, q):
-    global launches
     if len({t.device for t in (x, dt, A, B, C, D)}) != 1:
         raise ValueError("x, dt, A, B, C and D must be on one device")
     if x.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -76,7 +75,7 @@ def _launch(x, dt, A, B, C, D, q):
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(__name__)
     return y, state
 
 

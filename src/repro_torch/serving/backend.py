@@ -139,7 +139,10 @@ class DetectorBackend:
     pre-detector complexity signal the router can consult.
 
     ``run_fn(params, frames)`` defaults to ``detection.train.run_detector``
-    on ``device``; tests and benches inject stubs.  ``table`` (optional)
+    on ``device``; tests and benches inject stubs.  ``realtime_scale`` > 0
+    makes ``serve_batch`` occupy wall-clock time for the modeled device
+    latency (``scale`` seconds per modeled second), so a cluster's pods
+    contend and overlap as real edge devices would.  ``table`` (optional)
     is the routing profile this backend was
     picked from: ``profile_row`` then reports the LIVE adapted cost columns
     (what routing actually consults — kept fresh by ``observe``/the scanned
@@ -148,7 +151,8 @@ class DetectorBackend:
 
     def __init__(self, model: str, edge_device: str, params=None, *,
                  max_batch: int = 1, fleet=None,
-                 run_fn: Optional[Callable] = None, table=None,
+                 run_fn: Optional[Callable] = None,
+                 realtime_scale: float = 0.0, table=None,
                  edge_stage: bool = False, device="cuda"):
         from repro_torch.detection.detectors import DETECTOR_CONFIGS
         from repro_torch.detection.devices import DEVICES
@@ -161,6 +165,7 @@ class DetectorBackend:
         self.params = params
         self.max_batch = max_batch
         self.fleet = fleet
+        self.realtime_scale = realtime_scale
         self.table = table
         self.edge_stage = edge_stage
         #: uid -> fraction of edge pixels, filled when edge_stage is on
@@ -225,13 +230,20 @@ class DetectorBackend:
         detections = self._run_buckets(frames)
         wall_s = time.perf_counter() - t0
         results = []
+        total_modeled_ms = 0.0
         for r, dets in zip(requests, detections):
             t_ms, e_mwh = self.cost(r.uid)
+            total_modeled_ms += t_ms
             results.append(Result(
                 uid=r.uid, tokens=np.zeros(0, np.int32),
                 prefill_s=wall_s, decode_s=0.0, backend=self.name,
                 batch_size=len(requests), detections=dets,
                 time_ms=t_ms, energy_mwh=e_mwh))
+        if self.realtime_scale > 0.0:
+            # an edge device serves its batch sequentially: occupy the wall
+            # clock for the modeled busy time (scaled), so pods genuinely
+            # contend and overlap in cluster measurements
+            time.sleep(total_modeled_ms / 1e3 * self.realtime_scale)
         return results
 
     def profile_row(self) -> Dict[str, object]:
