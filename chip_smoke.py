@@ -11,8 +11,10 @@ Phases, each printed as it ends; any failure exits non-zero:
    started together);
 3. the Canny kernel against its plain PyTorch version on the card, exact
    equality, on the geometries of the JAX package's Canny tests, frames
-   one pixel past one tile, a >4096-wide frame, the gateway's batch,
-   1080p, 4K and a ragged batch (frames that fit one tile among them);
+   one pixel past one tile, a >4096-wide frame, the gateway's batches
+   (32, 64, 256) and Figs. 6-8's whole streams (250, 300) of 64x64
+   frames, 1080p, 4K and a ragged batch (frames that fit one tile among
+   them);
 4. the Sobel kernel against its plain version: magnitude within 1e-5 and
    at least 99.9 % of directions equal;
 5. the detection gateway's main path through ``Gateway.process_stream``
@@ -141,7 +143,26 @@ Phases, each printed as it ends; any failure exits non-zero:
     scenes whose autoscaled pods run ED per request and the detectors on
     the card: one Canny launch per request (counted), none failed, and
     the SLO summary, window records and autoscaler events equal to the
-    same replay on the CPU; its wall time and the device's busy share.
+    same replay on the CPU; its wall time and the device's busy share;
+26. the trained testbed: the eight detectors trained on the card at the
+    reference's settings (700 AdamW steps of 16 fresh scenes) into a fresh
+    directory under ``chiprun_out/`` (cuDNN's deterministic algorithms,
+    so the testbed repeats run to run; ``tools/training_probe.py``
+    measures that, a step's device time and the host's share), every loss
+    falling, saved in the JAX package's checkpoint layout and loaded back
+    through ``train_all`` (raw heads bit-equal); ``adamw_update`` on the
+    card equal to the CPU's bit for bit;
+    ``profile_pairs`` over ``TESTBED_PAIRS`` on the card and on the CPU
+    (time and energy equal, mAP equal but where a frame of the group puts
+    an objectness within atol 1e-6 + rtol 1e-5 of 0.5); the paper's router
+    matrix (Orc, RR, Rnd, LE, LI, HM, HMG, ED, SF, OB) at δ = 5 over Figs.
+    6-8's datasets and the oracle at δ = 0, 10, 100, one CSV row each, the
+    Canny launches of the ED rows counted, each row's first 64 scenes
+    equal to the CPU's under phase 21's rule, ``tests/test_system.py``'s
+    relations held, and ED's savings against HMG printed as a finding;
+27. the Canny kernel against its plain version, exact equality, at every
+    (shape, ragged or not, thresholds) at which phases 5 and 21-26
+    launched it, on the input that launch was given (the first of each).
 
 It then prints one JSON line with every kernel, the card line, and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -1098,6 +1119,66 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+class CannyLaunches:
+    """The Canny kernel's launches while the recorder is entered, by
+    (shape, ragged or not, thresholds), each key's first launch kept with
+    its input and edge map: ``check`` holds the kernel to its plain
+    version at every shape the main path gave it, on the very input it
+    was given."""
+
+    def __init__(self, ops):
+        self.ops, self.first = ops, {}
+        self._launch = ops._launch
+
+    def __enter__(self):
+        def launch(img, dims, lo, hi):
+            out = self._launch(img, dims, lo, hi)
+            key = (tuple(img.shape), dims is not None, lo, hi)
+            if key not in self.first:
+                self.first[key] = (img.clone(), None if dims is None
+                                   else dims.clone(), out.clone())
+            return out
+        self.ops._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._launch = self._launch
+
+    def check(self, ref) -> None:
+        import torch
+        for key, (img, dims, out) in self.first.items():
+            if dims is None:
+                bad = int((out != ref.canny_edge(img, key[2], key[3])).sum())
+            else:
+                bad = 0
+                for j, (h, w) in enumerate(dims.tolist()):
+                    want = torch.zeros_like(out[j])
+                    want[:h, :w] = ref.canny_edge(
+                        img[j:j + 1, :h, :w].contiguous(), key[2], key[3])[0]
+                    bad += int((out[j] != want).sum())
+            if bad:
+                fail(f"canny kernel differs from its plain version at the "
+                     f"main path's launch {key}: {bad} pixels")
+        print(f"canny: kernel == plain version at every one of the main "
+              f"path's {len(self.first)} launch shapes (shape, ragged, "
+              f"thresholds), on the input each was given (tolerance: exact "
+              f"equality): {sorted(self.first)}")
+
+
+def log_decisions(gw, log) -> None:
+    """Every decision of ``gw``'s policy lands in ``log`` by uid as
+    (pair, estimated complexity)."""
+    decide, decide_batch = gw.policy.decide, gw.policy.decide_batch
+
+    def keep(d):
+        log[d.uid] = (d.pair, d.est_complexity)
+        return d
+
+    gw.policy.decide = lambda req: keep(decide(req))
+    gw.policy.decide_batch = lambda reqs: [keep(d) for d in
+                                           decide_batch(reqs)]
+
+
 def routing_episode(est_name, router_name, stream, params, dev, log,
                     sf_calls=None):
     """One ``Gateway.process_stream`` of the paper's comparison on ``dev``
@@ -1123,15 +1204,7 @@ def routing_episode(est_name, router_name, stream, params, dev, log,
            "Orc": rt.OracleRouter}[router_name]
     gw = Gateway(cls(table, 5.0), table, params, est,
                  fleet=drift_scenario("thermal"), max_batch=32, device=dev)
-    decide, decide_batch = gw.policy.decide, gw.policy.decide_batch
-
-    def keep(d):
-        log[d.uid] = (d.pair, d.est_complexity)
-        return d
-
-    gw.policy.decide = lambda req: keep(decide(req))
-    gw.policy.decide_batch = lambda reqs: [keep(d) for d in
-                                           decide_batch(reqs)]
+    log_decisions(gw, log)
     if est_name == "SF" and sf_calls is not None:
         for name in ("estimate", "estimate_batch"):
             def counted(*a, _f=getattr(est, name)):
@@ -1153,6 +1226,38 @@ def objectness(model, images, dev):
     return 1 / (1 + np.exp(-raw))
 
 
+def score_edges(params, cpu_params, images, dev, edge=SCORE_EDGE):
+    """Each detector's objectness on ``images`` on ``dev`` and on the CPU,
+    held within atol 1e-6 + rtol 1e-5 of each other.  Returns, by model,
+    the frames with a score within ``edge`` of 0.5 in either run and the
+    frames where a score lands on the other side of 0.5 (within the bar,
+    so within ``edge`` of it), and the worst ratio to the bar."""
+    import numpy as np
+    import torch
+    near, flips, worst = {}, {}, 0.0
+    for m in params:
+        a = objectness(params[m], images, dev)
+        b = objectness(cpu_params[m], images, torch.device("cpu"))
+        ratio = float((np.abs(a - b) / (1e-6 + 1e-5 * np.abs(b))).max())
+        worst = max(worst, ratio)
+        if ratio > 1:
+            fail(f"{m}'s objectness differs between {dev} and cpu beyond "
+                 f"atol 1e-6 + rtol 1e-5: {ratio:.3g} x the bar")
+        close = (np.abs(a - 0.5) <= edge) | (np.abs(b - 0.5) <= edge)
+        near[m] = set(np.nonzero(close.any(axis=(1, 2)))[0].tolist())
+        flips[m] = set(np.nonzero(((a >= 0.5) != (b >= 0.5))
+                                  .any(axis=(1, 2)))[0].tolist())
+    return near, flips, worst
+
+
+def allowed_diffs(flips):
+    """Phase 21's rule: SF's count can move only where its detector's
+    score crossed 0.5 between the card and the CPU; OB's estimate only on
+    the frame after one where a backend's score did."""
+    return {"SF": flips["ssd_v1"],
+            "OB": {u + 1 for f in flips.values() for u in f}}
+
+
 def routing_comparison(params, scenes, dev, canny_ops):
     """Phase 21: every row of the paper's routing comparison on ``dev``,
     its first 64 scenes again on the CPU.  Returns the Canny launches of
@@ -1165,30 +1270,13 @@ def routing_comparison(params, scenes, dev, canny_ops):
     cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
     n_cpu = 64
     images = np.stack([s.image for s in scenes[:n_cpu]])
-    near, flips, worst = set(), {}, 0.0
-    for m in params:
-        a = objectness(params[m], images, dev)
-        b = objectness(cpu_params[m], images, cpu)
-        ratio = float((np.abs(a - b) / (1e-6 + 1e-5 * np.abs(b))).max())
-        worst = max(worst, ratio)
-        if ratio > 1:
-            fail(f"{m}'s objectness differs between {dev} and cpu beyond "
-                 f"atol 1e-6 + rtol 1e-5: {ratio:.3g} x the bar")
-        edge = (np.abs(a - 0.5) < SCORE_EDGE) | (np.abs(b - 0.5) < SCORE_EDGE)
-        near |= set(np.nonzero(edge.any(axis=(1, 2)))[0].tolist())
-        # frames where a score lands on the other side of 0.5 (within the
-        # bar above, so within SCORE_EDGE of it)
-        flips[m] = set(np.nonzero(((a >= 0.5) != (b >= 0.5))
-                                  .any(axis=(1, 2)))[0].tolist())
+    near, flips, worst = score_edges(params, cpu_params, images, dev)
     print(f"routing: objectness {dev} vs cpu over {n_cpu} scenes x "
           f"{len(params)} detectors within {worst:.3f} of the bar (atol "
           f"1e-6 + rtol 1e-5); frames with a score within {SCORE_EDGE} of "
-          f"0.5: {len(near)}; frames where a score crosses 0.5: "
-          f"{ {m: sorted(f) for m, f in flips.items()} }")
-    # SF's count can move only where its detector's score crossed; OB's
-    # estimate only on the frame after one where a backend's score did
-    allowed = {"SF": flips["ssd_v1"],
-               "OB": {u + 1 for f in flips.values() for u in f}}
+          f"0.5: {len(set().union(*near.values()))}; frames where a score "
+          f"crosses 0.5: { {m: sorted(f) for m, f in flips.items()} }")
+    allowed = allowed_diffs(flips)
     canny_launches = 0
     for est_name, rname in ROUTING_ROWS:
         log, cpu_log, sf_calls = {}, {}, [0]
@@ -1856,6 +1944,282 @@ def traffic_plane(params, dev, canny_ops):
     return n_canny
 
 
+#: phase 26: the reference's training run, and the paper's router matrix
+#: (benchmarks/common.py's router_matrix) over Figs. 6-8's datasets
+TRAIN_STEPS = 700
+PAPER_ROWS = ("Orc", "RR", "Rnd", "LE", "LI", "HM", "HMG", "ED", "SF", "OB")
+FIGURES = (("fig6", "full_dataset", dict(n=300, seed=31)),
+           ("fig7", "balanced_sorted_dataset", dict(per_group=50, seed=32)),
+           ("fig8", "video_dataset", dict(n_frames=300, seed=33)))
+#: an objectness within atol 1e-6 + rtol 1e-5 of 0.5
+HALF_EDGE = 1e-6 + 1e-5 * 0.5
+
+
+def train_testbed(dev):
+    """Phase 26, part one: the eight detectors trained on ``dev`` at the
+    reference's settings into a fresh directory, saved as the JAX package
+    saves them and loaded back through ``train_all``'s cache."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.detection.detectors import (DETECTOR_CONFIGS,
+                                                 init_detector, params_to_jax)
+    from repro_torch.detection.train import fit_detector, train_all
+    out = ROOT / "chiprun_out" / f"detectors-{time.strftime('%H%M%S')}"
+    shutil.rmtree(out, ignore_errors=True)
+    trained = {}
+    sync(dev)
+    t_train = time.perf_counter()
+    for name, cfg in DETECTOR_CONFIGS.items():
+        model = init_detector(cfg, 0).to(dev)
+        t1 = time.perf_counter()
+        # cuDNN's deterministic algorithms: the testbed, and so every row
+        # below, repeats run to run (tools/training_probe.py measures both)
+        torch.backends.cudnn.deterministic = True
+        try:
+            losses = fit_detector(model, steps=TRAIN_STEPS)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        secs = time.perf_counter() - t1
+        ckpt.save(str(out / f"{name}.npz"), params_to_jax(model))
+        print(f"train {name}: {TRAIN_STEPS} steps in {secs:.2f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {losses.min():.4f})")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"training {name} did not lower its loss: {losses[0]} -> "
+                 f"{losses[-1]}")
+        trained[name] = model
+    t_train = time.perf_counter() - t_train
+    print(f"training: {len(trained)} detectors in {t_train:.2f} s on {dev}")
+    if dev.type == "cuda":
+        adamw_card_vs_cpu(dev)
+    loaded = train_all(str(out), device=dev)
+    x = torch.from_numpy(rand((32, 64, 64, 1), 26)).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        for name, model in trained.items():
+            if loaded[name].cfg != DETECTOR_CONFIGS[name] or not torch.equal(
+                    loaded[name](x), model(x)):
+                fail(f"{name} loaded from its checkpoint differs from the "
+                     "trained model")
+    print(f"checkpoints: {len(loaded)} detectors saved under "
+          f"{out.relative_to(ROOT)} and loaded back through train_all, raw "
+          "heads bit-equal to the trained models'")
+    return loaded
+
+
+def adamw_card_vs_cpu(dev) -> None:
+    """``adamw_update`` on the card equals the CPU's bit for bit over 30
+    unclipped steps of the training's settings, on yolov8_m's parameter
+    shapes and seeded gradients."""
+    import torch
+    from repro_torch.detection.detectors import DETECTOR_CONFIGS, init_detector
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+    cfg = AdamWConfig(peak_lr=5e-3, warmup_steps=20, total_steps=30,
+                      weight_decay=1e-4, clip_norm=None)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = init_detector(DETECTOR_CONFIGS["yolov8_m"], 0)
+        gen = torch.Generator().manual_seed(0)
+        p = {k: v.detach().to(where) for k, v in model.named_parameters()}
+        opt = init_opt_state(p)
+        for _ in range(30):
+            g = {k: (torch.randn(v.shape, generator=gen) * 1e-2).to(where)
+                 for k, v in p.items()}
+            p, opt, _ = adamw_update(cfg, p, g, opt)
+        out[where.type] = p
+    bad = [k for k in out["cpu"] if not torch.equal(out[dev.type][k].cpu(),
+                                                     out["cpu"][k])]
+    if bad:
+        fail(f"adamw_update on {dev} differs from the cpu's in {bad}")
+    print(f"adamw: 30 steps on {dev} == cpu bit for bit over "
+          f"{len(out['cpu'])} tensors")
+
+
+def paper_gateway(row, table, params, dev, delta=5.0):
+    """``benchmarks/common.py``'s router-matrix entry ``row`` as a Gateway
+    on ``dev`` (open loop, batches of 32)."""
+    from repro_torch.core import estimators as est_mod
+    from repro_torch.core import router as rt
+    from repro_torch.core.gateway import Gateway
+    cls = {"Orc": rt.OracleRouter, "RR": rt.RoundRobinRouter,
+           "Rnd": rt.RandomRouter, "LE": rt.LowestEnergyRouter,
+           "LI": rt.LowestInferenceRouter, "HM": rt.HighestMAPRouter,
+           "HMG": rt.HighestMAPPerGroupRouter}.get(row,
+                                                   rt.GreedyEstimateRouter)
+    est = {"Orc": est_mod.OracleEstimator,
+           "ED": lambda: est_mod.EdgeDetectionEstimator(device=dev),
+           "SF": lambda: est_mod.SSDFrontEndEstimator(
+               params["ssd_v1"], "ssd_v1", device=dev),
+           "OB": est_mod.OutputBasedEstimator}.get(row, lambda: None)()
+    router = cls(table, delta)
+    router.name = row
+    return Gateway(router, table, params, est, max_batch=32, device=dev)
+
+
+def profile_on_both(params, dev):
+    """Phase 26, part two: ``profile_pairs`` over ``TESTBED_PAIRS`` and
+    ``full_dataset(250, seed=99)`` on ``dev`` and on the CPU from the same
+    weights; returns the card's table and the CPU's copies of the
+    detectors."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core.groups import group_of
+    from repro_torch.detection import scenes as sc
+    from repro_torch.detection.devices import TESTBED_PAIRS
+    from repro_torch.detection.train import profile_pairs
+    cpu = torch.device("cpu")
+    cpu_params = {m: copy.deepcopy(p).to(cpu) for m, p in params.items()}
+    t1 = time.perf_counter()
+    table = profile_pairs(params, TESTBED_PAIRS, device=dev)
+    t_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu_table = profile_pairs(cpu_params, TESTBED_PAIRS, device=cpu)
+    t_cpu = time.perf_counter() - t1
+    val = sc.full_dataset(250, seed=99)
+    models = sorted({m for m, _ in TESTBED_PAIRS})
+    near, _, worst = score_edges({m: params[m] for m in models},
+                                 {m: cpu_params[m] for m in models},
+                                 np.stack([s.image for s in val]), dev,
+                                 edge=HALF_EDGE)
+    near_groups = {m: {group_of(val[u].count) for u in near[m]}
+                   for m in models}
+    for a, b in zip(table.entries, cpu_table.entries):
+        if (a.model, a.device, a.group, a.time_ms, a.energy_mwh) != (
+                b.model, b.device, b.group, b.time_ms, b.energy_mwh):
+            fail(f"profile rows differ between {dev} and cpu: {a} / {b}")
+        if a.map_pct != b.map_pct and a.group not in near_groups[a.model]:
+            fail(f"profile mAP of {a.pair_name} group {a.group} differs "
+                 f"between {dev} ({a.map_pct}) and cpu ({b.map_pct}) with no "
+                 "objectness near 0.5")
+    print(f"profile: {len(table.entries)} rows on {dev} in {t_card:.2f} s, "
+          f"on cpu in {t_cpu:.2f} s; time and energy equal, mAP equal "
+          f"except near 0.5; objectness within {worst:.3f} of the bar; "
+          f"frames with a score within {HALF_EDGE:.1e} of 0.5: "
+          f"{ {m: len(f) for m, f in near.items()} }")
+    groups = sorted({e.group for e in table.entries})
+    picks = {g: max(table.for_group(g), key=lambda e: e.map_pct).pair_name
+             for g in groups}
+    by_model = {(e.model, e.group): e.map_pct for e in table.entries}
+    for m in models:
+        print(f"profile {m}: mAP by group " + ", ".join(
+            f"{by_model[(m, g)]:.2f}" for g in groups))
+    flat = len(set(picks.values())) < 2
+    print(f"profile: HMG's pick by group {picks}" + (
+        "; training at these settings gave a flat table (one pick in every "
+        "group)" if flat else ""))
+    return table, cpu_params
+
+
+def figure_rows(table, params, cpu_params, dev, canny_ops):
+    """Phase 26, part three: the paper's router matrix at δ = 5 over Figs.
+    6-8's datasets on ``dev``, each row's first 64 scenes again on the CPU;
+    the δ sweep of the oracle on Fig. 6's.  Returns the Canny launches of
+    the ED rows and the rows' stats by (figure, row)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.profiles import ProfileTable
+    from repro_torch.detection import scenes as sc
+    cpu = torch.device("cpu")
+    cpu_table = ProfileTable(table.entries, device=cpu)
+    n_cpu, launches, stats = 64, 0, {}
+    print("csv: figure,router,mAP,total_energy_mWh,total_time_ms,"
+          "gateway_energy_mWh,gateway_time_ms,wall_s,cpu_equal,pairs")
+    for fig, name, kw in FIGURES:
+        scenes = getattr(sc, name)(**kw)
+        images = np.stack([s.image for s in scenes[:n_cpu]])
+        _, flips, _ = score_edges(params, cpu_params, images, dev)
+        allowed = allowed_diffs(flips)
+        rows = [(r, 5.0) for r in PAPER_ROWS]
+        if fig == "fig6":
+            rows += [("Orc", d) for d in (0.0, 10.0, 100.0)]
+        for row, delta in rows:
+            log, cpu_log = {}, {}
+            gw = paper_gateway(row, table, params, dev, delta)
+            log_decisions(gw, log)
+            canny_ops.launches = 0
+            sync(dev)
+            t1 = time.perf_counter()
+            st = gw.process_stream(scenes)
+            sync(dev)
+            wall = time.perf_counter() - t1
+            n_canny = canny_ops.launches
+            launches += n_canny
+            if row == "ED" and dev.type == "cuda" and n_canny < 1:
+                fail(f"{fig} ED never launched the canny kernel")
+            if sum(st.pair_histogram.values()) != len(scenes):
+                fail(f"{fig} {row} served {st.pair_histogram}")
+            gw_cpu = paper_gateway(row, cpu_table, cpu_params, cpu, delta)
+            log_decisions(gw_cpu, cpu_log)
+            gw_cpu.process_stream(scenes[:n_cpu])
+            diff = {u for u in range(n_cpu) if log[u] != cpu_log[u]}
+            if diff - allowed.get(row, set()):
+                fail(f"{fig} {row}: {dev} and cpu decide differently on "
+                     f"scenes {sorted(diff)}")
+            key = row if delta == 5.0 else f"{row}@{delta:g}"
+            stats[(fig, key)] = st
+            pairs = ";".join(f"{p}={n}" for p, n in
+                             sorted(st.pair_histogram.items()))
+            print(f"csv: {fig},{key},{st.map_pct:.4f},"
+                  f"{st.total_energy_mwh:.6f},{st.total_time_ms:.3f},"
+                  f"{st.gateway_energy_mwh:.6f},{st.gateway_time_ms:.4f},"
+                  f"{wall:.3f},{n_cpu - len(diff)}/{n_cpu},{pairs}"
+                  + (f",canny launches {n_canny}" if row == "ED" else ""))
+    return launches, stats
+
+
+def paper_relations(stats) -> None:
+    """``tests/test_system.py``'s relations on the card's rows; then ED's
+    savings against HMG, the paper's headline, as a finding."""
+    for fig, _, _ in FIGURES:
+        s = {k: v for (f, k), v in stats.items() if f == fig}
+        if not (s["LE"].backend_energy_mwh <= s["Orc"].backend_energy_mwh
+                <= s["HMG"].backend_energy_mwh + 1e-9):
+            fail(f"{fig}: LE <= Orc <= HMG in backend energy does not hold")
+        if not s["ED"].gateway_energy_mwh > s["Orc"].gateway_energy_mwh:
+            fail(f"{fig}: ED's gateway energy is not above Orc's")
+        if not (s["SF"].map_pct > 0 and s["SF"].gateway_energy_mwh > 0):
+            fail(f"{fig}: SF's mAP or gateway energy is 0")
+        hmg, ed = s["HMG"], s["ED"]
+        print(f"paper {fig}: ED against HMG saves "
+              f"{1 - ed.total_energy_mwh / hmg.total_energy_mwh:.1%} of the "
+              f"energy and {1 - ed.total_time_ms / hmg.total_time_ms:.1%} of "
+              f"the time at a mAP loss of {hmg.map_pct - ed.map_pct:.2f} "
+              f"points (paper: 35 %, 49 %, 2 %)")
+    f6 = {k: v for (f, k), v in stats.items() if f == "fig6"}
+    if not f6["HMG"].map_pct >= f6["LE"].map_pct - 2.0:
+        fail("fig6: HMG's mAP is below LE's - 2")
+    if not f6["ED"].map_pct >= f6["Orc"].map_pct - 10.0:
+        fail("fig6: ED's mAP is below Orc's - 10")
+    energies = [f6[k].backend_energy_mwh for k in ("Orc@0", "Orc@10",
+                                                   "Orc@100")]
+    if not energies[0] >= energies[1] >= energies[2]:
+        fail(f"fig6: Orc's backend energy rises over δ = 0, 10, 100: "
+             f"{energies}")
+    if not abs(f6["Orc@0"].map_pct - f6["HMG"].map_pct) < 5.0:
+        fail("fig6: Orc at δ = 0 is not within 5 mAP of HMG")
+    f8 = {k: v for (f, k), v in stats.items() if f == "fig8"}
+    if not (f8["OB"].gateway_energy_mwh < f8["ED"].gateway_energy_mwh
+            and f8["OB"].map_pct > 0):
+        fail("fig8: OB is not cheaper than ED at the gateway, or its mAP "
+             "is 0")
+    print("paper: tests/test_system.py's relations hold on the card")
+
+
+def paper_comparison(dev, canny_ops):
+    """Phase 26: train, profile, and the paper's comparison (Figs. 6-8) on
+    the trained testbed.  Returns the Canny launches of its ED rows."""
+    t0 = time.perf_counter()
+    params = train_testbed(dev)
+    table, cpu_params = profile_on_both(params, dev)
+    launches, stats = figure_rows(table, params, cpu_params, dev, canny_ops)
+    paper_relations(stats)
+    phase("26 trained testbed and the paper's comparison", t0)
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1899,7 +2263,8 @@ def main() -> None:
               (1, 37, 41), (1, 64, 200), (2, 80, 600), (1, 48, 31),
               (1, 48, 65), (1, 48, 63), (1, 48, 64), (1, 65, 64),
               (1, 64, 65), (2, 130, 129),
-              (1, 24, 4224), (32, 64, 64), (256, 64, 64), (8, 1080, 1920),
+              (1, 24, 4224), (32, 64, 64), (64, 64, 64), (250, 64, 64),
+              (256, 64, 64), (300, 64, 64), (8, 1080, 1920),
               (1, 2160, 3840)]
     for shape in shapes:
         x = torch.from_numpy(rand(shape, sum(shape))).to(dev)
@@ -1965,13 +2330,15 @@ def main() -> None:
     t0 = time.perf_counter()
     episode(True, scenes[:32], "cuda")        # warm-up: cuDNN, allocator
     main_launches = {"canny_fused": 0, "sobel": 0}
+    main_canny = CannyLaunches(canny_ops)
     for adapt, name in ((True, "scanned closed loop"),
                         (False, "batched open loop")):
         canny_ops.launches = 0
         sobel_ops.launches = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        gw, stats = episode(adapt, scenes, "cuda")
+        with main_canny:
+            gw, stats = episode(adapt, scenes, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         n_canny, n_sobel = canny_ops.launches, sobel_ops.launches
@@ -2121,13 +2488,20 @@ def main() -> None:
                     "19 recurrentgemma-2b cuda vs cpu", num_layers=5)
     lru_row = lru_timing(dev)
 
-    main_launches["canny_fused"] += routing_comparison(params, scenes, dev,
-                                                       canny_ops)
-    deadline_flushing(params, scenes, dev)
-    fault_storm(params, dev)
-    main_launches["canny_fused"] += cluster_plane(params, scenes, dev,
-                                                  canny_ops)
-    main_launches["canny_fused"] += traffic_plane(params, dev, canny_ops)
+    with main_canny:
+        main_launches["canny_fused"] += routing_comparison(
+            params, scenes, dev, canny_ops)
+        deadline_flushing(params, scenes, dev)
+        fault_storm(params, dev)
+        main_launches["canny_fused"] += cluster_plane(params, scenes, dev,
+                                                      canny_ops)
+        main_launches["canny_fused"] += traffic_plane(params, dev, canny_ops)
+        main_launches["canny_fused"] += paper_comparison(dev, canny_ops)
+
+    # 27 ------------------------- Canny at the main path's shapes vs plain
+    t0 = time.perf_counter()
+    main_canny.check(canny_ref)
+    phase("27 canny at the main path's launch shapes", t0)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

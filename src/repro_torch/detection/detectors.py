@@ -123,25 +123,92 @@ def detector_forward(model: Detector, x: torch.Tensor) -> torch.Tensor:
     return model(x)
 
 
-def params_from_jax(np_params: Dict) -> Detector:
+def _jax_slots(np_params: Dict):
+    """The pytree's (w, b) key pairs in ``Detector.convs()`` order."""
+    slots = [(("convs", i, w), ("convs", i, b))
+             for i in range(len(np_params["convs"]))
+             for w, b in (("w1", "b1"), ("w2", "b2"))]
+    return slots + [(("head", "w1"), ("head", "b1")),
+                    (("head", "w2"), ("head", "b2"))]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def params_from_jax(np_params: Dict, name: str = "from_jax") -> Detector:
     """A ``Detector`` holding the JAX package's parameter pytree (as numpy:
     ``{"convs": [{"w1","b1","w2","b2"}, ...], "head": {...}}``), the
-    kernels moved from HWIO to OIHW."""
-    stages = np_params["convs"]
-    head = np_params["head"]
-    cfg = DetectorConfig("from_jax",
-                         tuple(int(st["w1"].shape[3]) for st in stages),
-                         int(head["w1"].shape[3]))
+    kernels moved from HWIO to OIHW.  Its config is named ``name``; a name
+    of ``DETECTOR_CONFIGS`` must fit the weights' widths."""
+    cfg = DetectorConfig(
+        name, tuple(int(st["w1"].shape[3]) for st in np_params["convs"]),
+        int(np_params["head"]["w1"].shape[3]))
+    if name in DETECTOR_CONFIGS and DETECTOR_CONFIGS[name] != cfg:
+        raise ValueError(f"weights of widths {cfg.channels}, "
+                         f"{cfg.head_channels} are not {name}'s")
     model = Detector(cfg)
-    pairs = [(st[w], st[b]) for st in stages
-             for w, b in (("w1", "b1"), ("w2", "b2"))]
-    pairs += [(head["w1"], head["b1"]), (head["w2"], head["b2"])]
     with torch.no_grad():
-        for conv, (w, b) in zip(model.convs(), pairs):
-            conv.weight.copy_(torch.tensor(
-                np.asarray(w, np.float32).transpose(3, 2, 0, 1)))
-            conv.bias.copy_(torch.tensor(np.asarray(b, np.float32)))
+        for conv, (w, b) in zip(model.convs(), _jax_slots(np_params)):
+            conv.weight.copy_(torch.tensor(np.asarray(
+                _at(np_params, w), np.float32).transpose(3, 2, 0, 1)))
+            conv.bias.copy_(torch.tensor(np.asarray(_at(np_params, b),
+                                                    np.float32)))
     return model
+
+
+def params_to_jax(model: Detector) -> Dict:
+    """The inverse of ``params_from_jax``: the weights as the JAX package's
+    pytree of numpy arrays, the kernels moved from OIHW to HWIO."""
+    tree = {"convs": [{} for _ in model.cfg.channels], "head": {}}
+    for conv, (w, b) in zip(model.convs(), _jax_slots(tree)):
+        _at(tree, w[:-1])[w[-1]] = (conv.weight.detach().cpu().numpy()
+                                    .transpose(2, 3, 1, 0).copy())
+        _at(tree, b[:-1])[b[-1]] = conv.bias.detach().cpu().numpy().copy()
+    return tree
+
+
+# ------------------------------------------------------------- target/loss
+
+
+def encode_targets(boxes: np.ndarray, classes: np.ndarray):
+    """GT -> grid targets: obj [G,G], box [G,G,4] (dx,dy,logw,logh), cls [G,G]."""
+    obj = np.zeros((GRID, GRID), np.float32)
+    box = np.zeros((GRID, GRID, 4), np.float32)
+    cls = np.zeros((GRID, GRID), np.int32)
+    for b, c in zip(boxes.reshape(-1, 4), classes.reshape(-1)):
+        cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+        gx, gy = min(int(cx // CELL), GRID - 1), min(int(cy // CELL), GRID - 1)
+        obj[gy, gx] = 1.0
+        box[gy, gx] = [cx / CELL - gx, cy / CELL - gy,
+                       math.log(max(b[2] - b[0], 1) / CELL),
+                       math.log(max(b[3] - b[1], 1) / CELL)]
+        cls[gy, gx] = c
+    return obj, box, cls
+
+
+def detection_loss(model: Detector, batch: Dict) -> torch.Tensor:
+    """batch: image [B,H,W,1], obj [B,G,G], box [B,G,G,4], cls [B,G,G] int
+    (tensors on the model's device).  The JAX package's formula: balanced
+    objectness BCE, box L2 and class CE on the positive cells."""
+    raw = model(batch["image"])
+    obj_logit, box_pred, cls_logit = raw[..., 0], raw[..., 1:5], raw[..., 5:]
+    obj = batch["obj"]
+    # torch.maximum splits a tie's gradient as jnp.maximum does
+    bce = (torch.maximum(obj_logit, torch.zeros_like(obj_logit))
+           - obj_logit * obj
+           + torch.log1p(torch.exp(-obj_logit.abs())))
+    w = obj * 4.0 + (1 - obj)
+    loss_obj = (bce * w).sum() / w.sum()
+    pos = obj[..., None]
+    loss_box = ((box_pred - batch["box"]).square() * pos).sum() / (
+        pos.sum() * 4 + 1e-6)
+    logp = torch.log_softmax(cls_logit, dim=-1)
+    gold = torch.gather(logp, -1, batch["cls"].long()[..., None])[..., 0]
+    loss_cls = -(gold * obj).sum() / (obj.sum() + 1e-6)
+    return loss_obj + 2.0 * loss_box + loss_cls
 
 
 # ------------------------------------------------------------------ decode

@@ -2,12 +2,17 @@
 
 Images are [H, W] grayscale in [0, 1] with K objects from 3 shape classes
 (rectangle, ellipse, triangle), plus background noise and small clutter dots
-that are NOT objects (so counting is non-trivial).
+that are NOT objects (so counting is non-trivial).  Four dataset variants:
 
-A copy of ``make_scene`` and ``drifting_dataset`` of
-``repro.detection.scenes`` (the port imports nothing of ``repro``), so both
-packages draw the same scenes from the same seed.  The other dataset
-variants wait for the slice that ports training.
+  * full            — natural object-count mix (COCO-like distribution)
+  * balanced_sorted — 5 groups x n images, ordered by group (paper §4.1)
+  * video           — temporally-correlated sequence: counts random-walk and
+                      objects move smoothly between frames
+  * drifting        — the count mix flips mid-stream
+
+A copy of ``repro.detection.scenes`` (the port imports nothing of
+``repro``), drawing from the generator in the same order, so both packages
+draw the same scenes from the same seed.
 """
 from __future__ import annotations
 
@@ -76,6 +81,22 @@ def make_scene(rng: np.random.Generator, count: Optional[int] = None,
                  count=count)
 
 
+def full_dataset(n: int, seed: int = 0) -> List[Scene]:
+    rng = np.random.default_rng(seed)
+    return [make_scene(rng) for _ in range(n)]
+
+
+def balanced_sorted_dataset(per_group: int = 40, seed: int = 1) -> List[Scene]:
+    """paper §4.1: equal-size groups 0,1,2,3,4+, ordered by group."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(5):
+        for _ in range(per_group):
+            count = g if g < 4 else int(rng.integers(4, 8))
+            out.append(make_scene(rng, count=count))
+    return out
+
+
 def drifting_dataset(n: int = 200, seed: int = 4,
                      shift_at: Optional[int] = None) -> List[Scene]:
     """Workload drift: the count distribution flips mid-stream from the
@@ -89,4 +110,31 @@ def drifting_dataset(n: int = 200, seed: int = 4,
     for i in range(n):
         probs = COUNT_PROBS if i < shift_at else crowded
         out.append(make_scene(rng, count=int(rng.choice(len(probs), p=probs))))
+    return out
+
+
+def video_dataset(n_frames: int = 200, seed: int = 2) -> List[Scene]:
+    """Pedestrian-crossing analog: counts random-walk; objects drift."""
+    rng = np.random.default_rng(seed)
+    count = 2
+    objs: List[list] = []  # [x0, y0, w, h, cls, vx, vy]
+    out = []
+    for _ in range(n_frames):
+        # random-walk the target count occasionally
+        if rng.random() < 0.15:
+            count = int(np.clip(count + rng.choice([-1, 1]), 0, 8))
+        while len(objs) < count:
+            w, h = rng.integers(10, 22, 2)
+            objs.append([int(rng.integers(1, IMG - w - 1)),
+                         int(rng.integers(1, IMG - h - 1)),
+                         int(w), int(h), int(rng.integers(0, NUM_CLASSES)),
+                         float(rng.uniform(-2, 2)), float(rng.uniform(-2, 2))])
+        while len(objs) > count:
+            objs.pop(rng.integers(0, len(objs)))
+        positions = []
+        for o in objs:  # drift; int() truncates the clipped float
+            o[0] = int(np.clip(o[0] + o[5], 1, IMG - o[2] - 1))
+            o[1] = int(np.clip(o[1] + o[6], 1, IMG - o[3] - 1))
+            positions.append((o[0], o[1], o[2], o[3], o[4]))
+        out.append(make_scene(rng, count=count, positions=positions))
     return out

@@ -121,6 +121,10 @@ def select_pods(uids: Sequence[int], depths: Sequence[int],
                                  0)
         # the first maximum, as np.argmax and jnp.argmax take it
         return torch.argmax(scores, dim=1).cpu().numpy()
+    if alive is not None and not np.any(alive):
+        # every pod masked: all levels tie at the dead depth, and the
+        # reference's argmin takes the first pod each time
+        return np.zeros(len(u), np.int64)
     # least loaded: every live pod's slots at levels depth + j; the batch
     # takes the len(uids) smallest (level, pod) pairs in order
     b = len(u)

@@ -108,6 +108,21 @@ def test_select_pods_bit_equal_to_both_packages(mode, pods, n, dead):
         assert alive[got].all()
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("pods", [2, 3, 4, 6])
+def test_select_pods_all_dead_equal_to_both_packages(mode, pods):
+    """Every pod masked: the picks are the references' and the JAX
+    package's jitted selection's (all 0, the first minimum or maximum)."""
+    rng = np.random.default_rng(pods)
+    uids = rng.integers(0, 2**31, size=64)
+    depths = rng.integers(0, 9, size=pods)
+    alive = np.zeros(pods, bool)
+    got = _picks_all(uids, depths, mode, alive)
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_cluster.select_pods(uids, depths, mode, alive)))
+    np.testing.assert_array_equal(got, np.zeros(len(uids), np.int64))
+
+
 @settings(max_examples=80, deadline=None)
 @given(uids=st.lists(st.integers(0, 2**32 - 1), min_size=1, max_size=24),
        repeat=st.integers(1, 3),
