@@ -30,10 +30,12 @@ Phases, each printed as it ends; any failure exits non-zero:
    within the output's rounding, 2^-8 relative, plus 1e-4): MQA, GQA and
    MHA, D = 32, 64, 128 and 256 (recurrentgemma-2b's 10 heads over one KV
    head), f32 (CUDA cores) and bf16 (tensor cores), no mask beyond
-   causal, window 64, softcap 30 and both, ragged S;
+   causal, window 64, softcap 30 and both, ragged S, and granite-moe-1b-
+   a400m's prefill in phase 30 (8, 16, 8, 256, 64);
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
-   D = 256;
+   D = 256, and granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase
+   30's 272-row caches;
 10. the LLM face's main path at full published width: ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
     backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
@@ -45,8 +47,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     and on the CPU (their plain versions), same parameters: logits within
     1e-3 and equal tokens;
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
-    times at the main path's shapes (llama3-8b's, qwen2.5-3b's and
-    recurrentgemma-2b's, window 2048), flash's achieved TFLOP/s beside the
+    times at the main path's shapes (llama3-8b's, qwen2.5-3b's,
+    recurrentgemma-2b's, window 2048, and granite-moe-1b-a400m's), flash's achieved TFLOP/s beside the
     library's, the decode kernel's split sizing (its blocks against the
     SMs) against one piece and against splits sized from the whole cache,
     the decode wrapper's and the library's host microseconds a call (200
@@ -89,8 +91,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     new tokens each, with every LLM kernel's launch count set to 0 just
     before and read just after (one RG-LRU launch per recurrent layer per
     batch, one flash per attention layer, global or local, one decode per
-    attention layer per step); then where each backend's device time goes
-    (profiler);
+    attention layer per step); then where recurrentgemma-2b's device time
+    goes (profiler; qwen2.5-3b's 8 x 256 batch is phase 10's);
 19. recurrentgemma-2b cut to five layers (one block and the trailing pair)
     at full width in f32 on the GPU and on the CPU, same parameters, a
     1024-token prompt: logits within 1e-3 and equal tokens;
@@ -162,10 +164,28 @@ Phases, each printed as it ends; any failure exits non-zero:
     relations held, and ED's savings against HMG printed as a finding;
 27. the Canny kernel against its plain version, exact equality, at every
     (shape, ragged or not, thresholds) at which phases 5 and 21-26
-    launched it, on the input that launch was given (the first of each).
+    launched it, on the input that launch was given (the first of each);
+28. granite-moe-1b-a400m cut to two layers at full width in f32 on the GPU
+    and on the CPU, same parameters, a 256-token prompt: logits within
+    1e-3 and equal tokens (the card's MoE form against the CPU's);
+29. one granite MoE layer at full width on the card in bf16 against the
+    same layer in f32, on one input, at T = 2048 and T = 8: the same
+    experts, the largest per-token relative error within 2^-6; the layer's
+    time beside the sorted form's;
+30. the completed default pool: all five models of ``DEFAULT_POOL`` built
+    at full width with seeded bf16 weights in one process, then
+    ``EcoreService`` over ``PoolPolicy(ServingPool(δ=23))``: 8 requests
+    of 256 tokens (to granite-moe-1b-a400m) and 8 of 1024 (to
+    mamba2-370m), 16 new tokens each, every LLM kernel's launch count set
+    to 0 just before and read just after (24 flash launches per granite
+    batch, 24 decode launches per step); then granite's serve_batch under
+    the profiler (its MoE layers' share of the device time) and the host
+    syncs of one of its decode steps.
 
-It then prints one JSON line with every kernel, the card line, and last
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
+Phases 10, 14, 18 and 30 also hold every route to the same policy's
+decision on the CPU.  It then prints one JSON line with every kernel (the
+LLM kernels' launches summed over phases 10, 14, 18 and 30), the card
+line, and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 JAX package ``repro``.
 """
 from __future__ import annotations
@@ -212,6 +232,13 @@ HYBRID_ARCHS = SSM_ARCHS + ("recurrentgemma-2b",)
 HYBRID_ROUTES = {256: "qwen2.5-3b", 1024: "recurrentgemma-2b"}
 #: the RG-LRU scan at recurrentgemma-2b's prefill: (batch, S, lru width)
 LRU_SHAPE = (MAX_BATCH, 1024, 2560)
+#: the completed default pool (launch/serve.py's DEFAULT_POOL) and the
+#: routes at δ = 23: granite-moe-1b-a400m's 49.58 is within δ of bucket 0's
+#: capped 72.0 and the cheapest there; in bucket 1 it misses 72.86 by more
+#: than δ and mamba2-370m (54.03) is the cheapest within δ
+GRANITE = "granite-moe-1b-a400m"
+POOL_DELTA = 23.0
+POOL_ROUTES = {256: GRANITE, 1024: "mamba2-370m"}
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -403,9 +430,11 @@ def attention_grids(dev) -> None:
     errs = {dt: 0.0 for dt in dtypes}
     n = 0
     # MQA, GQA, MHA d=128 (tests/test_kernels.py), then a ragged S and d=32
+    # ... and granite-moe-1b-a400m's prefill in phase 30 (8 x 256 tokens)
     for shape in [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
                   (2, 8, 2, 300, 128), (1, 4, 2, 37, 32),
-                  (1, 10, 1, 128, 256), (2, 10, 1, 300, 256)]:
+                  (1, 10, 1, 128, 256), (2, 10, 1, 300, 256),
+                  (MAX_BATCH, 16, 8, 256, 64)]:
         b, h, kv, s, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
@@ -437,10 +466,11 @@ def attention_grids(dev) -> None:
     errs = {dt: 0.0 for dt in dtypes}
     n = 0
     rng = np.random.default_rng(3)
+    # the last: granite-moe-1b-a400m's decode over phase 30's caches
     for shape in [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
                   (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32),
                   (2, 10, 1, 256, 256), (3, 10, 1, 1000, 256),
-                  (2, 20, 2, 300, 256)]:
+                  (2, 20, 2, 300, 256), (MAX_BATCH, 16, 8, 256 + MAX_NEW, 64)]:
         b, h, kv, t, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], dt,
@@ -461,11 +491,13 @@ def attention_grids(dev) -> None:
     phase("9 flash decode kernel", t0)
 
 
-def llm_service(archs, delta, routes, name):
-    """Phases 10, 14 and 18: the LLM face's main path at full width, over a
-    pool of ``archs`` at ``delta``, 8 prompts of each length in ``routes``.
-    Returns the LLM kernels' launches of the counted run and the
-    backends."""
+def llm_service(archs, delta, routes, name, build_all=False):
+    """Phases 10, 14, 18 and 30: the LLM face's main path at full width,
+    over a pool of ``archs`` at ``delta``, 8 prompts of each length in
+    ``routes``, every decision equal to the same policy's on the CPU.  The
+    service builds the backends it routes to; ``build_all`` builds every
+    member of the pool first.  Returns the LLM kernels' launches of the
+    counted run and the backends."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -477,13 +509,21 @@ def llm_service(archs, delta, routes, name):
     t0 = time.perf_counter()
     backends = {}
 
-    def factory(decision):
-        arch = decision.backend
+    def build(arch):
         if arch not in backends:
             backends[arch] = Backend(arch, get_config(arch),
                                      max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                                      seed=archs.index(arch))
         return backends[arch]
+
+    if build_all:
+        for arch in archs:
+            build(arch)
+        torch.cuda.synchronize()
+        print(f"built all {len(archs)} of {list(archs)} at full width with "
+              f"seeded bf16 weights in {time.perf_counter() - t0:.1f} s; "
+              f"device memory {torch.cuda.memory_allocated() / 2**30:.1f} "
+              f"GiB")
 
     pool = ServingPool(synthetic_pool_table(archs), delta=delta)
     routed = {n: pool.route(n).arch for n in routes}
@@ -499,7 +539,7 @@ def llm_service(archs, delta, routes, name):
 
     # warm-up (not counted): builds the backends, loads the kernels, warms
     # cuBLAS and the allocator
-    with EcoreService(policy, factory) as svc:
+    with EcoreService(policy, lambda d: build(d.backend)) as svc:
         svc.submit_batch(requests(1000, [n for n in routes for _ in "ab"], 2))
     torch.cuda.synchronize()
     print(f"built {sorted(backends)} at full width with seeded weights and "
@@ -512,7 +552,7 @@ def llm_service(archs, delta, routes, name):
         ops.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with EcoreService(policy, factory) as svc:
+    with EcoreService(policy, lambda d: build(d.backend)) as svc:
         futs = svc.submit_batch(requests(0, lens, MAX_NEW))
         served = [f.result() for f in futs]
     torch.cuda.synchronize()
@@ -520,6 +560,16 @@ def llm_service(archs, delta, routes, name):
     launches = {k: ops.launches for k, ops in kernel_ops.items()}
     print(f"LLM service at δ = {delta}: {len(served)} requests in "
           f"{wall:.3f} s; launches {launches}")
+    cpu_policy = PoolPolicy(ServingPool(synthetic_pool_table(
+        archs, device="cpu"), delta=delta))
+    on_cpu = {d.uid: d.pair for d in cpu_policy.decide_batch(
+        [RouteRequest(uid=sv.request.uid, complexity=sv.request.complexity)
+         for sv in served])}
+    if {sv.request.uid: sv.decision.pair for sv in served} != on_cpu:
+        fail(f"the service's routes differ from the policy's on the CPU: "
+             f"{on_cpu}")
+    print(f"  routes (equal to the CPU's): " + ", ".join(
+        f"{MAX_BATCH} x {n} tokens -> {arch}" for n, arch in routes.items()))
     for sv in served:
         n = sv.request.complexity
         tok = sv.result.tokens
@@ -567,9 +617,23 @@ def kernel_launches(kinds, steps):
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
 
 
-def llm_profile(backends, routes) -> None:
+def in_range(label, fn):
+    """``fn`` run inside a profiler range named ``label``."""
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return run
+
+
+def llm_profile(backends, routes, ranges=None) -> None:
     """Where one serve_batch's device time goes, per backend (outside the
-    counted run)."""
+    counted run).  ``ranges`` maps a label to (module, function name): for
+    the profiled run that function runs inside a profiler range of that
+    name, and the device time of the kernels launched inside each range is
+    printed beside the busy time."""
+    import contextlib
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -577,15 +641,23 @@ def llm_profile(backends, routes) -> None:
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(17)
     names = ("flash_kernel", "decode_kernel", "ssd_kernel", "rglru_kernel")
+    ranges = ranges or {}
     for n, arch in routes.items():
+        t0 = time.perf_counter()
         reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, n),
                         max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            (res, *_), wall = synced(
-                lambda: backends[arch].serve_batch(reqs))
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        with contextlib.ExitStack() as undo:
+            for label, (module, attr) in ranges.items():
+                undo.callback(setattr, module, attr, getattr(module, attr))
+                setattr(module, attr, in_range(label, getattr(module, attr)))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                (res, *_), wall = synced(
+                    lambda: backends[arch].serve_batch(reqs))
+        averages = prof.key_averages()
+        # the ranges' own GPU-side spans are not kernels
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges]
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         ours = sum(e.self_device_time_total for e in kernels
                    if any(k in e.key for k in names)) / 1e6
@@ -603,6 +675,49 @@ def llm_profile(backends, routes) -> None:
               f" top: " + "; ".join(
                   f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
                   f"x{e.count}" for e in top))
+        inside = {label: sum(e.device_time_total for e in averages
+                             if e.key == label
+                             and e.device_type == DeviceType.CPU) / 1e6
+                  for label in ranges}
+        if inside:
+            print(f"  {arch}: device time of the kernels launched inside " +
+                  ", ".join(f"{label} {t * 1e3:.1f} ms = {t / busy:.1%} of "
+                            f"busy" for label, t in inside.items()))
+        print(f"  ({arch}'s profile and its analysis took "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+
+def decode_syncs(backend, prompt_len) -> None:
+    """The host syncs of one decode step of ``backend`` at batch 8 after a
+    ``prompt_len``-token prompt (torch's sync debug mode warns at every
+    device-to-host read and every copy the host waits for), by line
+    (outside the counted run)."""
+    import collections
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, prefill
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+        0, backend.cfg.vocab_size, (MAX_BATCH, prompt_len))).cuda()
+    with torch.inference_mode():
+        logits, cache = prefill(backend.params, backend.cfg, tokens,
+                                max_seq=MAX_SEQ)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                decode_step(backend.params, backend.cfg, nxt, cache)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                  for w in caught)
+    in_moe = sum(c for line, c in by_line.items()
+                 if line.startswith("moe.py"))
+    print(f"host syncs in one {backend.name} decode step: "
+          f"{sum(by_line.values())} ({in_moe} in the MoE layers), by line "
+          f"{dict(by_line)}")
 
 
 def decode_splits_ab(backends) -> None:
@@ -684,6 +799,58 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2) -> None:
     phase(name, t0)
 
 
+def moe_layer_check(dev) -> None:
+    """Phase 29: one granite-moe-1b-a400m MoE layer at full width on the
+    card in bf16 against the same layer in f32 (the bf16 weights widened),
+    on one input drawn in bf16 and widened for the f32 layer, at phase 30's
+    prefill (8 x 256 tokens) and decode (8 tokens): the same experts, and
+    the largest per-token relative error (L2 over the model width) within
+    2^-6.  Then, findings without a bar: the bf16 layer's call and device
+    time, and the sorted form's (the CPU's, its group sizes read on the
+    host) on the same input."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    cfg = get_config(GRANITE)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    p16 = moe.init_moe(gen, cfg, torch.bfloat16, dev)
+    p32 = {n: w.float() for n, w in p16.items()}
+    for t in (MAX_BATCH * 256, MAX_BATCH):
+        x16 = torch.randn((t, cfg.d_model), generator=gen,
+                          device=dev).bfloat16()
+        x32 = x16.float()
+        _, ids16, _ = moe.route_topk(p16["router"], x16, cfg.moe_top_k)
+        _, ids32, _ = moe.route_topk(p32["router"], x32, cfg.moe_top_k)
+        y32, _ = moe.moe_ragged(p32, cfg, x32, aux=False)
+
+        def layer():
+            return moe.moe_ragged(p16, cfg, x16, aux=False)[0]
+
+        def sorted_form():
+            tok, w, _, sizes, _ = moe._dispatch(cfg, p16["router"], x16)
+            return moe._experts_sorted(p16, x16, tok, w, sizes)
+
+        def rel(y):
+            return float(((y.float() - y32).norm(dim=1)
+                          / y32.norm(dim=1)).max())
+
+        err, err_sorted = rel(layer()), rel(sorted_form())
+        same = torch.equal(ids16, ids32)
+        print(f"{GRANITE} MoE layer, T = {t}, bf16 against f32: largest "
+              f"per-token relative error {err:.6f} (bar {2 ** -6:.5f}), "
+              f"|y|max {float(y32.abs().max()):.1f}, expert ids equal: "
+              f"{same}; bf16 layer {median_ms(layer, reps=10, inner=5):.4f}"
+              f" ms a call, device time {device_total_ms(layer)} ms; the "
+              f"sorted form {median_ms(sorted_form, reps=5, inner=2):.4f} "
+              f"ms a call, device time {device_total_ms(sorted_form)} ms, "
+              f"error {err_sorted:.6f}")
+        if not same or err > 2 ** -6:
+            fail(f"the bf16 MoE layer at T = {t} is not the f32 layer's "
+                 f"within 2^-6 (error {err}, same experts: {same})")
+    phase("29 granite MoE layer, bf16 against f32", t0)
+
+
 def attention_timing(dev):
     """Phase 12: both attention kernels at the main path's shapes.  Returns
     the JSON fields of the llama3-8b shapes (the larger backend)."""
@@ -710,7 +877,8 @@ def attention_timing(dev):
     for arch, shape, kw in (("llama3-8b", (8, 32, 8, 1024, 128), {}),
                             ("qwen2.5-3b", (8, 16, 2, 256, 128), {}),
                             ("recurrentgemma-2b", (8, 10, 1, 1024, 256),
-                             {"window": 2048})):
+                             {"window": 2048}),
+                            (GRANITE, (8, 16, 8, 256, 64), {})):
         b, h, kv, s, d = shape
         q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
                         23, dev)
@@ -748,7 +916,8 @@ def attention_timing(dev):
             ("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024, {}),
             ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256, {}),
             ("recurrentgemma-2b", (8, 10, 1, MAX_SEQ, 256), 1024,
-             {"window": 2048})):
+             {"window": 2048}),
+            (GRANITE, (8, 16, 8, MAX_SEQ, 64), 256, {})):
         b, h, kv, t_max, d = shape
         q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
                           bf16, 31, dev)
@@ -2481,7 +2650,9 @@ def main() -> None:
     hybrid_launches, backends = llm_service(
         HYBRID_ARCHS, 10.0, HYBRID_ROUTES,
         "18 LLM service with recurrentgemma-2b")
-    llm_profile(backends, HYBRID_ROUTES)
+    # qwen2.5-3b's 8 x 256 batch was profiled after phase 10 (each profile
+    # costs ~20-30 s of analysis)
+    llm_profile(backends, {1024: "recurrentgemma-2b"})
     del backends
     torch.cuda.empty_cache()
     llm_cuda_vs_cpu("recurrentgemma-2b", 1024,
@@ -2502,6 +2673,26 @@ def main() -> None:
     t0 = time.perf_counter()
     main_canny.check(canny_ref)
     phase("27 canny at the main path's launch shapes", t0)
+
+    # 28-30 ------------------------------- the MoE family, the default pool
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.pool import DEFAULT_POOL
+    llm_cuda_vs_cpu(GRANITE, 256, f"28 {GRANITE} cuda vs cpu")
+    moe_layer_check(dev)
+    pool_launches, backends = llm_service(
+        DEFAULT_POOL, POOL_DELTA, POOL_ROUTES,
+        "30 the completed default pool", build_all=True)
+    llm_profile(backends, {256: GRANITE}, ranges={
+        "moe layer": (model_mod, "apply_moe"),
+        "moe routing": (moe_mod, "route_topk"),
+        "moe experts": (moe_mod, "_experts_all")})
+    decode_syncs(backends[GRANITE], 256)
+    del backends
+    torch.cuda.empty_cache()
+    served_launches = {k: sum(run[k] for run in (
+        llm_launches, ssm_launches, hybrid_launches, pool_launches))
+        for k in llm_launches}
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2530,7 +2721,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
-            "launches": llm_launches[name], "max_abs_err": err, "ms": kern,
+            "launches": served_launches[name], "max_abs_err": err, "ms": kern,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
     kern, plain, bnd, by = ssd_row
@@ -2538,7 +2729,7 @@ def main() -> None:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:78",
-        "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
+        "launches": served_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
     kern, plain, bnd, by = lru_row
@@ -2546,7 +2737,7 @@ def main() -> None:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:44",
-        "launches": hybrid_launches["rglru_scan"], "max_abs_err": lru_err,
+        "launches": served_launches["rglru_scan"], "max_abs_err": lru_err,
         "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
     print(f"all phases: {time.perf_counter() - T_START:.1f} s")

@@ -17,6 +17,7 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 

@@ -1,4 +1,4 @@
-"""The LLM face's models: the dense, ssm and hybrid families so far."""
+"""The LLM face's models: the dense, moe, ssm and hybrid families so far."""
 from .base import ModelConfig  # noqa: F401
 from .kvcache import AttnCache, init_cache  # noqa: F401
 from .model import (decode_step, forward, init_params,  # noqa: F401

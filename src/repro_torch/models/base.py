@@ -2,10 +2,10 @@
 
 One dataclass covers every family of ``repro.models`` and keeps all its
 fields, so a config compares field for field with the reference.  The port
-runs the ``dense`` family with the ``("attn",)`` layout, the ``ssm`` family
-with the ``("ssm",)`` layout and the ``hybrid`` family with RecurrentGemma's
-``("rec", "rec", "local")`` blocks and ``("rec", "rec")`` tail so far
-(``models/model.py`` raises for the rest).
+runs the ``dense`` and ``moe`` families with the ``("attn",)`` layout, the
+``ssm`` family with the ``("ssm",)`` layout and the ``hybrid`` family with
+RecurrentGemma's ``("rec", "rec", "local")`` blocks and ``("rec", "rec")``
+tail so far (``models/model.py`` raises for the rest).
 """
 from __future__ import annotations
 

@@ -1,27 +1,29 @@
-"""Model assembly of the dense, ssm and hybrid families: init / forward /
-prefill / decode.
+"""Model assembly of the dense, moe, ssm and hybrid families: init /
+forward / prefill / decode.
 
 A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU MLP] ->
-final norm -> tied unembedding; an ssm model (Mamba-2) is embed -> N x
-[pre-norm Mamba-2 block] -> final norm -> tied unembedding, with no MLP; a
-hybrid model (RecurrentGemma) is gemma-scaled embed -> 8 x [rec, rec,
-local] + [rec, rec] sub-layers, each [pre-norm mixer][pre-norm GeGLU MLP]
-(the mixer an RG-LRU block or sliding-window attention) -> final norm ->
-tied unembedding.  Where the JAX package scans over layer parameters
+final norm -> tied unembedding; a moe model (Granite MoE) the same with
+top-k routed SwiGLU experts in place of the MLP (``models/moe.py``); an ssm
+model (Mamba-2) is embed -> N x [pre-norm Mamba-2 block] -> final norm ->
+tied unembedding, with no MLP; a hybrid model (RecurrentGemma) is
+gemma-scaled embed -> 8 x [rec, rec, local] + [rec, rec] sub-layers, each
+[pre-norm mixer][pre-norm GeGLU MLP] (the mixer an RG-LRU block or
+sliding-window attention) -> final norm -> tied unembedding.  Where the JAX package scans over layer parameters
 stacked on a leading n_blocks dim per block slot, the port loops over a
 list: ``params["blocks"]["s0"]`` holds one dict per layer in layer order
 (``cfg.layer_kinds``) with the JAX names (``norm1``,
 ``attn.{wq,wk,wv,wo[,bq,bk,bv]}`` or ``rec.{w_gate,w_x,conv_w,conv_b,
 lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, ``norm2``,
-``mlp.{w_gate,w_up,w_down}``; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
+``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,w_gate,w_up,w_down[,
+shared]}``; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
 dt_bias,A_log,D,norm_w,out_proj}``); ``params_from_jax`` unstacks a JAX
 parameter tree into that form, the hybrid's block slots interleaved.
 Matrices, biases and the convs are kept in the activation dtype (cast once
-at load); norm weights, the Mamba-2 per-head scalars and the RG-LRU gate
-parameters stay in f32.
+at load); norm weights, the Mamba-2 per-head scalars, the RG-LRU gate
+parameters and the MoE router stay in f32.
 
-The other families (moe, encdec, vlm) and the variants with MLA,
-post-norms or other layouts raise ``ValueError``.
+The other families (encdec, vlm) and the variants with MLA, experts
+outside the moe family, post-norms or other layouts raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -37,12 +39,14 @@ from .base import ModelConfig
 from .kvcache import AttnCache, init_cache
 from .layers import (apply_mlp, embed, init_embedding, init_mlp, rms_norm,
                      unembed)
+from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 #: family -> (block layout, trailing layout, MLP, scaled embeddings) the
 #: port runs
 _PORTED = {"dense": (("attn",), (), "swiglu", False),
+           "moe": (("attn",), (), "swiglu", False),
            "ssm": (("ssm",), (), "swiglu", False),
            "hybrid": (("rec", "rec", "local"), ("rec", "rec"), "geglu",
                       True)}
@@ -50,8 +54,8 @@ _PORTED = {"dense": (("attn",), (), "swiglu", False),
 _SSM_F32 = ("dt_bias", "A_log", "D", "norm_w")
 #: the RG-LRU parameters kept in f32: the gates read them in f32
 _REC_F32 = ("lru_wa", "lru_wx", "lru_ba", "lru_bx", "log_lambda")
-#: the parameters kept in f32, by sub-tree
-_F32 = {"ssm": _SSM_F32, "rec": _REC_F32}
+#: the parameters kept in f32, by sub-tree (the MoE router reads x in f32)
+_F32 = {"ssm": _SSM_F32, "rec": _REC_F32, "moe": ("router",)}
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -63,7 +67,8 @@ def check_config(cfg: ModelConfig) -> None:
         (f"layout {cfg.block_layout}+{cfg.trailing_layout}",
          (cfg.block_layout, cfg.trailing_layout) != (layout, trailing)),
         (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant != mlp),
-        ("MLA", cfg.use_mla), ("experts", bool(cfg.num_experts)),
+        ("MLA", cfg.use_mla),
+        ("experts", bool(cfg.num_experts) and cfg.family != "moe"),
         ("post-norms", cfg.post_norm),
         ("scaled embeddings", cfg.embed_scale and not scaled),
         ("positions without RoPE", not cfg.use_rope),
@@ -88,8 +93,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             return {"norm1": norm(), "ssm": init_ssm(gen, cfg, adt, dev)}
         mixer = ({"rec": init_rec(gen, cfg, adt, dev)} if kind == "rec" else
                  {"attn": init_attention(gen, cfg, adt, dev)})
-        return {"norm1": norm(), **mixer, "norm2": norm(),
-                "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt, dev)}
+        mlp = ({"moe": init_moe(gen, cfg, adt, dev)} if cfg.num_experts else
+               {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt, dev)})
+        return {"norm1": norm(), **mixer, "norm2": norm(), **mlp}
 
     return {
         "embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
@@ -113,15 +119,14 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
     def vec(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
+    def subtree(sub, i, f32=()):
+        return {n: subtree(a, i) if isinstance(a, dict) else
+                (vec if n in f32 else mat)(a[i]) for n, a in sub.items()}
+
     def layer(slot, i):
-        out = {}
-        for name, sub in slot.items():
-            if name.startswith("norm"):
-                out[name] = vec(sub[i])
-            else:
-                out[name] = {n: (vec if n in _F32.get(name, ()) else mat)(a[i])
-                             for n, a in sub.items()}
-        return out
+        return {name: vec(sub[i]) if name.startswith("norm") else
+                subtree(sub, i, _F32.get(name, ()))
+                for name, sub in slot.items()}
 
     slots = [(tree["blocks"][f"s{j}"], i) for i in range(cfg.n_blocks)
              for j in range(len(cfg.block_layout))]
@@ -139,8 +144,10 @@ def _window(cfg: ModelConfig, kind: str):
 
 
 def _mlp_residual(p, cfg: ModelConfig, x):
-    return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                         cfg.mlp_variant)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
+    if "moe" in p:
+        return x + apply_moe(p["moe"], cfg, h)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
 
 
 def _entry(c, i):

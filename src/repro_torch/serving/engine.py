@@ -1,5 +1,5 @@
 """Batched serving engine: the LLM ``Backend`` (prefill + greedy decode
-over a dense, Mamba-2 or RecurrentGemma model), the queued request, its
+over a dense, MoE, Mamba-2 or RecurrentGemma model), the queued request, its
 result, and the per-backend ``DispatchQueue`` that batches requests into
 ``serve_batch`` calls.
 """

@@ -23,6 +23,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.profiles import ProfileEntry, ProfileTable
 from repro_torch.core.router import feasible_set, route_batch
 
+#: the JAX package's default serving pool (``launch/serve.py``)
+DEFAULT_POOL = ("qwen2.5-3b", "llama3-8b", "mamba2-370m",
+                "granite-moe-1b-a400m", "recurrentgemma-2b")
+
 # prompt-length buckets = the serving "object count groups"
 LENGTH_BUCKETS = ((0, 512, 0), (513, 2048, 1), (2049, 8192, 2),
                   (8193, 32768, 3), (32769, None, 4))

@@ -9,7 +9,8 @@ through each package with the stubs of ``tests/test_cluster.py`` and
 and batch size, and the ``stats()`` keys that do not depend on the wall
 clock; the traces must be equal.  The degradation scenario resolves its
 threaded futures in any order, so each package is held to the JAX test's
-bounds instead (at most ``pod_fail_after - 1`` failures).
+bounds instead (at most ``pod_fail_after - 1`` failures); so is the
+all-pods-dead scenario (each uid fails with one of two errors).
 """
 import functools
 import sys
@@ -470,23 +471,33 @@ def test_failed_pod_masked_and_requests_resubmitted(pkg):
 
 @pytest.mark.threads
 def test_all_pods_dead_raises_no_live_pods_equal_jax():
+    """Which error a uid gets depends on whether its resubmission (an
+    executor thread) ran before the other pod was masked (the submitting
+    thread), so each package is held to what both guarantee: every uid
+    fails with the backend's ``RuntimeError`` or ``NoLivePods``, both pods
+    end dead, availability 0, and a later submit raises ``NoLivePods``."""
     def scenario(p):
         cl = p.Cluster(lambda i: _Pinned(p, (f"m{i}", "dead")),
                        lambda d: _Stub(p, d.backend, 1, fail=True),
                        pods=2, pod_fail_after=1)
         futs = cl.submit_batch([_req(p, u) for u in range(6)])
         cl.drain()
-        out = [[type(f.exception(TIMEOUT)).__name__ for f in futs],
-               _stats(cl)]
+        outcomes = [type(f.exception(TIMEOUT)).__name__ for f in futs]
+        stats = _stats(cl)
         with pytest.raises(p.cluster.NoLivePods):
             cl.submit(_req(p, 100))
         cl.close()
-        return out
+        return outcomes, {k: stats[k] for k in (
+            "pods", "max_pods", "retired", "shard_mode", "alive",
+            "availability")}
 
-    trace = _both(scenario)
-    assert "NoneType" not in trace[0]
-    assert trace[1]["alive"] == [False, False]
-    assert trace[1]["availability"] == 0.0
+    traces = {pkg: scenario(PKGS[pkg]) for pkg in PKGS}
+    for outcomes, stats in traces.values():
+        assert len(outcomes) == 6
+        assert set(outcomes) <= {"RuntimeError", "NoLivePods"}
+        assert stats["alive"] == [False, False]
+        assert stats["availability"] == 0.0
+    assert traces["torch"][1] == traces["jax"][1]
 
 
 # ------------------------------------------------------ fleet elasticity

@@ -55,8 +55,10 @@ MAMBA = "mamba2-370m"
 #: launch/serve.py's default pool up to its first unported member
 POOL3 = ARCHS + (MAMBA,)
 RG = "recurrentgemma-2b"
-#: the default pool without its only unported member, granite-moe-1b-a400m
+#: the default pool without granite-moe-1b-a400m (tests/test_torch_moe.py)
 POOL4 = POOL3 + (RG,)
+#: launch/serve.py's default pool, every member ported
+POOL5 = POOL3 + ("granite-moe-1b-a400m", RG)
 #: prompt lengths in every bucket, and on each bucket edge
 PROMPT_LENS = [1, 64, 512, 513, 2048, 2049, 8192, 8193, 32768, 32769, 100000]
 
@@ -96,7 +98,7 @@ def _tol(activ_dtype):
 
 # ------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", POOL4)
+@pytest.mark.parametrize("arch", POOL5)
 def test_configs_equal_jax_field_for_field(arch):
     jc, tc = jax_get_config(arch), get_config(arch)
     for field in dataclasses.fields(jc):
@@ -111,13 +113,13 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_unported_configs_raise():
-    assert sorted(list_configs()) == sorted(POOL4)
-    for name in ("gemma2-9b", "llama3-8b-swa", "granite-moe-1b-a400m"):
+    assert sorted(list_configs()) == sorted(POOL5)
+    for name in ("gemma2-9b", "llama3-8b-swa", "deepseek-7b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     cfg = get_config("llama3-8b").reduced(num_layers=2)
-    with pytest.raises(ValueError, match="not ported yet: family 'moe'"):
-        init_params(dataclasses.replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="not ported yet: family 'vlm'"):
+        init_params(dataclasses.replace(cfg, family="vlm"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
@@ -339,7 +341,7 @@ def test_check_config_accepts_the_hybrid_family():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("granite-moe-1b-a400m", "experts"), ("deepseek-v2-lite-16b", "MLA"),
+    ("deepseek-v2-lite-16b", "MLA"),
     ("whisper-small", "family 'encdec'"), ("llava-next-34b", "family 'vlm'"),
     ("gemma2-9b", "post-norms"), ("llama3-8b-swa", "layout")])
 def test_check_config_rejects_what_is_not_ported(arch, what):
