@@ -30,12 +30,14 @@ Phases, each printed as it ends; any failure exits non-zero:
    within the output's rounding, 2^-8 relative, plus 1e-4): MQA, GQA and
    MHA, D = 32, 64, 128 and 256 (recurrentgemma-2b's 10 heads over one KV
    head), f32 (CUDA cores) and bf16 (tensor cores), no mask beyond
-   causal, window 64, softcap 30 and both, ragged S, and granite-moe-1b-
-   a400m's prefill in phase 30 (8, 16, 8, 256, 64);
+   causal, window 64, softcap 30 and both, ragged S, granite-moe-1b-
+   a400m's prefill in phase 30 (8, 16, 8, 256, 64), and every attention
+   model of the default pool at the serve driver's prompts (S = 32, 48);
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
-   D = 256, and granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase
-   30's 272-row caches;
+   D = 256, granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase 30's
+   272-row caches, and every attention model of the default pool over the
+   serve driver's caches (32 and 48 prompt rows plus 8);
 10. the LLM face's main path at full published width: ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
     backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
@@ -67,11 +69,12 @@ Phases, each printed as it ends; any failure exits non-zero:
     that f32 bar;
 14. the LLM face's main path with the ssm family: ``EcoreService`` over
     ``PoolPolicy(ServingPool(δ=18.5))`` with qwen2.5-3b, llama3-8b and
-    mamba2-370m backends at full width, 8 requests of 500 tokens (to
-    mamba2-370m) and 8 of 1024 (to qwen2.5-3b), 16 new tokens each, with
-    all three LLM kernels' launch counts set to 0 just before and read
-    just after (one SSD launch per layer per mamba2 batch); then, outside
-    that run, where each backend's device time goes (profiler);
+    mamba2-370m backends at full width and half depth (both serve at full
+    depth in phases 30 and 31), 8 requests of 500 tokens (to mamba2-370m)
+    and 8 of 1024 (to qwen2.5-3b), 16 new tokens each, with all three LLM
+    kernels' launch counts set to 0 just before and read just after (one
+    SSD launch per layer per mamba2 batch); then, outside that run, where
+    each backend's device time goes (profiler);
 15. a two-layer mamba2-370m at full width in f32 on the GPU and on the
     CPU, same parameters, a 500-token prompt: logits within 1e-3 and equal
     tokens;
@@ -180,11 +183,39 @@ Phases, each printed as it ends; any failure exits non-zero:
     to 0 just before and read just after (24 flash launches per granite
     batch, 24 decode launches per step); then granite's serve_batch under
     the profiler (its MoE layers' share of the device time) and the host
-    syncs of one of its decode steps.
+    syncs of one of its decode steps;
+31. the serve driver, ``repro_torch.launch.serve.main(argv)`` with
+    ``--device cuda`` at full published width (prompts capped at 48, 8
+    new tokens), six runs, every LLM kernel's launch count set to 0 just
+    before each and read just after, device memory printed before and
+    after each: (a) 24 requests at δ = 5 (llama3-8b, recurrentgemma-2b);
+    (b) ``--adapt --profile-out`` at δ = 23, 48 requests in batches of up
+    to 4 (granite-moe-1b-a400m, mamba2-370m): the profile read back, finite,
+    and an arch's entries moved exactly when one of its batches ran slower
+    than the fastest earlier batch of its shape; (c) ``--pods 4`` at δ = 5
+    in each shard mode: every uid served once, the shards summing to 24,
+    one parameter set per arch shared by the pods and the peak within one
+    copy of the weights plus 4 GiB; (d) ``--async`` at δ = 18.5
+    (mamba2-370m, qwen2.5-3b); (e) ``--rate 20 --duration 5 --pattern
+    flash --pods 2 --max-wait-ms 25`` at δ = 10 (qwen2.5-3b,
+    recurrentgemma-2b): window records and summary equal to the same argv
+    with ``--device cpu --reduced`` (integers exactly, floats within 1e-12
+    relative), the card's measured lines beside them.  In (a), (c), (d)
+    and (e) every decision equals the same policy's on the CPU; the runs
+    serve all five models, launch all four LLM kernels, and leave device
+    memory within 1 GiB of its level before the phase;
+32. the examples through their ``main(argv)`` on the card: ``quickstart``
+    and ``video_stream`` over phase 26's testbed (its checkpoints and
+    profile), every histogram summing to its scenes, the ED rows' Canny
+    launches counted and held to the plain version on their inputs, bit
+    for bit; ``service_quickstart`` at full width (qwen2.5-3b and
+    mamba2-370m) with routes equal to the CPU policy's; ``async_cluster``
+    and ``load_test`` printing what they print with ``--device cpu``
+    (``serve_pool`` is the driver of phase 31).
 
 Phases 10, 14, 18 and 30 also hold every route to the same policy's
 decision on the CPU.  It then prints one JSON line with every kernel (the
-LLM kernels' launches summed over phases 10, 14, 18 and 30), the card
+LLM kernels' launches summed over phases 10, 14, 18, 30 and 31), the card
 line, and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 JAX package ``repro``.
 """
@@ -239,6 +270,9 @@ LRU_SHAPE = (MAX_BATCH, 1024, 2560)
 GRANITE = "granite-moe-1b-a400m"
 POOL_DELTA = 23.0
 POOL_ROUTES = {256: GRANITE, 1024: "mamba2-370m"}
+#: the serve driver's prompts (its PROMPT_CAP and the shorter length its
+#: workload draws) and its default new tokens
+DRIVER_PROMPTS, DRIVER_NEW = (32, 48), 8
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -416,6 +450,16 @@ def randn(shapes, dtype, seed, dev):
         dev, dtype) for s in shapes]
 
 
+def pool_heads():
+    """(heads, KV heads, head dim) of every attention model of the default
+    pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.pool import DEFAULT_POOL
+    return sorted({(c.num_heads, c.num_kv_heads, c.head_dim)
+                   for c in map(get_config, DEFAULT_POOL)
+                   if {"attn", "local"} & set(c.layer_kinds)})
+
+
 def attention_grids(dev) -> None:
     """Phases 8 and 9: both attention kernels against their plain
     versions over the JAX tests' grid and the shapes that grid misses."""
@@ -431,10 +475,14 @@ def attention_grids(dev) -> None:
     n = 0
     # MQA, GQA, MHA d=128 (tests/test_kernels.py), then a ragged S and d=32
     # ... and granite-moe-1b-a400m's prefill in phase 30 (8 x 256 tokens)
+    # ... and every attention model of the pool at the serve driver's
+    # capped prompts (phase 31)
     for shape in [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
                   (2, 8, 2, 300, 128), (1, 4, 2, 37, 32),
                   (1, 10, 1, 128, 256), (2, 10, 1, 300, 256),
-                  (MAX_BATCH, 16, 8, 256, 64)]:
+                  (MAX_BATCH, 16, 8, 256, 64)] + [
+                      (MAX_BATCH, h, kv, s, d) for h, kv, d in pool_heads()
+                      for s in DRIVER_PROMPTS]:
         b, h, kv, s, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
@@ -466,11 +514,14 @@ def attention_grids(dev) -> None:
     errs = {dt: 0.0 for dt in dtypes}
     n = 0
     rng = np.random.default_rng(3)
-    # the last: granite-moe-1b-a400m's decode over phase 30's caches
+    # then granite-moe-1b-a400m's decode over phase 30's caches, and every
+    # attention model of the pool over the serve driver's (phase 31)
     for shape in [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
                   (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32),
                   (2, 10, 1, 256, 256), (3, 10, 1, 1000, 256),
-                  (2, 20, 2, 300, 256), (MAX_BATCH, 16, 8, 256 + MAX_NEW, 64)]:
+                  (2, 20, 2, 300, 256), (MAX_BATCH, 16, 8, 256 + MAX_NEW, 64)
+                  ] + [(MAX_BATCH, h, kv, s + DRIVER_NEW, d)
+                       for h, kv, d in pool_heads() for s in DRIVER_PROMPTS]:
         b, h, kv, t, d = shape
         for dt in dtypes:
             q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], dt,
@@ -491,13 +542,15 @@ def attention_grids(dev) -> None:
     phase("9 flash decode kernel", t0)
 
 
-def llm_service(archs, delta, routes, name, build_all=False):
+def llm_service(archs, delta, routes, name, build_all=False, halved=False):
     """Phases 10, 14, 18 and 30: the LLM face's main path at full width,
     over a pool of ``archs`` at ``delta``, 8 prompts of each length in
     ``routes``, every decision equal to the same policy's on the CPU.  The
     service builds the backends it routes to; ``build_all`` builds every
-    member of the pool first.  Returns the LLM kernels' launches of the
-    counted run and the backends."""
+    member of the pool first; ``halved`` builds each at half its depth.
+    Returns the LLM kernels' launches of the counted run and the
+    backends."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -511,9 +564,11 @@ def llm_service(archs, delta, routes, name, build_all=False):
 
     def build(arch):
         if arch not in backends:
-            backends[arch] = Backend(arch, get_config(arch),
-                                     max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-                                     seed=archs.index(arch))
+            cfg = get_config(arch)
+            if halved:
+                cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // 2)
+            backends[arch] = Backend(arch, cfg, max_batch=MAX_BATCH,
+                                     max_seq=MAX_SEQ, seed=archs.index(arch))
         return backends[arch]
 
     if build_all:
@@ -582,7 +637,7 @@ def llm_service(archs, delta, routes, name, build_all=False):
     # (global or local) and one decode launch per attention layer per step,
     # one SSD launch per Mamba-2 layer, one RG-LRU launch per recurrent layer
     expect = kernel_launches([k for a in routes.values()
-                              for k in get_config(a).layer_kinds],
+                              for k in backends[a].cfg.layer_kinds],
                              MAX_NEW - 1)
     if launches != expect:
         fail(f"the service's kernel launches {launches} are not one flash "
@@ -2174,7 +2229,7 @@ def train_testbed(dev):
     print(f"checkpoints: {len(loaded)} detectors saved under "
           f"{out.relative_to(ROOT)} and loaded back through train_all, raw "
           "heads bit-equal to the trained models'")
-    return loaded
+    return loaded, out
 
 
 def adamw_card_vs_cpu(dev) -> None:
@@ -2379,14 +2434,414 @@ def paper_relations(stats) -> None:
 
 def paper_comparison(dev, canny_ops):
     """Phase 26: train, profile, and the paper's comparison (Figs. 6-8) on
-    the trained testbed.  Returns the Canny launches of its ED rows."""
+    the trained testbed.  Returns the Canny launches of its ED rows and the
+    testbed's directory: the checkpoints and the card's profile
+    (``profile_table.json``), as ``default_testbed`` reads them."""
     t0 = time.perf_counter()
-    params = train_testbed(dev)
+    params, out = train_testbed(dev)
     table, cpu_params = profile_on_both(params, dev)
+    table.to_json(str(out / "profile_table.json"))
     launches, stats = figure_rows(table, params, cpu_params, dev, canny_ops)
     paper_relations(stats)
     phase("26 trained testbed and the paper's comparison", t0)
-    return launches
+    return launches, out
+
+
+# 31-32 ---------------------------------------- the serve driver, examples
+
+#: the serve driver's runs of phase 31: (label, argv, the archs it serves).
+#: Over synthetic_pool_table(DEFAULT_POOL) the buckets route: δ = 5,
+#: buckets 0-3 to llama3-8b, 4 to recurrentgemma-2b; δ = 10, bucket 0 to
+#: qwen2.5-3b, 1-4 to recurrentgemma-2b; δ = 18.5, 0 and 4 to mamba2-370m,
+#: 1-3 to qwen2.5-3b; δ = 23, 0 to granite-moe-1b-a400m, 1-4 to mamba2-370m.
+#: (b) serves 48 requests in batches of up to 4 so that batch shapes repeat:
+#: --adapt moves the profile only when a batch runs slower than the fastest
+#: earlier batch of its shape.
+SERVE_RUNS = (
+    ("a", ["--requests", "24", "--delta", "5"],
+     {"llama3-8b", "recurrentgemma-2b"}),
+    ("b", ["--delta", "23", "--adapt", "--requests", "48", "--max-batch", "4"],
+     {GRANITE, "mamba2-370m"}),
+    ("c least_loaded", ["--requests", "24", "--delta", "5", "--pods", "4",
+                        "--shard", "least_loaded"], {"llama3-8b", "recurrentgemma-2b"}),
+    ("c rendezvous", ["--requests", "24", "--delta", "5", "--pods", "4",
+                      "--shard", "rendezvous"], {"llama3-8b", "recurrentgemma-2b"}),
+    ("d", ["--async", "--delta", "18.5"], {"mamba2-370m", "qwen2.5-3b"}),
+    ("e", ["--rate", "20", "--duration", "5", "--pattern", "flash", "--pods",
+           "2", "--max-wait-ms", "25", "--delta", "10"],
+     {"qwen2.5-3b", "recurrentgemma-2b"}),
+)
+#: device memory a run may hold beyond one copy of its archs' weights
+#: (caches of 96 rows, activations of up to 4 pods' batches of 8)
+SERVE_SLACK_GIB = 4.0
+
+
+class DriverRecorder:
+    """While entered, the serve driver builds recording subclasses of its
+    ``Backend``, ``ServingPool``, ``EcoreCluster`` and ``LoadDriver``:
+    ``batches`` has (arch, batch size, prompt length, prefill s, decode s)
+    of every ``serve_batch`` in serve order, ``decisions`` (prompt length,
+    arch, bucket) of every routing decision; ``backends``, ``clusters``
+    and ``drivers`` the objects built."""
+
+    def __init__(self):
+        self.backends, self.batches, self.decisions = [], [], []
+        self.clusters, self.drivers = [], []
+
+    def __enter__(self):
+        from repro_torch import traffic
+        from repro_torch.launch import serve
+        rec = self
+
+        class Backend(serve.Backend):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                rec.backends.append(self)
+
+            def serve_batch(self, requests):
+                out = super().serve_batch(requests)
+                rec.batches.append((self.name, len(requests),
+                                    len(requests[0].prompt),
+                                    out[0].prefill_s, out[0].decode_s))
+                return out
+
+        class ServingPool(serve.ServingPool):
+            def route(self, prompt_len):
+                d = super().route(prompt_len)
+                rec.decisions.append((prompt_len, d.arch, d.bucket))
+                return d
+
+            def route_batch(self, prompt_lens):
+                ds = super().route_batch(prompt_lens)
+                rec.decisions.extend((n, d.arch, d.bucket)
+                                     for n, d in zip(prompt_lens, ds))
+                return ds
+
+        class EcoreCluster(serve.EcoreCluster):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                rec.clusters.append(self)
+
+        class LoadDriver(traffic.LoadDriver):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                rec.drivers.append(self)
+
+        self._saved = [(serve, "Backend", serve.Backend),
+                       (serve, "ServingPool", serve.ServingPool),
+                       (serve, "EcoreCluster", serve.EcoreCluster),
+                       (traffic, "LoadDriver", traffic.LoadDriver)]
+        serve.Backend, serve.ServingPool = Backend, ServingPool
+        serve.EcoreCluster, traffic.LoadDriver = EcoreCluster, LoadDriver
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in self._saved:
+            setattr(module, name, value)
+
+
+def gib(n_bytes) -> str:
+    return f"{n_bytes / 2**30:.2f} GiB"
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def device_memory(device) -> int:
+    """Allocated device memory after a collection, 0 on the CPU."""
+    import gc
+    import torch
+    gc.collect()
+    if device != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def shared_weights(label, backends) -> int:
+    """The bytes of the backends' weights; fails unless every backend of
+    an arch holds the same parameter set, whatever the number of pods."""
+    params = {}
+    for be in backends:
+        if params.setdefault(be.name, be.params) is not be.params:
+            fail(f"run ({label}): two {be.name} backends hold two "
+                 "parameter sets")
+    return sum(tree_bytes(p) for p in params.values())
+
+
+def serve_run(label, argv, device, extra, out_dir):
+    """One run of ``repro_torch.launch.serve.main`` on ``device`` (with
+    ``extra`` flags), every LLM kernel's launch count set to 0 just before
+    and read just after.  Its output goes to ``out_dir/run-<label>.txt``;
+    the lines other than the per-request ones are echoed.  Returns the
+    output's lines, the launches, the recorder's batches and decisions,
+    the clusters' shard counts, the replay's completions and numbers, and
+    the weights' bytes, device memory before, at the peak and after; the
+    run's backends, services and drivers are released before the last."""
+    import contextlib
+    import io
+    import types
+    import torch
+    from repro_torch.launch import serve
+    kernel_ops = llm_kernel_ops()
+    before = device_memory(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for ops in kernel_ops.values():
+        ops.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with DriverRecorder() as rec, contextlib.redirect_stdout(buf):
+        rc = serve.main(argv + ["--device", device, "--dryrun-artifact",
+                                str(out_dir / "no-dryrun.jsonl"), *extra])
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches for k, ops in kernel_ops.items()}
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    weights = shared_weights(label, rec.backends)
+    run = types.SimpleNamespace(
+        batches=rec.batches, decisions=rec.decisions,
+        shards=[c.stats()["shard_counts"] for c in rec.clusters],
+        done=[len(d.completions) for d in rec.drivers],
+        replay=[{"windows": d.slo.window_records(),
+                 "summary": d.slo.summary()} for d in rec.drivers])
+    del rec
+    after = device_memory(device)
+    text = buf.getvalue()
+    (out_dir / f"run-{label.replace(' ', '-')}.txt").write_text(text)
+    lines = text.splitlines()
+    shown = [ln for ln in lines if not ln.startswith("req ")]
+    print(f"serve run ({label}) on {device}: {' '.join(argv + list(extra))}"
+          f"\n  rc {rc}, {wall:.2f} s, {len(lines) - len(shown)} request "
+          f"lines, {len(run.batches)} serve_batch calls; launches "
+          f"{launches}; weights {gib(weights)}, device memory before "
+          f"{gib(before)}, peak {gib(peak)}, after {gib(after)}\n  " +
+          "\n  ".join(ln for ln in shown if ln))
+    if rc != 0:
+        fail(f"the serve driver's run ({label}) returned {rc}")
+    run.lines, run.launches = lines, launches
+    run.memory = (weights, before, peak, after)
+    return run
+
+
+def route_check(label, run, delta, n_requests):
+    """Every decision of a run equals the same PoolPolicy's on the CPU."""
+    from repro_torch.core.policy import PoolPolicy, RouteRequest
+    from repro_torch.serving.pool import (DEFAULT_POOL, ServingPool,
+                                          synthetic_pool_table)
+    if len(run.decisions) != n_requests:
+        fail(f"run ({label}) made {len(run.decisions)} routing decisions "
+             f"for {n_requests} requests")
+    cpu = PoolPolicy(ServingPool(synthetic_pool_table(DEFAULT_POOL,
+                                                      device="cpu"),
+                                 delta=delta))
+    want = [(d.backend, d.group) for d in cpu.decide_batch(
+        [RouteRequest(uid=i, complexity=n)
+         for i, (n, _, _) in enumerate(run.decisions)])]
+    got = [(arch, bucket) for _, arch, bucket in run.decisions]
+    if got != want:
+        fail(f"run ({label}): routes differ from the policy's on the CPU: "
+             f"{got} / {want}")
+
+
+def served_uids(lines):
+    return sorted(int(ln.split()[1]) for ln in lines if ln.startswith("req "))
+
+
+def adapt_check(run, path):
+    """Run (b)'s profile: read back, finite, the pristine profile's pairs;
+    an arch's entries moved exactly when one of its batches ran slower
+    than the fastest earlier batch of its shape (the driver's rule,
+    replayed from the batches served)."""
+    import math
+    from repro_torch.core.profiles import ProfileTable
+    from repro_torch.launch.serve import PROMPT_CAP
+    from repro_torch.serving.pool import DEFAULT_POOL, synthetic_pool_table
+    table = ProfileTable.from_json(str(path), device="cpu")
+    pristine = synthetic_pool_table(DEFAULT_POOL, device="cpu")
+    slower, baselines = {}, {}
+    for arch, b, n, pre, dec in run.batches:
+        key = (arch, b, min(n, PROMPT_CAP))
+        local = (pre + dec) * 1e3 / b
+        baselines[key] = min(baselines.get(key, local), local)
+        slower[arch] = slower.get(arch, 0) + (local > baselines[key])
+    moved = {}
+    for e, p in zip(table.entries, pristine.entries):
+        if (e.model, e.device, e.group, e.map_pct) != (
+                p.model, p.device, p.group, p.map_pct):
+            fail(f"run (b)'s profile has {e}, the pristine one {p}")
+        if not all(map(math.isfinite, (e.time_ms, e.energy_mwh))):
+            fail(f"run (b)'s profile holds a non-finite value: {e}")
+        rel = max(abs(e.time_ms / p.time_ms - 1),
+                  abs(e.energy_mwh / p.energy_mwh - 1))
+        moved[e.model] = max(moved.get(e.model, 0.0), rel)
+    for arch in DEFAULT_POOL:
+        if (moved[arch] > 1e-9) != (slower.get(arch, 0) > 0):
+            fail(f"run (b): {arch}'s profile moved by {moved[arch]:.3g} "
+                 f"relative after {slower.get(arch, 0)} slower batches")
+    print(f"  run (b)'s profile ({path.name}) read back through "
+          f"ProfileTable.from_json, every value finite; batches slower "
+          f"than the fastest of their shape {slower}; entries moved from "
+          f"the pristine profile by (largest relative) " + ", ".join(
+              f"{a} {moved[a]:.4g}" for a in DEFAULT_POOL))
+
+
+def serve_driver(device="cuda", extra=()):
+    """Phase 31: the serve driver's six runs on ``device`` (``extra``: more
+    flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run (e)
+    again with ``--device cpu --reduced``.  Returns the LLM kernels'
+    launches summed over the runs."""
+    from repro_torch.serving.pool import DEFAULT_POOL
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / f"serve-{time.strftime('%H%M%S')}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    start = device_memory(device)
+    total, served = {}, set()
+    for label, argv, archs in SERVE_RUNS:
+        delta = float(argv[argv.index("--delta") + 1])
+        if label == "b":
+            argv = argv + ["--profile-out", str(out_dir / "profile.json")]
+        run = serve_run(label, argv, device, extra, out_dir)
+        weights, before, peak, after = run.memory
+        for k, n in run.launches.items():
+            total[k] = total.get(k, 0) + n
+        got = {b[0] for b in run.batches}
+        if got != archs:
+            fail(f"run ({label}) served {sorted(got)}, not {sorted(archs)}")
+        served |= got
+        if after - start > 2**30:
+            fail(f"run ({label}) left {gib(after - start)} of device memory "
+                 "behind")
+        if label == "b":
+            adapt_check(run, out_dir / "profile.json")
+            continue
+        if label == "e":
+            n, = run.done
+            route_check(label, run, delta, n)
+            cpu_run = serve_run("e cpu", argv, "cpu", ["--reduced"], out_dir)
+            replay_close(run.replay, cpu_run.replay, "run (e) card / cpu")
+            print(f"  run (e): {n} requests; window records and summary "
+                  f"on {device} == on the cpu with --reduced (integers "
+                  f"exactly, floats within {REPLAY_RTOL} relative)")
+            continue
+        route_check(label, run, delta, 24)
+        if served_uids(run.lines) != list(range(24)):
+            fail(f"run ({label}) served uids {served_uids(run.lines)}")
+        if label.startswith("c"):
+            counts, = run.shards
+            if sum(counts) != 24:
+                fail(f"run ({label})'s shards {counts} do not sum to 24")
+            if device == "cuda" and peak - before > weights + \
+                    SERVE_SLACK_GIB * 2**30:
+                fail(f"run ({label}) peaked at {gib(peak - before)} over "
+                     f"its start with {gib(weights)} of weights")
+            print(f"  run ({label}): every uid served once, shard counts "
+                  f"{counts}; peak {gib(peak - before)} over the run's "
+                  f"start for {gib(weights)} of weights, one set per arch")
+    if served != set(DEFAULT_POOL):
+        fail(f"the driver served {sorted(served)}, not all of "
+             f"{list(DEFAULT_POOL)}")
+    if device == "cuda" and min(total.values()) < 1:
+        fail(f"an LLM kernel was not launched by the driver: {total}")
+    print(f"serve driver: all {len(DEFAULT_POOL)} models of the default "
+          f"pool served; LLM kernel launches over the runs {total}; device "
+          f"memory {gib(start)} before the phase, "
+          f"{gib(device_memory(device))} after")
+    phase("31 the serve driver at full width", t0)
+    return total
+
+
+def example_run(module, argv):
+    """``module.main(argv)``'s output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    return buf.getvalue()
+
+
+def examples_on_card(testbed, canny_ops, canny_ref, device="cuda",
+                     extra=()):
+    """Phase 32: the examples through their ``main(argv)`` on ``device``:
+    the detection examples over phase 26's testbed (``testbed``: its
+    directory), ``service_quickstart`` at full width (``extra``: more of
+    its flags, e.g. ``--reduced`` for a rehearsal on the CPU),
+    ``async_cluster`` and ``load_test`` against their runs on the CPU.
+    Returns the Canny launches of the ED rows."""
+    import importlib
+    from repro_torch.core.policy import PoolPolicy, RouteRequest
+    from repro_torch.serving.pool import ServingPool, synthetic_pool_table
+    t0 = time.perf_counter()
+    recorder = CannyLaunches(canny_ops)
+    canny = 0
+    for name, n_scenes in (("quickstart", 60), ("video_stream", 150)):
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        stats = []
+        gateway = module.Gateway
+
+        class Spied(gateway):
+            def process_stream(self, stream):
+                out = super().process_stream(stream)
+                stats.append((self.estimator, out))
+                return out
+
+        module.Gateway = Spied
+        canny_ops.launches = 0
+        try:
+            with recorder:
+                text = example_run(module, [
+                    "--device", device, "--cache-dir", str(testbed),
+                    "--profile", str(testbed / "profile_table.json")])
+        finally:
+            module.Gateway = gateway
+        canny += canny_ops.launches
+        print(f"example {name} on {device}: {canny_ops.launches} Canny "
+              f"launches\n  " + "\n  ".join(
+                  ln for ln in text.splitlines() if ln.strip()))
+        for est, st in stats:
+            if sum(st.pair_histogram.values()) != n_scenes:
+                fail(f"example {name}: {st.router} served "
+                     f"{st.pair_histogram} for {n_scenes} scenes")
+        if device == "cuda" and canny_ops.launches < sum(
+                type(est).__name__ == "EdgeDetectionEstimator"
+                for est, _ in stats):
+            fail(f"example {name}'s ED rows did not launch Canny")
+    recorder.check(canny_ref)
+
+    from repro_torch.examples import service_quickstart
+    text = example_run(service_quickstart, ["--device", device, *extra])
+    cpu = PoolPolicy(ServingPool(synthetic_pool_table(
+        ["qwen2.5-3b", "mamba2-370m"], device="cpu"), delta=5.0))
+    routes = [ln.split() for ln in text.splitlines() if ln.startswith("req ")]
+    want = [(f"{d.pair[0]}@{d.pair[1]}", f"bucket={d.group}")
+            for d in cpu.decide_batch([RouteRequest(
+                uid=int(r[1]), complexity=int(r[3].rstrip(")")))
+                for r in routes])]
+    if len(routes) != 6 or [(r[5], r[6]) for r in routes] != want:
+        fail(f"example service_quickstart's routes differ from the CPU "
+             f"policy's: {text}")
+    print(f"example service_quickstart on {device} (full width), routes "
+          f"equal to the CPU policy's:\n  " + "\n  ".join(
+              text.splitlines()))
+    device_memory(device)
+
+    for name in ("async_cluster", "load_test"):
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        t1 = time.perf_counter()
+        text = example_run(module, ["--device", device])
+        t_dev = time.perf_counter() - t1
+        if text != example_run(module, ["--device", "cpu"]):
+            fail(f"example {name} on {device} differs from its cpu run")
+        print(f"example {name} on {device} in {t_dev:.2f} s, output equal "
+              f"to its cpu run:\n  " + "\n  ".join(text.splitlines()))
+    phase("32 the examples", t0)
+    return canny
 
 
 def main() -> None:
@@ -2638,8 +3093,11 @@ def main() -> None:
     attn_rows = attention_timing(dev)
 
     ssd_err = ssd_check(dev)
+    # at half depth (24 mamba2 layers, 18 qwen2.5-3b), for the time of
+    # phases 31-32: both serve at full depth in phases 30 and 31
     ssm_launches, backends = llm_service(SSM_ARCHS, SSM_DELTA, SSM_ROUTES,
-                                         "14 LLM service with mamba2")
+                                         "14 LLM service with mamba2",
+                                         halved=True)
     llm_profile(backends, SSM_ROUTES)
     del backends
     torch.cuda.empty_cache()
@@ -2667,7 +3125,8 @@ def main() -> None:
         main_launches["canny_fused"] += cluster_plane(params, scenes, dev,
                                                       canny_ops)
         main_launches["canny_fused"] += traffic_plane(params, dev, canny_ops)
-        main_launches["canny_fused"] += paper_comparison(dev, canny_ops)
+        launches, testbed = paper_comparison(dev, canny_ops)
+        main_launches["canny_fused"] += launches
 
     # 27 ------------------------- Canny at the main path's shapes vs plain
     t0 = time.perf_counter()
@@ -2690,9 +3149,14 @@ def main() -> None:
     decode_syncs(backends[GRANITE], 256)
     del backends
     torch.cuda.empty_cache()
+
+    # 31-32 ------------------------------- the serve driver, the examples
+    driver_launches = serve_driver()
+    main_launches["canny_fused"] += examples_on_card(testbed, canny_ops,
+                                                     canny_ref)
     served_launches = {k: sum(run[k] for run in (
-        llm_launches, ssm_launches, hybrid_launches, pool_launches))
-        for k in llm_launches}
+        llm_launches, ssm_launches, hybrid_launches, pool_launches,
+        driver_launches)) for k in llm_launches}
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -10,12 +10,16 @@ Accuracy proxy: each backend carries a capability score derived from
 log10(active params), scaled to a 0..100 'mAP-like' range and saturating
 per bucket (easy requests do not reward capacity), so no backend
 dominates every bucket.  ``synthetic_pool_table`` builds the analytic
-profile of the JAX package's ``launch/serve.py``; the dry-run profile
-(``pool_table_from_dryrun``) waits for the dry-run slice of the port.
+profile of the JAX package's ``launch/serve.py``; ``pool_table_from_dryrun``
+reads the rows of a dry-run roofline artifact (``dryrun.jsonl``, written
+by the JAX package's ``launch/dryrun.py``), which the serve driver prefers
+when the file exists.  The artifact's costs are those of the mesh it was
+compiled for; routing reads them as given.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from typing import List, Optional, Sequence
 
@@ -69,6 +73,36 @@ def synthetic_pool_table(archs, *, device="cuda") -> ProfileTable:
                 model=arch, device="pod-16x16", group=bucket,
                 map_pct=capability_score(n, cfg.is_subquadratic, bucket),
                 time_ms=n / 1e9, energy_mwh=n / 1e10))
+    return ProfileTable(entries, device=device)
+
+
+def pool_table_from_dryrun(dryrun_jsonl: str,
+                           shapes: Sequence[str] = ("prefill_32k",),
+                           mesh: str = "16x16", *,
+                           device="cuda") -> ProfileTable:
+    """Build a routing ProfileTable from dry-run roofline rows: the ``ok``
+    rows of ``mesh`` at one of ``shapes``, each row's step time and energy
+    split over the requests of its shape.  The profile state lives on
+    ``device``."""
+    with open(dryrun_jsonl) as f:
+        rows = [json.loads(line) for line in f]
+    entries: List[ProfileEntry] = []
+    for r in rows:
+        if r.get("status") != "ok" or r["mesh"] != mesh:
+            continue
+        if r["shape"] not in shapes:
+            continue
+        cfg = get_config(r["arch"])
+        n_req = {"prefill_32k": 32, "decode_32k": 128, "long_500k": 1,
+                 "train_4k": 256}[r["shape"]]
+        time_ms = r["t_step_s"] * 1e3 / n_req
+        energy_mwh = r["energy_j"] / 3.6 / n_req
+        for _, _, bucket in LENGTH_BUCKETS:
+            entries.append(ProfileEntry(
+                model=r["arch"], device=f"pod-{mesh}", group=bucket,
+                map_pct=capability_score(r["params_active"],
+                                         cfg.is_subquadratic, bucket),
+                time_ms=time_ms, energy_mwh=energy_mwh))
     return ProfileTable(entries, device=device)
 
 
