@@ -31,14 +31,23 @@ Phases, each printed as it ends; any failure exits non-zero:
    MHA, D = 32, 64, 128 and 256 (recurrentgemma-2b's 10 heads over one KV
    head), f32 (CUDA cores) and bf16 (tensor cores), no mask beyond
    causal, window 64, softcap 30 and both, ragged S, granite-moe-1b-
-   a400m's prefill in phase 30 (8, 16, 8, 256, 64), and every attention
-   model of the default pool at the serve driver's prompts (S = 32, 48);
+   a400m's prefill in phase 30 (8, 16, 8, 256, 64), every attention
+   model of the default pool at the serve driver's prompts (S = 32, 48),
+   and phases 33-35's prefills with their own options: gemma2-9b's (1,
+   16, 8, 6144, 256) with softcap 50, windowed 4096 and not, deepseek-7b's
+   (8, 32, 32, 1024, 128), llama3-8b-swa's (1, 32, 8, 12288, 128) with
+   window 4096 (the plain version one KV head's group at a time where its
+   scores would pass 4 GiB);
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
    D = 256, granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase 30's
-   272-row caches, and every attention model of the default pool over the
-   serve driver's caches (32 and 48 prompt rows plus 8);
-10. the LLM face's main path at full published width: ``EcoreService``
+   272-row caches, every attention model of the default pool over the
+   serve driver's caches (32 and 48 prompt rows plus 8), and phases
+   33-35's: gemma2-9b's (2, 16, 8) at D = 256 over its 4096-row ring and
+   6160 global rows with softcap 50, deepseek-7b's (8, 32, 32) at D = 128
+   over 1040 rows, llama3-8b-swa's (1, 32, 8) over its 4096-row ring;
+10. the LLM face's main path at full published width and half depth
+    (both serve at full depth in phase 31): ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
     backends (seeded random weights, bf16), 8 requests of 256 tokens and 8
     of 1024, 16 new tokens each, with both attention kernels' launch
@@ -50,9 +59,15 @@ Phases, each printed as it ends; any failure exits non-zero:
     1e-3 and equal tokens;
 12. attention kernel, plain-version and ``scaled_dot_product_attention``
     times at the main path's shapes (llama3-8b's, qwen2.5-3b's,
-    recurrentgemma-2b's, window 2048, and granite-moe-1b-a400m's), flash's achieved TFLOP/s beside the
-    library's, the decode kernel's split sizing (its blocks against the
-    SMs) against one piece and against splits sized from the whole cache,
+    recurrentgemma-2b's, granite-moe-1b-a400m's, and phases 33-35's:
+    gemma2-9b's (2, 16, 8, 6144, 256) local layers and its decode over the
+    ring and the global rows, where the library has no softcap,
+    deepseek-7b's, llama3-8b-swa's at 12288 tokens under window 4096, its
+    flash bound reckoned from the windowed keys), flash's achieved
+    TFLOP/s beside the library's, flash's device time at llama3-8b's and
+    deepseek-7b's shapes with K/V laid out as the model's prefill passes
+    them (views of [B, S, KV, D]), the decode kernel's split sizing (its
+    blocks against the SMs) against one piece and against splits sized from the whole cache,
     the decode wrapper's and the library's host microseconds a call (200
     back-to-back calls without a sync) and the library's device time
     beside its call time, and both kernels against their plain versions
@@ -89,7 +104,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     f32 plain version's own;
 18. the LLM face's main path with the hybrid family: ``EcoreService`` over
     ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b, llama3-8b,
-    mamba2-370m and recurrentgemma-2b backends at full width, 8 requests
+    mamba2-370m and recurrentgemma-2b backends at full width and half
+    depth (all four serve at full depth in phase 31), 8 requests
     of 256 tokens (to qwen2.5-3b) and 8 of 1024 (to recurrentgemma-2b), 16
     new tokens each, with every LLM kernel's launch count set to 0 just
     before and read just after (one RG-LRU launch per recurrent layer per
@@ -186,7 +202,7 @@ Phases, each printed as it ends; any failure exits non-zero:
     syncs of one of its decode steps;
 31. the serve driver, ``repro_torch.launch.serve.main(argv)`` with
     ``--device cuda`` at full published width (prompts capped at 48, 8
-    new tokens), six runs, every LLM kernel's launch count set to 0 just
+    new tokens), seven runs, every LLM kernel's launch count set to 0 just
     before each and read just after, device memory printed before and
     after each: (a) 24 requests at δ = 5 (llama3-8b, recurrentgemma-2b);
     (b) ``--adapt --profile-out`` at δ = 23, 48 requests in batches of up
@@ -196,14 +212,17 @@ Phases, each printed as it ends; any failure exits non-zero:
     in each shard mode: every uid served once, the shards summing to 24,
     one parameter set per arch shared by the pods and the peak within one
     copy of the weights plus 4 GiB; (d) ``--async`` at δ = 18.5
-    (mamba2-370m, qwen2.5-3b); (e) ``--rate 20 --duration 5 --pattern
+    (mamba2-370m, qwen2.5-3b); (e) ``--rate 20 --duration 2 --pattern
     flash --pods 2 --max-wait-ms 25`` at δ = 10 (qwen2.5-3b,
     recurrentgemma-2b): window records and summary equal to the same argv
     with ``--device cpu --reduced`` (integers exactly, floats within 1e-12
-    relative), the card's measured lines beside them.  In (a), (c), (d)
-    and (e) every decision equals the same policy's on the CPU; the runs
-    serve all five models, launch all four LLM kernels, and leave device
-    memory within 1 GiB of its level before the phase;
+    relative), the card's measured lines beside them; (f) ``--archs
+    deepseek-7b gemma2-9b-swa --requests 16`` at δ = 5 (bucket 4 to
+    gemma2-9b-swa, the rest to deepseek-7b).  In (a) and (c)-(f) every
+    decision equals the same policy's on the CPU; the runs serve all five
+    models of the default pool and both of (f), launch all four LLM
+    kernels, and leave device memory within 1 GiB of its level before the
+    phase;
 32. the examples through their ``main(argv)`` on the card: ``quickstart``
     and ``video_stream`` over phase 26's testbed (its checkpoints and
     profile), every histogram summing to its scenes, the ED rows' Canny
@@ -211,13 +230,32 @@ Phases, each printed as it ends; any failure exits non-zero:
     for bit; ``service_quickstart`` at full width (qwen2.5-3b and
     mamba2-370m) with routes equal to the CPU policy's; ``async_cluster``
     and ``load_test`` printing what they print with ``--device cpu``
-    (``serve_pool`` is the driver of phase 31).
+    (``serve_pool`` is the driver of phase 31);
+33. gemma2-9b cut to two layers (one local, one global: post-norms, both
+    softcaps) and deepseek-7b cut to two layers, at full width in f32 on
+    the GPU and on the CPU, same parameters, a 256-token prompt and 8
+    decode steps: logits within 1e-3 and equal tokens;
+34. the sliding-window ring on the card: llama3-8b-swa cut to two layers
+    at full width in f32, a 4608-token prompt into rings of 4096 rows and
+    16 decode steps (the ring wraps in prefill and again in decode), each
+    step's logits within 1e-3 of ``forward`` over the sequence so far on
+    the card (its windowed flash reads the same key set), argmax equal;
+35. the rest of the dense family in one service: deepseek-7b, gemma2-9b
+    and llama3-8b-swa built at full width (~48 GB of bf16 weights) after
+    phase 32 released its memory, ``EcoreService`` over
+    ``PoolPolicy(ServingPool(δ=0.02))``: 8 x 1024 tokens to deepseek-7b
+    (complexity 512), 2 x 6144 to gemma2-9b (its window bites in prefill
+    and its rings wrap), 1 x 12288 to llama3-8b-swa at max_seq 4096
+    (complexity 40 000; a prompt three times its rings), 16 new tokens
+    each, every LLM kernel's launch count set to 0 just before and read
+    just after; then llama3-8b-swa's cache bytes beside a position-ordered
+    cache's.
 
-Phases 10, 14, 18 and 30 also hold every route to the same policy's
+Phases 10, 14, 18, 30 and 35 also hold every route to the same policy's
 decision on the CPU.  It then prints one JSON line with every kernel (the
-LLM kernels' launches summed over phases 10, 14, 18, 30 and 31), the card
-line, and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
-JAX package ``repro``.
+LLM kernels' launches summed over the services of phases 10, 14, 18, 30,
+31 and 35), the card line, and last ``{"ok": true, "device": {...}}``.
+It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
@@ -273,6 +311,37 @@ POOL_ROUTES = {256: GRANITE, 1024: "mamba2-370m"}
 #: the serve driver's prompts (its PROMPT_CAP and the shorter length its
 #: workload draws) and its default new tokens
 DRIVER_PROMPTS, DRIVER_NEW = (32, 48), 8
+#: phase 35: three of the rest of the dense family and the routes at
+#: δ = 0.02.  Bucket 0 is capped at 72.0 for all three, so deepseek-7b, the
+#: cheapest, takes it; in buckets 1-3 gemma2-9b's 72.90 is the best and
+#: llama3-8b-swa's 72.86 misses it by 0.041, so gemma2-9b is the only pick
+#: within δ; in bucket 4 llama3-8b-swa, sub-quadratic, keeps 72.86 where
+#: the others lose 6.  Each complexity -> (prompt tokens, batch): routing
+#: sees the complexity, the backend the prompt (deepseek-7b's bucket-0
+#: requests carry 1024 tokens; llama3-8b-swa's 40 000-token request is
+#: capped at 12 288, three times its 4096-row ring)
+DENSE_ARCHS = ("deepseek-7b", "gemma2-9b", "llama3-8b-swa")
+DENSE_DELTA = 0.02
+DENSE_ROUTES = {512: "deepseek-7b", 6144: "gemma2-9b",
+                40_000: "llama3-8b-swa"}
+DENSE_BATCHES = {512: (1024, 8), 6144: (6144, 2), 40_000: (12_288, 1)}
+#: each backend's max_seq: the global layers' prompt + 16 new tokens;
+#: llama3-8b-swa's 4096 sizes its rings at the window
+DENSE_MAX_SEQ = {"deepseek-7b": 1040, "gemma2-9b": 6160,
+                 "llama3-8b-swa": 4096}
+#: (B, H, KV, S, D) and the options of the flash kernel on phases 33-35's
+#: path (gemma2-9b's local and global layers, deepseek-7b, llama3-8b-swa),
+#: then the decode kernel's over their caches: gemma2-9b's ring of 4096
+#: rows (no window: every ring row is in the key set) and its global rows,
+#: deepseek-7b's, llama3-8b-swa's ring
+DENSE_FLASH = (((1, 16, 8, 6144, 256), {"window": 4096, "softcap": 50.0}),
+               ((1, 16, 8, 6144, 256), {"softcap": 50.0}),
+               ((8, 32, 32, 1024, 128), {}),
+               ((1, 32, 8, 12_288, 128), {"window": 4096}))
+DENSE_DECODE = (((2, 16, 8, 4096, 256), {"softcap": 50.0}),
+                ((2, 16, 8, 6160, 256), {"softcap": 50.0}),
+                ((8, 32, 32, 1040, 128), {}),
+                ((1, 32, 8, 4096, 128), {}))
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -442,12 +511,35 @@ def attention_close(name: str, got, want) -> float:
     return float(err.max())
 
 
-def randn(shapes, dtype, seed, dev):
-    import numpy as np
+def flash_plain(q, k, v, **kw):
+    """The flash kernel's plain version, one KV head's group of heads at a
+    time where the f32 scores of all heads would pass 4 GiB."""
     import torch
-    rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
-        dev, dtype) for s in shapes]
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+    b, h, s, _ = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    if b * h * s * t * 4 <= 2**32:
+        return fl_ref.mha_reference(q, k, v, **kw)
+    g = h // kv
+    return torch.cat([fl_ref.mha_reference(
+        q[:, i * g:(i + 1) * g], k[:, i:i + 1], v[:, i:i + 1], **kw)
+        for i in range(kv)], 1)
+
+
+def causal_keys(s: int, window=None) -> int:
+    """Keys a causal prompt of ``s`` rows attends, summed over its rows:
+    row i sees min(i + 1, window) of them."""
+    w = min(window or s, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def randn(shapes, dtype, seed, dev):
+    """Standard normal tensors of ``shapes`` drawn on ``dev`` from one
+    seeded generator (drawing the larger ones on the host takes seconds)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in shapes]
 
 
 def pool_heads():
@@ -499,6 +591,21 @@ def attention_grids(dev) -> None:
                                             q.float(), k.float(), v.float(),
                                             **kw))
                 n += 1
+    # the rest of the dense family at its main path's shapes (phases
+    # 33-35), with its own options
+    for shape, kw in DENSE_FLASH:
+        b, h, kv, s, d = shape
+        for dt in dtypes:
+            q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)],
+                            dt, sum(shape), dev)
+            got = fl_ops.attention(q, k, v, **kw)
+            errs[dt] = max(errs[dt], attention_close(
+                f"flash {shape} {dt} {kw}", got, flash_plain(q, k, v, **kw)))
+            if dt == torch.bfloat16:
+                attention_close_f32(f"flash {shape} {kw}", got, flash_plain(
+                    q.float(), k.float(), v.float(), **kw))
+            n += 1
+            del q, k, v, got
     q, cache = randn([(2, 100, 8, 128), (2, 2, 160, 128)], torch.bfloat16, 1,
                      dev)
     got = fl_ops.attention(q.transpose(1, 2), cache[:, :, :100],
@@ -521,12 +628,14 @@ def attention_grids(dev) -> None:
                   (2, 10, 1, 256, 256), (3, 10, 1, 1000, 256),
                   (2, 20, 2, 300, 256), (MAX_BATCH, 16, 8, 256 + MAX_NEW, 64)
                   ] + [(MAX_BATCH, h, kv, s + DRIVER_NEW, d)
-                       for h, kv, d in pool_heads() for s in DRIVER_PROMPTS]:
+                       for h, kv, d in pool_heads() for s in DRIVER_PROMPTS
+                       ] + [shape for shape, _ in DENSE_DECODE]:
         b, h, kv, t, d = shape
+        dense = [kw for sh, kw in DENSE_DECODE if sh == shape]
         for dt in dtypes:
             q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)], dt,
                             sum(shape), dev)
-            for kw in ({}, {"window": 128}, {"softcap": 25.0}):
+            for kw in dense or ({}, {"window": 128}, {"softcap": 25.0}):
                 for lengths in (rng.integers(1, t + 1, b), np.ones(b),
                                 np.full(b, t)):
                     lens = torch.tensor(lengths, dtype=torch.int32,
@@ -542,14 +651,18 @@ def attention_grids(dev) -> None:
     phase("9 flash decode kernel", t0)
 
 
-def llm_service(archs, delta, routes, name, build_all=False, halved=False):
-    """Phases 10, 14, 18 and 30: the LLM face's main path at full width,
-    over a pool of ``archs`` at ``delta``, 8 prompts of each length in
-    ``routes``, every decision equal to the same policy's on the CPU.  The
-    service builds the backends it routes to; ``build_all`` builds every
-    member of the pool first; ``halved`` builds each at half its depth.
-    Returns the LLM kernels' launches of the counted run and the
-    backends."""
+def llm_service(archs, delta, routes, name, build_all=False, halved=False,
+                batches=None, max_seq=None):
+    """Phases 10, 14, 18, 30 and 35: the LLM face's main path at full
+    width, over a pool of ``archs`` at ``delta``, 8 prompts of each length
+    in ``routes``, every decision equal to the same policy's on the CPU.
+    ``batches`` maps a complexity of ``routes`` to (prompt tokens, batch)
+    where they differ from (the complexity, 8), and each backend's
+    ``max_batch`` is its batch; ``max_seq`` maps an arch to its backend's
+    (default ``MAX_SEQ``).  The service builds the backends it routes to;
+    ``build_all`` builds every member of the pool first; ``halved`` builds
+    each at half its blocks.  Returns the LLM kernels' launches of the
+    counted run and the backends."""
     import dataclasses
     import numpy as np
     import torch
@@ -561,14 +674,20 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False):
 
     t0 = time.perf_counter()
     backends = {}
+    batches = {n: (batches or {}).get(n, (n, MAX_BATCH)) for n in routes}
+    sizes = {arch: batches[n][1] for n, arch in routes.items()}
 
     def build(arch):
         if arch not in backends:
             cfg = get_config(arch)
             if halved:
-                cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // 2)
-            backends[arch] = Backend(arch, cfg, max_batch=MAX_BATCH,
-                                     max_seq=MAX_SEQ, seed=archs.index(arch))
+                cfg = dataclasses.replace(cfg, num_layers=(
+                    cfg.n_blocks // 2 * len(cfg.block_layout)
+                    + len(cfg.trailing_layout)))
+            backends[arch] = Backend(
+                arch, cfg, max_batch=sizes.get(arch, MAX_BATCH),
+                max_seq=(max_seq or {}).get(arch, MAX_SEQ),
+                seed=archs.index(arch))
         return backends[arch]
 
     if build_all:
@@ -588,8 +707,8 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False):
     rng = np.random.default_rng(13)
 
     def requests(uid0, lens, max_new):
-        return [RouteRequest(uid=uid0 + i, payload=rng.integers(0, 100_000, n),
-                             complexity=n, max_new_tokens=max_new)
+        return [RouteRequest(uid=uid0 + i, payload=rng.integers(
+            0, 100_000, batches[n][0]), complexity=n, max_new_tokens=max_new)
                 for i, n in enumerate(lens)]
 
     # warm-up (not counted): builds the backends, loads the kernels, warms
@@ -601,7 +720,7 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False):
           f"warmed up in {time.perf_counter() - t0:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
-    lens = [n for n in routes for _ in range(MAX_BATCH)]
+    lens = [n for n in routes for _ in range(batches[n][1])]
     kernel_ops = llm_kernel_ops()
     for ops in kernel_ops.values():
         ops.launches = 0
@@ -624,12 +743,14 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False):
         fail(f"the service's routes differ from the policy's on the CPU: "
              f"{on_cpu}")
     print(f"  routes (equal to the CPU's): " + ", ".join(
-        f"{MAX_BATCH} x {n} tokens -> {arch}" for n, arch in routes.items()))
+        f"{batches[n][1]} x {batches[n][0]} tokens (complexity {n}) -> "
+        f"{arch}" for n, arch in routes.items()))
     for sv in served:
         n = sv.request.complexity
         tok = sv.result.tokens
         if sv.decision.backend != routes[n]:
-            fail(f"a {n}-token prompt went to {sv.decision.backend}")
+            fail(f"a request of complexity {n} went to "
+                 f"{sv.decision.backend}")
         vocab = get_config(sv.decision.backend).vocab_size
         if tok.shape != (MAX_NEW,) or tok.min() < 0 or tok.max() >= vocab:
             fail(f"request {sv.request.uid} returned tokens {tok}")
@@ -646,7 +767,11 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False):
              f"RG-LRU scan per recurrent layer per batch ({expect})")
     for n, arch in routes.items():
         r = next(sv.result for sv in served if sv.decision.backend == arch)
-        print(f"  {arch}: batch {r.batch_size} x {n} tokens: prefill {r.prefill_s * 1e3:.2f} ms, decode "
+        if r.batch_size != batches[n][1]:
+            fail(f"{arch} served a batch of {r.batch_size}, not "
+                 f"{batches[n][1]}")
+        print(f"  {arch}: batch {r.batch_size} x {batches[n][0]} tokens: "
+              f"prefill {r.prefill_s * 1e3:.2f} ms, decode "
               f"{r.decode_s / (MAX_NEW - 1) * 1e3:.3f} ms per step, "
               f"{r.batch_size * MAX_NEW / (r.prefill_s + r.decode_s):.0f} "
               f"generated tokens/s")
@@ -808,11 +933,11 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2) -> None:
-    """Phases 11, 15 and 19: ``arch`` cut to ``num_layers`` layers at full
-    width in f32, on the GPU through the kernels and on the CPU through
-    their plain versions, a batch of 2 prompts of ``prompt_len`` tokens
-    and 4 new tokens."""
+def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4) -> None:
+    """Phases 11, 15, 19, 28 and 33: ``arch`` cut to ``num_layers`` layers
+    at full width in f32, on the GPU through the kernels and on the CPU
+    through their plain versions, a batch of 2 prompts of ``prompt_len``
+    tokens and ``new`` new tokens."""
     import dataclasses
     import numpy as np
     import torch
@@ -830,22 +955,22 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2) -> None:
     before = {k: ops.launches for k, ops in kernel_ops.items()}
     for dev, p in params.items():
         lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
-                            max_seq=prompt_len + 4)
+                            max_seq=prompt_len + new)
         outs, toks = [lg.cpu()], [lg.argmax(-1)]
-        for _ in range(3):
+        for _ in range(new - 1):
             lg, cache = decode_step(p, cfg, toks[-1], cache)
             outs.append(lg.cpu())
             toks.append(lg.argmax(-1))
         logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
     ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
-    want = kernel_launches(list(cfg.layer_kinds), 3)
+    want = kernel_launches(list(cfg.layer_kinds), new - 1)
     if ran != want:
         fail(f"the GPU run of the {num_layers}-layer model launched {ran}, "
              f"not {want}")
     err = max(float((a - b).abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
-    print(f"{arch}, {num_layers} layers, f32, batch 2, {prompt_len}-token "
-          f"prompt, 4 "
+    print(f"{arch}, {num_layers} layers {cfg.layer_kinds}, f32, batch 2, "
+          f"{prompt_len}-token prompt, {new} "
           f"new tokens: cuda vs cpu logits max err {err:.3g} (tolerance "
           f"1e-3); tokens {tokens['cuda'].tolist()} (cpu equal: "
           f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
@@ -906,9 +1031,93 @@ def moe_layer_check(dev) -> None:
     phase("29 granite MoE layer, bf16 against f32", t0)
 
 
+def ring_on_card(dev) -> None:
+    """Phase 34: llama3-8b-swa cut to two layers at full width in f32 on
+    the card, a 4608-token prompt into rings of 4096 rows (they wrap in
+    prefill) and 16 decode steps (they wrap again); the logits of the
+    prefill and of every step held to ``forward`` over the whole sequence
+    on the card, whose windowed flash reads the same key set: within 1e-3,
+    argmax equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3-8b-swa"), num_layers=2,
+                              activ_dtype="float32")
+    params = init_params(cfg, seed=11, device=dev)
+    prompt_len, steps = 4608, 16
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, prompt_len))).to(dev)
+    kernel_ops = llm_kernel_ops()
+    before = {k: ops.launches for k, ops in kernel_ops.items()}
+    logits, cache = prefill(params, cfg, toks, max_seq=4096)
+    got = [logits]
+    for _ in range(steps):
+        toks = torch.cat([toks, logits.argmax(-1)], 1)
+        logits, cache = decode_step(params, cfg, toks[:, -1:], cache)
+        got.append(logits)
+    ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
+    rows = [entry.k.shape[2] for entry in cache["blocks"]["s0"]]
+    got = torch.cat(got, 1)
+    want = forward(params, cfg, toks)[:, prompt_len - 1:]
+    err = float((got - want).abs().max())
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    print(f"llama3-8b-swa, 2 layers, f32, a {prompt_len}-token prompt and "
+          f"{steps} decode steps on rings of {rows} rows: logits against "
+          f"forward over the {toks.shape[1]} tokens max err {err:.3g} "
+          f"(tolerance 1e-3), argmax equal: {same}; launches {ran}")
+    if rows != [4096, 4096]:
+        fail(f"llama3-8b-swa's local caches hold {rows} rows, not 4096")
+    if ran != kernel_launches(list(cfg.layer_kinds), steps):
+        fail(f"the ring's run launched {ran}")
+    if err > 1e-3 or not same:
+        fail("llama3-8b-swa's decode on the ring differs from forward")
+    phase("34 the sliding-window ring on the card", t0)
+
+
+def dense_service():
+    """Phase 35: deepseek-7b, gemma2-9b and llama3-8b-swa at full width in
+    one service (phase 30's path, with each backend's batch and max_seq),
+    then llama3-8b-swa's cache after its 12 288-token prompt beside what a
+    position-ordered cache of the prompt and 16 new tokens would hold, and
+    the phase's peak device memory.  Returns the launches of the counted
+    run."""
+    import numpy as np
+    import torch
+    from repro_torch.models import prefill
+    torch.cuda.reset_peak_memory_stats()
+    launches, backends = llm_service(
+        DENSE_ARCHS, DENSE_DELTA, DENSE_ROUTES,
+        "35 the rest of the dense family", build_all=True,
+        batches=DENSE_BATCHES, max_seq=DENSE_MAX_SEQ)
+    be = backends["llama3-8b-swa"]
+    prompt_len, _ = DENSE_BATCHES[40_000]
+    toks = torch.from_numpy(np.random.default_rng(43).integers(
+        0, be.cfg.vocab_size, (1, prompt_len))).cuda()
+    with torch.inference_mode():
+        _, cache = prefill(be.params, be.cfg, toks, max_seq=be.max_seq)
+    ring = tree_bytes(cache["blocks"])
+    rows = {e.k.shape[2] for e in cache["blocks"]["s0"]}
+    ordered = ring // 4096 * (prompt_len + MAX_NEW)
+    print(f"  llama3-8b-swa after a {prompt_len}-token prompt: rings of "
+          f"{sorted(rows)} rows, {gib(ring)} of K/V; a position-ordered "
+          f"cache of {prompt_len + MAX_NEW} rows would hold {gib(ordered)}; "
+          f"the phase's peak device memory "
+          f"{gib(torch.cuda.max_memory_allocated())}")
+    if rows != {4096}:
+        fail(f"llama3-8b-swa's rings hold {rows} rows, not 4096")
+    del cache, backends, be
+    torch.cuda.empty_cache()
+    return launches
+
+
 def attention_timing(dev):
-    """Phase 12: both attention kernels at the main path's shapes.  Returns
-    the JSON fields of the llama3-8b shapes (the larger backend)."""
+    """Phase 12: both attention kernels at the main path's shapes, those of
+    phases 33-35 too.  Returns the JSON fields of the llama3-8b shapes (the
+    larger backend of phase 10).  ``scaled_dot_product_attention`` has no
+    softcap: at gemma2-9b's shapes the library column is empty."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -933,52 +1142,89 @@ def attention_timing(dev):
                             ("qwen2.5-3b", (8, 16, 2, 256, 128), {}),
                             ("recurrentgemma-2b", (8, 10, 1, 1024, 256),
                              {"window": 2048}),
-                            (GRANITE, (8, 16, 8, 256, 64), {})):
+                            (GRANITE, (8, 16, 8, 256, 64), {}),
+                            ("gemma2-9b", (2, 16, 8, 6144, 256),
+                             {"window": 4096, "softcap": 50.0}),
+                            ("deepseek-7b", (8, 32, 32, 1024, 128), {}),
+                            ("llama3-8b-swa", (1, 32, 8, 12_288, 128),
+                             {"window": 4096})):
         b, h, kv, s, d = shape
         q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
                         23, dev)
         got = fl_ops.attention(q, k, v, **kw)
         err = attention_close(f"flash at {shape}", got,
-                              fl_ref.mha_reference(q, k, v, **kw))
-        err32 = attention_close_f32(f"flash at {shape}", got,
-                                    fl_ref.mha_reference(
-                                        q.float(), k.float(), v.float(),
-                                        **kw))
+                              flash_plain(q, k, v, **kw))
+        err32 = attention_close_f32(f"flash at {shape}", got, flash_plain(
+            q.float(), k.float(), v.float(), **kw))
         del got
         kern = median_ms(lambda: fl_ops.attention(q, k, v, **kw), reps=10,
                          inner=5)
         dk = device_ms(lambda: fl_ops.attention(q, k, v, **kw),
                        "flash_kernel", reps=5)
-        plain = median_ms(lambda: fl_ref.mha_reference(q, k, v, **kw),
+        layout = ""
+        if arch in ("llama3-8b", "deepseek-7b"):
+            # the model's prefill passes K/V as views of its [B, S, KV, D]
+            # projections, not of a [B, KV, T, D] cache: the same call
+            # with that layout
+            kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (k, v))
+            attention_close(f"flash at {shape}, K/V [B, S, KV, D]",
+                            fl_ops.attention(q, kt, vt, **kw),
+                            flash_plain(q, k, v, **kw))
+            dk_t = device_ms(lambda: fl_ops.attention(q, kt, vt, **kw),
+                             "flash_kernel", reps=5)
+            layout = f", {dk_t} ms with K/V as [B, S, KV, D] views"
+            del kt, vt
+        plain = median_ms(lambda: flash_plain(q, k, v, **kw),
                           reps=5, inner=2)
-        lib = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=10, inner=5)
-        # causal: row i sees i + 1 columns; 4 flops per (row, col, d)
-        flops = 4 * b * h * d * s * (s + 1) // 2
+        window = kw.get("window")
+        lib = None
+        if "softcap" not in kw:
+            rows_, cols = (torch.arange(s, device=dev)[:, None],
+                           torch.arange(s, device=dev)[None, :])
+            mask = (None if window is None or window >= s else
+                    (cols <= rows_) & (cols > rows_ - window))
+            lib = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), reps=10, inner=5)
+        # row i sees min(i + 1, window) columns; 4 flops per (row, col, d)
+        flops = 4 * b * h * d * causal_keys(s, window)
         bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * s * d))
         rate = flops / (dk or kern) / 1e9
+        library = ("none (softcap)" if lib is None else
+                   f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s)")
         print(f"time flash {arch} prefill {shape} bf16 {kw}: kernel "
               f"{kern:.4f} ms "
-              f"(device time {dk} ms, {rate:.1f} TFLOP/s), plain "
-              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
-              f"({flops / lib / 1e9:.1f} TFLOP/s), bound {bnd:.5f} ms "
+              f"(device time {dk} ms, {rate:.1f} TFLOP/s{layout}), plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention {library}, "
+              f"bound {bnd:.5f} ms "
               f"({by}: {flops / 1e9:.1f} GFLOP); max err {err:.3g} (bf16 "
               f"plain), {err32:.3g} (f32 plain)")
         rows.setdefault("flash_attention", (kern, plain, bnd, by, lib, err))
+        del q, k, v
 
     rng = np.random.default_rng(29)
+    # recurrentgemma-2b's ring: 1281 rows at MAX_SEQ 1280 (< its window),
+    # of which a 1024-token prompt fills the first lengths; the rings of
+    # gemma2-9b and llama3-8b-swa are full (lo None: every length the
+    # ring's 4096 rows), and read with no window
     for arch, shape, lo, kw in (
             ("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024, {}),
             ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256, {}),
-            ("recurrentgemma-2b", (8, 10, 1, MAX_SEQ, 256), 1024,
-             {"window": 2048}),
-            (GRANITE, (8, 16, 8, MAX_SEQ, 64), 256, {})):
+            ("recurrentgemma-2b", (8, 10, 1, MAX_SEQ + 1, 256), 1024, {}),
+            (GRANITE, (8, 16, 8, MAX_SEQ, 64), 256, {}),
+            ("gemma2-9b", (2, 16, 8, 4096, 256), None, {"softcap": 50.0}),
+            ("gemma2-9b", (2, 16, 8, 6160, 256), 6144, {"softcap": 50.0}),
+            ("deepseek-7b", (8, 32, 32, 1040, 128), 1024, {}),
+            ("llama3-8b-swa", (1, 32, 8, 4096, 128), None, {})):
         b, h, kv, t_max, d = shape
         q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
                           bf16, 31, dev)
-        # the main path's decode lengths (pos + 1 after a lo-token prompt),
-        # and its view of the cache: the first max(lengths) rows
-        lens = torch.tensor(rng.integers(lo + 1, lo + MAX_NEW, b),
+        # the main path's decode lengths (pos + 1 after a lo-token prompt,
+        # or a full ring's rows), and its view of the cache: the first
+        # max(lengths) rows
+        lens = torch.tensor(rng.integers(lo + 1, lo + MAX_NEW, b)
+                            if lo else np.full(b, t_max),
                             dtype=torch.int32, device=dev)
         t = int(lens.max())
         k, v = ck[:, :, :t], cv[:, :, :t]
@@ -1037,9 +1283,14 @@ def attention_timing(dev):
             return F.scaled_dot_product_attention(
                 q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
-        lib = median_ms(sdpa, reps=10, inner=5)
-        lib_dev = device_total_ms(sdpa)
-        lib_host = host_us(sdpa)
+        lib = lib_dev = lib_host = None
+        library = "none (softcap)"
+        if "softcap" not in kw:
+            lib = median_ms(sdpa, reps=10, inner=5)
+            lib_dev = device_total_ms(sdpa)
+            lib_host = host_us(sdpa)
+            library = (f"{lib:.4f} ms a call (device time {lib_dev} ms, "
+                       f"host {lib_host:.1f} us a call)")
         n_keys = int(torch.minimum(lens, torch.tensor(
             kw.get("window", t), device=dev)).sum())
         flops = 4 * h * d * n_keys
@@ -1054,8 +1305,7 @@ def attention_timing(dev):
               f"{nsplit[1]} rows = {b * kv * nsplit[0]} blocks for {n_sm} "
               f"SMs, {dk_one} ms in one piece, {dk_full} ms "
               f"split from all {t_max} rows), plain {plain:.4f} ms, "
-              f"scaled_dot_product_attention {lib:.4f} ms a call (device "
-              f"time {lib_dev} ms, host {lib_host:.1f} us a call), bound "
+              f"scaled_dot_product_attention {library}, bound "
               f"{bnd:.5f} ms ({by}: {(2 * kv * d * n_keys * 2) / 1e6:.1f} MB "
               f"of K/V); max err {err:.3g} (bf16 plain), {err32:.3g} (f32 "
               f"plain)")
@@ -2456,7 +2706,10 @@ def paper_comparison(dev, canny_ops):
 #: 1-3 to qwen2.5-3b; δ = 23, 0 to granite-moe-1b-a400m, 1-4 to mamba2-370m.
 #: (b) serves 48 requests in batches of up to 4 so that batch shapes repeat:
 #: --adapt moves the profile only when a batch runs slower than the fastest
-#: earlier batch of its shape.
+#: earlier batch of its shape.  (f) serves two of the rest of the dense
+#: family: over their own table at δ = 5, bucket 4 (the two 40 000-token
+#: requests of seed 0) goes to gemma2-9b-swa (sub-quadratic, 72.90 against
+#: deepseek-7b's 66.32), every other bucket to deepseek-7b.
 SERVE_RUNS = (
     ("a", ["--requests", "24", "--delta", "5"],
      {"llama3-8b", "recurrentgemma-2b"}),
@@ -2467,9 +2720,11 @@ SERVE_RUNS = (
     ("c rendezvous", ["--requests", "24", "--delta", "5", "--pods", "4",
                       "--shard", "rendezvous"], {"llama3-8b", "recurrentgemma-2b"}),
     ("d", ["--async", "--delta", "18.5"], {"mamba2-370m", "qwen2.5-3b"}),
-    ("e", ["--rate", "20", "--duration", "5", "--pattern", "flash", "--pods",
+    ("e", ["--rate", "20", "--duration", "2", "--pattern", "flash", "--pods",
            "2", "--max-wait-ms", "25", "--delta", "10"],
      {"qwen2.5-3b", "recurrentgemma-2b"}),
+    ("f", ["--archs", "deepseek-7b", "gemma2-9b-swa", "--requests", "16",
+           "--delta", "5"], {"deepseek-7b", "gemma2-9b-swa"}),
 )
 #: device memory a run may hold beyond one copy of its archs' weights
 #: (caches of 96 rows, activations of up to 4 pods' batches of 8)
@@ -2629,16 +2884,15 @@ def serve_run(label, argv, device, extra, out_dir):
     return run
 
 
-def route_check(label, run, delta, n_requests):
-    """Every decision of a run equals the same PoolPolicy's on the CPU."""
+def route_check(label, run, delta, n_requests, archs):
+    """Every decision of a run equals the same PoolPolicy's on the CPU,
+    over the profile of ``archs``."""
     from repro_torch.core.policy import PoolPolicy, RouteRequest
-    from repro_torch.serving.pool import (DEFAULT_POOL, ServingPool,
-                                          synthetic_pool_table)
+    from repro_torch.serving.pool import ServingPool, synthetic_pool_table
     if len(run.decisions) != n_requests:
         fail(f"run ({label}) made {len(run.decisions)} routing decisions "
              f"for {n_requests} requests")
-    cpu = PoolPolicy(ServingPool(synthetic_pool_table(DEFAULT_POOL,
-                                                      device="cpu"),
+    cpu = PoolPolicy(ServingPool(synthetic_pool_table(archs, device="cpu"),
                                  delta=delta))
     want = [(d.backend, d.group) for d in cpu.decide_batch(
         [RouteRequest(uid=i, complexity=n)
@@ -2692,10 +2946,11 @@ def adapt_check(run, path):
 
 
 def serve_driver(device="cuda", extra=()):
-    """Phase 31: the serve driver's six runs on ``device`` (``extra``: more
-    flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run (e)
-    again with ``--device cpu --reduced``.  Returns the LLM kernels'
+    """Phase 31: the serve driver's seven runs on ``device`` (``extra``:
+    more flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run
+    (e) again with ``--device cpu --reduced``.  Returns the LLM kernels'
     launches summed over the runs."""
+    import itertools
     from repro_torch.serving.pool import DEFAULT_POOL
     t0 = time.perf_counter()
     out_dir = ROOT / "chiprun_out" / f"serve-{time.strftime('%H%M%S')}"
@@ -2704,6 +2959,11 @@ def serve_driver(device="cuda", extra=()):
     total, served = {}, set()
     for label, argv, archs in SERVE_RUNS:
         delta = float(argv[argv.index("--delta") + 1])
+        pool = DEFAULT_POOL   # the run's --archs, in order
+        if "--archs" in argv:
+            pool = tuple(itertools.takewhile(
+                lambda a: not a.startswith("--"),
+                argv[argv.index("--archs") + 1:]))
         if label == "b":
             argv = argv + ["--profile-out", str(out_dir / "profile.json")]
         run = serve_run(label, argv, device, extra, out_dir)
@@ -2722,15 +2982,17 @@ def serve_driver(device="cuda", extra=()):
             continue
         if label == "e":
             n, = run.done
-            route_check(label, run, delta, n)
+            route_check(label, run, delta, n, pool)
             cpu_run = serve_run("e cpu", argv, "cpu", ["--reduced"], out_dir)
             replay_close(run.replay, cpu_run.replay, "run (e) card / cpu")
             print(f"  run (e): {n} requests; window records and summary "
                   f"on {device} == on the cpu with --reduced (integers "
                   f"exactly, floats within {REPLAY_RTOL} relative)")
             continue
-        route_check(label, run, delta, 24)
-        if served_uids(run.lines) != list(range(24)):
+        n = (int(argv[argv.index("--requests") + 1])
+             if "--requests" in argv else 24)   # the driver's default
+        route_check(label, run, delta, n, pool)
+        if served_uids(run.lines) != list(range(n)):
             fail(f"run ({label}) served uids {served_uids(run.lines)}")
         if label.startswith("c"):
             counts, = run.shards
@@ -2743,13 +3005,15 @@ def serve_driver(device="cuda", extra=()):
             print(f"  run ({label}): every uid served once, shard counts "
                   f"{counts}; peak {gib(peak - before)} over the run's "
                   f"start for {gib(weights)} of weights, one set per arch")
-    if served != set(DEFAULT_POOL):
+    want = set(DEFAULT_POOL).union(*(archs for *_, archs in SERVE_RUNS))
+    if served != want:
         fail(f"the driver served {sorted(served)}, not all of "
-             f"{list(DEFAULT_POOL)}")
+             f"{sorted(want)}")
     if device == "cuda" and min(total.values()) < 1:
         fail(f"an LLM kernel was not launched by the driver: {total}")
     print(f"serve driver: all {len(DEFAULT_POOL)} models of the default "
-          f"pool served; LLM kernel launches over the runs {total}; device "
+          f"pool and {sorted(want - set(DEFAULT_POOL))} served; LLM kernel "
+          f"launches over the runs {total}; device "
           f"memory {gib(start)} before the phase, "
           f"{gib(device_memory(device))} after")
     phase("31 the serve driver at full width", t0)
@@ -3083,8 +3347,10 @@ def main() -> None:
     phase("7 timing", t0)
 
     attention_grids(dev)
+    # phases 10, 14 and 18 at half depth, for the time of phases 33-35:
+    # their models serve at full depth in phases 30 and 31
     llm_launches, backends = llm_service(LLM_ARCHS, 10.0, ROUTES,
-                                         "10 LLM service")
+                                         "10 LLM service", halved=True)
     llm_profile(backends, ROUTES)
     decode_splits_ab(backends)
     del backends
@@ -3093,8 +3359,6 @@ def main() -> None:
     attn_rows = attention_timing(dev)
 
     ssd_err = ssd_check(dev)
-    # at half depth (24 mamba2 layers, 18 qwen2.5-3b), for the time of
-    # phases 31-32: both serve at full depth in phases 30 and 31
     ssm_launches, backends = llm_service(SSM_ARCHS, SSM_DELTA, SSM_ROUTES,
                                          "14 LLM service with mamba2",
                                          halved=True)
@@ -3107,7 +3371,7 @@ def main() -> None:
     lru_err = lru_check(dev)
     hybrid_launches, backends = llm_service(
         HYBRID_ARCHS, 10.0, HYBRID_ROUTES,
-        "18 LLM service with recurrentgemma-2b")
+        "18 LLM service with recurrentgemma-2b", halved=True)
     # qwen2.5-3b's 8 x 256 batch was profiled after phase 10 (each profile
     # costs ~20-30 s of analysis)
     llm_profile(backends, {1024: "recurrentgemma-2b"})
@@ -3154,9 +3418,15 @@ def main() -> None:
     driver_launches = serve_driver()
     main_launches["canny_fused"] += examples_on_card(testbed, canny_ops,
                                                      canny_ref)
+
+    # 33-35 ---------------------------------- the rest of the dense family
+    llm_cuda_vs_cpu("gemma2-9b", 256, "33 gemma2-9b cuda vs cpu", new=9)
+    llm_cuda_vs_cpu("deepseek-7b", 256, "33 deepseek-7b cuda vs cpu", new=9)
+    ring_on_card(dev)
+    dense_launches = dense_service()
     served_launches = {k: sum(run[k] for run in (
         llm_launches, ssm_launches, hybrid_launches, pool_launches,
-        driver_launches)) for k in llm_launches}
+        driver_launches, dense_launches)) for k in llm_launches}
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -1,4 +1,10 @@
-"""Llama-3-8B [arXiv:2407.21783]: dense GQA kv=8, 128k vocab."""
+"""Llama-3-8B [arXiv:2407.21783]: dense GQA kv=8, 128k vocab.
+
+``llama3-8b-swa`` puts a 4096 sliding window on every layer: its cache is
+a ring of at most 4096 rows a layer, whatever the length.
+"""
+import dataclasses
+
 from repro_torch.models.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,3 +22,6 @@ CONFIG = ModelConfig(
     rope_theta=500_000.0,
     source="arXiv:2407.21783 (Llama 3 8B)",
 )
+
+SWA_VARIANT = dataclasses.replace(
+    CONFIG, name="llama3-8b-swa", block_layout=("local",), sliding_window=4096)

@@ -4,11 +4,17 @@ through the port's two kernels.
 Prefill runs the flash-attention kernel where the JAX package runs
 ``chunked_causal_attention``; decode runs the flash-decode kernel over the
 cache where it runs ``attention_decode_v2`` (the old cache merged with the
-new token: the same key set as the cache with the new token written at
-``pos`` and ``lengths = pos + 1``).  On CPU tensors both kernels' wrappers
-take their plain versions.  A ``"local"`` layer passes its window to both
-kernels, which mask the position-ordered cache rows to the last ``window``
-positions.  MLA, cross-attention and the sharded paths are not ported.
+new token: the same key set as the cache with the new token written
+first).  On CPU tensors both kernels' wrappers take their plain versions.
+Both kinds of layer take one path: a cache of T rows holds position p at
+slot p % T (``kvcache.py``).  Prefill runs flash over the prompt's own
+K/V, windowed for a ``"local"`` layer, then keeps the last min(S, T) of
+them; decode writes the new token at slot pos % T and attends the first
+min(pos + 1, T) rows with no window, each of them in the key set.  A
+global layer's T is max_seq, which its config never passes
+(``bounded_by_max_seq``), so its slot is its position and it never wraps;
+a ``"local"`` layer's T is its ring's R rows.  MLA, cross-attention and
+the sharded paths are not ported.
 """
 from __future__ import annotations
 
@@ -45,40 +51,49 @@ def _project(p, cfg: ModelConfig, x, positions):
     return q, k, v.view(b, s, kv, hd)
 
 
+def _fill_ring(cache, k, v) -> None:
+    """Write the last min(S, T) rows of the prompt's k, v [B,KV,S,hd] into
+    ``cache`` of T rows, position p at slot p % T (the JAX package's
+    ``_prefill_fill_attn``)."""
+    s, r = k.shape[2], cache.k.shape[2]
+    n = min(s, r)
+    start = (s - n) % r
+    head = min(n, r - start)
+    for ring, new in zip(cache, (k, v)):
+        ring[:, :, start:start + head].copy_(new[:, :, s - n:s - n + head])
+        ring[:, :, :n - head].copy_(new[:, :, s - n + head:])
+
+
 def attention_forward(p, cfg: ModelConfig, x, positions, *, window=None,
                       cache=None):
     """Full-sequence causal attention (forward / prefill), over the last
-    ``window`` positions when windowed.  x [B,S,d];
-    ``cache`` (optional) is this layer's (k, v) [B,KV,T,hd]: the prompt's
-    K/V are written into its rows [0, S) (the JAX package's
-    ``_prefill_fill_attn`` for a ring that does not wrap) and attended
-    from there."""
+    ``window`` positions when windowed.  x [B,S,d]; ``cache`` (optional)
+    is this layer's (k, v) [B,KV,T,hd], which keeps the last min(S, T) of
+    the prompt's K/V."""
     b, s, _ = x.shape
     q, k, v = _project(p, cfg, x, positions)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
-    if cache is not None:
-        ck, cv = cache
-        ck[:, :, :s].copy_(k)
-        cv[:, :, :s].copy_(v)
-        k, v = ck[:, :, :s], cv[:, :, :s]
     out = flash_ops.attention(q.transpose(1, 2), k, v, window=window,
                               softcap=cfg.attn_softcap)
+    if cache is not None:
+        _fill_ring(cache, k, v)
     return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, lengths, *,
-                     window=None):
-    """One-token decode.  x [B,1,d]; ``cache`` is this layer's (k, v)
-    [B,KV,T,hd], written in place at row ``pos``; ``lengths`` [B] int32
-    holds pos + 1, so every row attends to cache rows [0, pos] (the last
-    ``window`` of them when windowed)."""
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, positions,
+                     lengths):
+    """One-token decode.  x [B,1,d]; ``positions`` [B,1] holds pos (for
+    RoPE); ``cache`` is this layer's (k, v) [B,KV,T,hd], written in place
+    at slot pos % T.  ``lengths`` [B] int32 holds the rows every batch row
+    attends, min(pos + 1, T)."""
     b = x.shape[0]
-    q, k, v = _project(p, cfg, x, (lengths - 1)[:, None])
+    q, k, v = _project(p, cfg, x, positions)
     ck, cv = cache
-    ck[:, :, pos].copy_(k[:, 0])
-    cv[:, :, pos].copy_(v[:, 0])
-    # only the rows [0, pos]: the kernel sizes its splits from T
-    out = decode_ops.decode(q[:, 0], ck[:, :, :pos + 1], cv[:, :, :pos + 1],
-                            lengths, window=window,
-                            softcap=cfg.attn_softcap)
+    t = ck.shape[2]
+    ck[:, :, pos % t].copy_(k[:, 0])
+    cv[:, :, pos % t].copy_(v[:, 0])
+    rows = min(pos + 1, t)
+    # only the filled rows: the kernel sizes its splits from T
+    out = decode_ops.decode(q[:, 0], ck[:, :, :rows], cv[:, :, :rows],
+                            lengths, softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["wo"]

@@ -2,13 +2,15 @@
 of Mamba-2 and RG-LRU layers.
 
 Layout: ``AttnCache.k`` / ``.v`` are [layers, B, KV, T, hd] for the dense
-family, so that one layer's slice [B, KV, T, hd] is what the flash-decode
-kernel reads: for a (batch, KV head), the cache rows lie contiguously along
-T.  The JAX package keeps [n, B, W, KV, hd] with a ring buffer and a
-``pos_buf`` of the position held in each slot; for ``"attn"`` layers
-W == max_seq and the ring never wraps, so slot == position and the valid
-rows of every batch row are exactly [0, pos).  The port keeps no
-``pos_buf``: the decode kernel's ``lengths = pos + 1`` says the same.
+family's global layout, so that one layer's slice [B, KV, T, hd] is what
+the flash-decode kernel reads: for a (batch, KV head), the cache rows lie
+contiguously along T.  The JAX package keeps [n, B, W, KV, hd] with a ring
+buffer and a ``pos_buf`` of the position held in each slot; for ``"attn"``
+layers W == max_seq and the ring never wraps, so slot == position and the
+valid rows of every batch row are exactly [0, pos).  The port keeps no
+``pos_buf``: the decode kernel's ``lengths = pos + 1`` says the same, and
+a config with a global layer raises past max_seq
+(``bounded_by_max_seq``).
 
 The other layouts keep one entry per layer, in layer order, in a list
 (the JAX package stacks each block slot on a leading layer dim):
@@ -16,12 +18,20 @@ The other layouts keep one entry per layer, in layer order, in a list
 - ``"ssm"``: an ``SSMState``, ``ssm`` [B, H, P, N] in f32 and ``conv``
   [B, K-1, ch] in the activation dtype;
 - ``"rec"``: a ``RecState``, ``h`` [B, W] in f32 and ``conv`` [B, K-1, W];
-- ``"local"`` (sliding-window attention): an ``AttnCache`` of this layer's
-  K/V [B, KV, T, hd] with T = max_seq rows in position order.  The JAX
-  ring holds min(window, max_seq) rows and wraps; the kernels' ``window``
-  mask over the position-ordered rows reads exactly the ring's key set
-  (positions > pos - window) at every position, wrapped or not.  Only the
-  memory differs, and not at all up to max_seq = window.
+- ``"attn"``: an ``AttnCache`` of this layer's K/V [B, KV, max_seq, hd] in
+  position order, as above;
+- ``"local"`` (sliding-window attention): an ``AttnCache`` of this
+  layer's K/V [B, KV, R, hd], a ring: position p lives in slot p % R, and
+  the ring wraps without bound.  ``R = ring_rows(cfg, max_seq)`` is the
+  row count that holds exactly the JAX ring's key set once the new token
+  is written.  The JAX ring has W = min(window, max_seq) slots, and its
+  decode (``attention_decode_v2``) attends the old ring plus the new
+  token, masking the slot about to be overwritten (position pos - W) only
+  when it lies outside the window.  So it attends the last W positions
+  when W == window, and the last W + 1 when max_seq < window.  R = window
+  or max_seq + 1 rows, written at pos % R before the decode kernel reads
+  them, give that key set with every row valid, so the kernel reads the
+  ring's first min(pos + 1, R) rows with no window and no ``pos_buf``.
 
 The cache is written in place by ``prefill`` and ``decode_step``.
 """
@@ -41,14 +51,34 @@ class AttnCache(NamedTuple):
     v: torch.Tensor
 
 
+def ring_rows(cfg: ModelConfig, max_seq: int) -> int:
+    """Rows of a ``"local"`` layer's ring: the window, or max_seq + 1 when
+    max_seq is shorter (the JAX ring's key set, see the module
+    docstring)."""
+    window = cfg.sliding_window
+    return window if max_seq >= window else max_seq + 1
+
+
+def bounded_by_max_seq(cfg: ModelConfig) -> bool:
+    """True if ``cfg`` has a global ``"attn"`` layer, whose cache holds
+    max_seq positions in order: such a config takes at most max_seq
+    positions.  A ``"local"`` ring, an SSM or an RG-LRU state takes any
+    length, as in the JAX package."""
+    return "attn" in cfg.layer_kinds
+
+
 def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
                device) -> Dict[str, Any]:
     """Zeroed cache for ``decode_step``; ``pos`` (a Python int) counts the
     tokens so far.  ``max_seq`` sizes the attention caches only."""
-    kv_shape = (bsz, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    def kv(rows):
+        shape = (bsz, cfg.num_kv_heads, rows, cfg.head_dim)
+        return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device))
+
     if cfg.block_layout == ("attn",):
-        shape = (cfg.n_blocks,) + kv_shape
-        return {"pos": 0, "blocks": {"s0": AttnCache(
+        shape = (cfg.n_blocks, bsz, cfg.num_kv_heads, max_seq, cfg.head_dim)
+        return {"pos": 0, "max_seq": max_seq, "blocks": {"s0": AttnCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device))}}
 
@@ -57,7 +87,7 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
             return ssm_init_state(cfg, bsz, dtype, device)
         if kind == "rec":
             return rec_init_state(cfg, bsz, dtype, device)
-        return AttnCache(k=torch.zeros(kv_shape, dtype=dtype, device=device),
-                         v=torch.zeros(kv_shape, dtype=dtype, device=device))
+        return kv(max_seq if kind == "attn" else ring_rows(cfg, max_seq))
 
-    return {"pos": 0, "blocks": {"s0": [entry(k) for k in cfg.layer_kinds]}}
+    return {"pos": 0, "max_seq": max_seq,
+            "blocks": {"s0": [entry(k) for k in cfg.layer_kinds]}}

@@ -1,21 +1,25 @@
 """Model assembly of the dense, moe, ssm and hybrid families: init /
 forward / prefill / decode.
 
-A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU MLP] ->
-final norm -> tied unembedding; a moe model (Granite MoE) the same with
-top-k routed SwiGLU experts in place of the MLP (``models/moe.py``); an ssm
-model (Mamba-2) is embed -> N x [pre-norm Mamba-2 block] -> final norm ->
-tied unembedding, with no MLP; a hybrid model (RecurrentGemma) is
-gemma-scaled embed -> 8 x [rec, rec, local] + [rec, rec] sub-layers, each
-[pre-norm mixer][pre-norm GeGLU MLP] (the mixer an RG-LRU block or
-sliding-window attention) -> final norm -> tied unembedding.  Where the JAX package scans over layer parameters
+A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU or
+GeGLU MLP] -> final norm -> tied unembedding, its attention layers global
+(``"attn"``), sliding-window (``"local"``) or alternating (gemma2: local,
+global), optionally with gemma-scaled embeddings, post-norms after the
+mixer and the MLP (``norm1b``, ``norm2b``) and logit softcaps; a moe
+model (Granite MoE) the same with top-k routed SwiGLU experts in place of
+the MLP (``models/moe.py``); an ssm model (Mamba-2) is embed -> N x
+[pre-norm Mamba-2 block] -> final norm -> tied unembedding, with no MLP;
+a hybrid model (RecurrentGemma) is gemma-scaled embed -> 8 x [rec, rec,
+local] + [rec, rec] sub-layers, each [pre-norm mixer][pre-norm GeGLU MLP]
+(the mixer an RG-LRU block or sliding-window attention) -> final norm ->
+tied unembedding.  Where the JAX package scans over layer parameters
 stacked on a leading n_blocks dim per block slot, the port loops over a
 list: ``params["blocks"]["s0"]`` holds one dict per layer in layer order
 (``cfg.layer_kinds``) with the JAX names (``norm1``,
 ``attn.{wq,wk,wv,wo[,bq,bk,bv]}`` or ``rec.{w_gate,w_x,conv_w,conv_b,
-lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, ``norm2``,
+lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, [``norm1b``,] ``norm2``,
 ``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,w_gate,w_up,w_down[,
-shared]}``; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
+shared]}``[, ``norm2b``]; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
 dt_bias,A_log,D,norm_w,out_proj}``); ``params_from_jax`` unstacks a JAX
 parameter tree into that form, the hybrid's block slots interleaved.
 Matrices, biases and the convs are kept in the activation dtype (cast once
@@ -23,11 +27,14 @@ at load); norm weights, the Mamba-2 per-head scalars, the RG-LRU gate
 parameters and the MoE router stay in f32.
 
 The other families (encdec, vlm) and the variants with MLA, experts
-outside the moe family, post-norms or other layouts raise ``ValueError``.
+outside the moe family, prefix embeddings, positions without RoPE or other
+layouts raise ``ValueError``.  A config with a global ``"attn"`` layer
+raises past ``max_seq`` (its cache holds positions in order); a ``"local"``
+layer's ring takes any length, as in the JAX package (``kvcache.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -36,20 +43,28 @@ from repro_torch.device import resolve_device
 
 from .attention import attention_decode, attention_forward, init_attention
 from .base import ModelConfig
-from .kvcache import AttnCache, init_cache
+from .kvcache import AttnCache, bounded_by_max_seq, init_cache
 from .layers import (apply_mlp, embed, init_embedding, init_mlp, rms_norm,
                      unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
-#: family -> (block layout, trailing layout, MLP, scaled embeddings) the
-#: port runs
-_PORTED = {"dense": (("attn",), (), "swiglu", False),
-           "moe": (("attn",), (), "swiglu", False),
-           "ssm": (("ssm",), (), "swiglu", False),
-           "hybrid": (("rec", "rec", "local"), ("rec", "rec"), "geglu",
-                      True)}
+class _Family(NamedTuple):
+    """What the port runs of a family."""
+    layouts: tuple      # (block layout, trailing layout) pairs
+    mlps: tuple
+    scaled: bool        # gemma-scaled embeddings
+    post_norm: bool
+
+
+_PORTED = {
+    "dense": _Family(((("attn",), ()), (("local", "attn"), ()),
+                      (("local",), ())), ("swiglu", "geglu"), True, True),
+    "moe": _Family(((("attn",), ()),), ("swiglu",), False, False),
+    "ssm": _Family(((("ssm",), ()),), ("swiglu",), False, False),
+    "hybrid": _Family(((("rec", "rec", "local"), ("rec", "rec")),),
+                      ("geglu",), True, False)}
 #: the Mamba-2 parameters kept in f32 (the rest take the activation dtype)
 _SSM_F32 = ("dt_bias", "A_log", "D", "norm_w")
 #: the RG-LRU parameters kept in f32: the gates read them in f32
@@ -60,17 +75,16 @@ _F32 = {"ssm": _SSM_F32, "rec": _REC_F32, "moe": ("router",)}
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` naming what of ``cfg`` the port does not run."""
-    layout, trailing, mlp, scaled = _PORTED.get(cfg.family,
-                                                (None, None, None, None))
+    fam = _PORTED.get(cfg.family, _Family((), (), False, False))
     unported = [what for what, bad in (
-        (f"family {cfg.family!r}", layout is None),
+        (f"family {cfg.family!r}", cfg.family not in _PORTED),
         (f"layout {cfg.block_layout}+{cfg.trailing_layout}",
-         (cfg.block_layout, cfg.trailing_layout) != (layout, trailing)),
-        (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant != mlp),
+         (cfg.block_layout, cfg.trailing_layout) not in fam.layouts),
+        (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant not in fam.mlps),
         ("MLA", cfg.use_mla),
         ("experts", bool(cfg.num_experts) and cfg.family != "moe"),
-        ("post-norms", cfg.post_norm),
-        ("scaled embeddings", cfg.embed_scale and not scaled),
+        ("post-norms", cfg.post_norm and not fam.post_norm),
+        ("scaled embeddings", cfg.embed_scale and not fam.scaled),
         ("positions without RoPE", not cfg.use_rope),
         ("prefix embeddings", bool(cfg.num_prefix_embeds))) if bad]
     if unported:
@@ -95,7 +109,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                  {"attn": init_attention(gen, cfg, adt, dev)})
         mlp = ({"moe": init_moe(gen, cfg, adt, dev)} if cfg.num_experts else
                {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt, dev)})
-        return {"norm1": norm(), **mixer, "norm2": norm(), **mlp}
+        post = {"norm1b": norm(), "norm2b": norm()} if cfg.post_norm else {}
+        return {"norm1": norm(), **mixer, "norm2": norm(), **mlp, **post}
 
     return {
         "embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
@@ -143,11 +158,27 @@ def _window(cfg: ModelConfig, kind: str):
     return cfg.sliding_window if kind == "local" else None
 
 
-def _mlp_residual(p, cfg: ModelConfig, x):
+def _post_norm(p, cfg: ModelConfig, name, h):
+    """A sub-layer's output through its post-norm (``norm1b`` after the
+    mixer, ``norm2b`` after the MLP) where the config has them."""
+    if not cfg.post_norm:
+        return h
+    return rms_norm(h, p[name], cfg.norm_eps, plus_one=True)
+
+
+def _residuals(p, cfg: ModelConfig, kind, x, o):
+    """The residual stream after a layer whose mixer gave ``o``: a Mamba-2
+    block adds it; every other layer adds it (post-normed) and then its
+    pre-norm MLP or MoE (post-normed)."""
+    if kind == "ssm":
+        return x + o
+    x = x + _post_norm(p, cfg, "norm1b", o)
     h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
     if "moe" in p:
-        return x + apply_moe(p["moe"], cfg, h)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+        h = apply_moe(p["moe"], cfg, h)
+    else:
+        h = apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    return x + _post_norm(p, cfg, "norm2b", h)
 
 
 def _entry(c, i):
@@ -163,15 +194,16 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None):
     """The hidden states [B,S,d] after every layer; with ``cache``, each
-    attention layer's K/V land in its rows [0, S) and each Mamba-2 or RG-LRU
-    layer's state after the prompt replaces its entry."""
+    global attention layer's K/V land in its rows [0, S), each local
+    layer's ring keeps the last of them, and each Mamba-2 or RG-LRU layer's
+    state after the prompt replaces its entry."""
     check_config(cfg)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
                                       params["blocks"]["s0"])):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
         if kind in ("ssm", "rec"):
             fwd = ssm_forward if kind == "ssm" else rec_forward
             if cache is None:
@@ -183,8 +215,8 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None):
                                   window=_window(cfg, kind),
                                   cache=None if cache is None
                                   else _entry(cache, i))
-        x = x + o if kind == "ssm" else _mlp_residual(p, cfg, x + o)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = _residuals(p, cfg, kind, x, o)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
 def forward(params, cfg: ModelConfig, tokens):
@@ -193,20 +225,17 @@ def forward(params, cfg: ModelConfig, tokens):
                    cap=cfg.final_softcap)
 
 
-def _has_kv(cfg: ModelConfig) -> bool:
-    return bool({"attn", "local"} & set(cfg.layer_kinds))
-
-
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
     """Run the prompt: (last-position logits [B, 1, V], cache holding the
     prompt's K/V and recurrent states for ``decode_step``).  ``max_seq``
-    sizes the attention caches; an ssm config has none and takes any
-    prompt."""
+    sizes the attention caches (a local layer's ring, ``kvcache.py``); a
+    config without a global ``"attn"`` layer takes any prompt."""
     b, s = tokens.shape
     max_seq = max_seq or s
-    if _has_kv(cfg) and s > max_seq:
+    if bounded_by_max_seq(cfg) and s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit max_seq="
-                         f"{max_seq} (the wrapping ring is not ported)")
+                         f"{max_seq} (the global layers' wrapping ring is "
+                         "not ported)")
     cache = init_cache(cfg, b, max_seq, cfg.adtype,
                        params["embed"]["table"].device)
     x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"])
@@ -216,30 +245,34 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
 
 def decode_step(params, cfg: ModelConfig, token, cache):
     """One decode step.  token [B, 1] int -> (logits [B, 1, V], cache).
-    The cache is updated in place (the new K/V row at ``pos``, each
-    recurrent layer's new state, then ``pos + 1``) and returned."""
+    The cache is updated in place (the new K/V row at ``pos``, or at slot
+    pos % R of a local layer's ring, each recurrent layer's new state,
+    then ``pos + 1``) and returned."""
     check_config(cfg)
     pos, c = cache["pos"], cache["blocks"]["s0"]
     x = _embed(params, cfg, token)
-    lengths = None
-    if _has_kv(cfg):
-        rows = next(_entry(c, i).k.shape[2] for i, kind in
-                    enumerate(cfg.layer_kinds) if kind in ("attn", "local"))
-        if pos >= rows:
-            raise ValueError(f"the cache holds {rows} positions and is "
-                             "full (the wrapping ring is not ported)")
-        lengths = torch.full((x.shape[0],), pos + 1, dtype=torch.int32,
+    b = x.shape[0]
+    if bounded_by_max_seq(cfg) and pos >= cache["max_seq"]:
+        raise ValueError(f"the cache holds {cache['max_seq']} positions and "
+                         "is full (the global layers' wrapping ring is not "
+                         "ported)")
+    entries = [_entry(c, i) if kind in ("attn", "local") else None
+               for i, kind in enumerate(cfg.layer_kinds)]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    # the rows each cache size attends: min(pos + 1, T)
+    lengths = {n: torch.full((b,), min(pos + 1, n), dtype=torch.int32,
                              device=x.device)
+               for n in {e.k.shape[2] for e in entries if e is not None}}
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
                                       params["blocks"]["s0"])):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
         if kind in ("ssm", "rec"):
             step = ssm_decode_step if kind == "ssm" else rec_decode_step
             o, c[i] = step(p[kind], cfg, h, c[i])
         else:
-            o = attention_decode(p["attn"], cfg, h, _entry(c, i), pos,
-                                 lengths, window=_window(cfg, kind))
-        x = x + o if kind == "ssm" else _mlp_residual(p, cfg, x + o)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            o = attention_decode(p["attn"], cfg, h, entries[i], pos,
+                                 positions, lengths[entries[i].k.shape[2]])
+        x = _residuals(p, cfg, kind, x, o)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
     cache["pos"] += 1
     return unembed(params["embed"], x, cap=cfg.final_softcap), cache

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_params, prefill
+from repro_torch.models.kvcache import bounded_by_max_seq
 
 
 @dataclasses.dataclass
@@ -72,17 +73,17 @@ class Backend:
         and the first generated token comes from the batch-wide last
         position (prefill only returns last-position logits), so mixed
         lengths corrupt the shorter requests' outputs — ``DispatchQueue``
-        groups by length automatically.  With attention layers, global
-        (``"attn"``) or sliding-window (``"local"``), the prompt and the
-        generated tokens must fit ``max_seq`` (the attention cache, kept in
-        position order); an ssm config keeps a fixed-size state and takes
-        any length, as in the JAX package."""
+        groups by length automatically.  With a global attention layer
+        (``"attn"``) the prompt and the generated tokens must fit
+        ``max_seq`` (that layer's cache, kept in position order); a
+        sliding-window layer's ring (``max_seq`` sizes it), an ssm or an
+        RG-LRU state takes any length, as in the JAX package."""
         if not requests:
             raise ValueError("serve_batch needs at least one request")
         b = len(requests)
         max_prompt = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
-        if {"attn", "local"} & set(self.cfg.layer_kinds) and \
+        if bounded_by_max_seq(self.cfg) and \
                 max_prompt + max(max_new, 1) - 1 > self.max_seq:
             raise ValueError(
                 f"{max_prompt} prompt + {max_new} new tokens do not fit "

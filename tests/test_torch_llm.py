@@ -113,8 +113,9 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_unported_configs_raise():
-    assert sorted(list_configs()) == sorted(POOL5)
-    for name in ("gemma2-9b", "llama3-8b-swa", "deepseek-7b"):
+    assert sorted(list_configs()) == sorted(POOL5 + ("deepseek-7b",
+                                                     "gemma2-9b"))
+    for name in ("deepseek-v2-lite-16b", "whisper-small", "llava-next-34b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     cfg = get_config("llama3-8b").reduced(num_layers=2)
@@ -125,7 +126,7 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="ssm"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
-        init_params(dataclasses.replace(cfg, block_layout=("local",),
+        init_params(dataclasses.replace(cfg, block_layout=("attn", "local"),
                                         sliding_window=16), device="cpu")
 
 
@@ -227,10 +228,10 @@ def test_mamba_params_from_jax_keep_the_scalars_in_f32():
 @pytest.mark.parametrize("activ_dtype", ["float32", "bfloat16"])
 def test_hybrid_matches_jax(activ_dtype):
     """recurrentgemma-2b reduced (window 16): forward, then prefill of a
-    24-token prompt and 16 decode steps at max_seq 48, which take the JAX
-    local ring (16 slots) past its wrap, tokens equal in f32.  The
-    recurrent states equal the JAX cache's, and the position-ordered local
-    K/V hold the ring's rows at the positions its ``pos_buf`` names."""
+    24-token prompt and 16 decode steps at max_seq 48, which take the
+    local ring (16 slots: the window) past its wrap, tokens equal in f32.
+    The recurrent states equal the JAX cache's, and the port's ring holds
+    the JAX ring's rows slot for slot (position p at slot p % 16)."""
     jc, tc = _configs(RG, activ_dtype)
     jp, tp = _params(jc, tc)
     atol, rtol = _tol(activ_dtype)
@@ -265,12 +266,12 @@ def test_hybrid_matches_jax(activ_dtype):
             close(entry.conv, js.conv[0])
             continue
         pos_buf = np.asarray(js.pos_buf[0])
-        assert entry.k.shape == (2, tc.num_kv_heads, 48, tc.head_dim)
+        assert entry.k.shape == (2, tc.num_kv_heads, 16, tc.head_dim)
         assert sorted(pos_buf) == list(range(24, 40))  # wrapped
+        np.testing.assert_array_equal(pos_buf % 16, np.arange(16))
         for name in ("k", "v"):
             ring = np.asarray(getattr(js, name)[0], np.float32)
-            close(getattr(entry, name)[:, :, pos_buf],
-                  ring.transpose(0, 2, 1, 3))
+            close(getattr(entry, name), ring.transpose(0, 2, 1, 3))
 
 
 def test_hybrid_params_from_jax_interleave_the_block_slots():
@@ -343,7 +344,8 @@ def test_check_config_accepts_the_hybrid_family():
 @pytest.mark.parametrize("arch,what", [
     ("deepseek-v2-lite-16b", "MLA"),
     ("whisper-small", "family 'encdec'"), ("llava-next-34b", "family 'vlm'"),
-    ("gemma2-9b", "post-norms"), ("llama3-8b-swa", "layout")])
+    ("llava-next-34b", "prefix embeddings"),
+    ("whisper-small", "positions without RoPE")])
 def test_check_config_rejects_what_is_not_ported(arch, what):
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
     with pytest.raises(ValueError, match=what):
@@ -435,20 +437,24 @@ def test_serve_batch_rejects_what_does_not_fit():
 
 
 def test_hybrid_serve_batch_checks_max_seq_for_local_layers():
-    """The local layers' cache holds max_seq rows in position order: a
-    prompt and new tokens past it raise, in the engine and in the model."""
-    _, tb = _backends(RG, max_seq=16)
-    with pytest.raises(ValueError, match="max_seq=16"):
-        tb.serve_batch([Request(uid=0, prompt=np.arange(12),
-                                max_new_tokens=6)])
-    with pytest.raises(ValueError, match="max_seq=8"):
-        prefill(tb.params, tb.cfg, torch.zeros((1, 9), dtype=torch.long),
-                max_seq=8)
+    """max_seq sizes the local layers' ring (the window, 16 rows, at
+    max_seq 16; max_seq + 1 = 9 rows at max_seq 8) and bounds nothing: a
+    prompt and new tokens past it serve as the JAX backend's do, and the
+    model prefills and decodes past it."""
+    jb, tb = _backends(RG, max_seq=16)
+    prompt = np.random.default_rng(3).integers(0, 1000, 12)
+    want = jb.serve_batch([JaxRequest(uid=0, prompt=prompt,
+                                      max_new_tokens=6)])
+    got = tb.serve_batch([Request(uid=0, prompt=prompt, max_new_tokens=6)])
+    np.testing.assert_array_equal(got[0].tokens, np.asarray(want[0].tokens))
     _, cache = prefill(tb.params, tb.cfg,
-                       torch.zeros((1, 8), dtype=torch.long), max_seq=8)
-    with pytest.raises(ValueError, match="full"):
-        decode_step(tb.params, tb.cfg, torch.zeros((1, 1), dtype=torch.long),
-                    cache)
+                       torch.zeros((1, 9), dtype=torch.long), max_seq=8)
+    _, cache = decode_step(tb.params, tb.cfg,
+                           torch.zeros((1, 1), dtype=torch.long), cache)
+    assert cache["pos"] == 10
+    assert [e.k.shape[2] for kind, e in zip(tb.cfg.layer_kinds,
+                                            cache["blocks"]["s0"])
+            if kind == "local"] == [9]
 
 
 def test_mamba_backend_takes_prompts_longer_than_max_seq_as_jax_does():
