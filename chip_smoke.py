@@ -36,8 +36,9 @@ Phases, each printed as it ends; any failure exits non-zero:
    and phases 33-35's prefills with their own options: gemma2-9b's (1,
    16, 8, 6144, 256) with softcap 50, windowed 4096 and not, deepseek-7b's
    (8, 32, 32, 1024, 128), llama3-8b-swa's (1, 32, 8, 12288, 128) with
-   window 4096 (the plain version one KV head's group at a time where its
-   scores would pass 4 GiB);
+   window 4096, and phase 40's llava-next-34b (4, 56, 8, 3904, 128) over
+   its prefix and text (the plain version one KV head's group at a time
+   where its scores would pass 4 GiB);
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
    D = 256, granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase 30's
@@ -45,7 +46,8 @@ Phases, each printed as it ends; any failure exits non-zero:
    serve driver's caches (32 and 48 prompt rows plus 8), and phases
    33-35's: gemma2-9b's (2, 16, 8) at D = 256 over its 4096-row ring and
    6160 global rows with softcap 50, deepseek-7b's (8, 32, 32) at D = 128
-   over 1040 rows, llama3-8b-swa's (1, 32, 8) over its 4096-row ring;
+   over 1040 rows, llama3-8b-swa's (1, 32, 8) over its 4096-row ring, and
+   llava-next-34b's (4, 56, 8), G = 7, over 3920 rows;
 10. the LLM face's main path at full published width and half depth
     (both serve at full depth in phase 31): ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
@@ -63,12 +65,14 @@ Phases, each printed as it ends; any failure exits non-zero:
     gemma2-9b's (2, 16, 8, 6144, 256) local layers and its decode over the
     ring and the global rows, where the library has no softcap,
     deepseek-7b's, llama3-8b-swa's at 12288 tokens under window 4096, its
-    flash bound reckoned from the windowed keys), flash's achieved
-    TFLOP/s beside the library's, flash's device time at llama3-8b's and
-    deepseek-7b's shapes with K/V laid out as the model's prefill passes
-    them (views of [B, S, KV, D]), the decode kernel's split sizing (its
-    blocks against the SMs) against one piece and against splits sized from the whole cache,
-    the decode wrapper's and the library's host microseconds a call (200
+    flash bound reckoned from the windowed keys, and phase 40's
+    llava-next-34b (4, 56, 8, 3904, 128) and its decode over 3920 rows),
+    flash's achieved TFLOP/s beside the library's, flash's device time at
+    llama3-8b's, deepseek-7b's and llava-next-34b's shapes with K/V laid
+    out as the model's prefill passes them (views of [B, S, KV, D]), the
+    decode kernel's split sizing (its blocks against the SMs) against one
+    piece and against splits sized from the whole cache, the decode
+    wrapper's and the library's host microseconds a call (200
     back-to-back calls without a sync) and the library's device time
     beside its call time, and both kernels against their plain versions
     computed in f32 (within the bf16 rounding of the output, 2^-8
@@ -88,8 +92,7 @@ Phases, each printed as it ends; any failure exits non-zero:
     depth in phases 30 and 31), 8 requests of 500 tokens (to mamba2-370m)
     and 8 of 1024 (to qwen2.5-3b), 16 new tokens each, with all three LLM
     kernels' launch counts set to 0 just before and read just after (one
-    SSD launch per layer per mamba2 batch); then, outside that run, where
-    each backend's device time goes (profiler);
+    SSD launch per layer per mamba2 batch);
 15. a two-layer mamba2-370m at full width in f32 on the GPU and on the
     CPU, same parameters, a 500-token prompt: logits within 1e-3 and equal
     tokens;
@@ -198,11 +201,12 @@ Phases, each printed as it ends; any failure exits non-zero:
     mamba2-370m), 16 new tokens each, every LLM kernel's launch count set
     to 0 just before and read just after (24 flash launches per granite
     batch, 24 decode launches per step); then granite's serve_batch under
-    the profiler (its MoE layers' share of the device time) and the host
-    syncs of one of its decode steps;
+    the profiler (its MoE layers' share of the device time), the host
+    syncs of one of its decode steps and its prefill with every MoE layer
+    on each form in turns;
 31. the serve driver, ``repro_torch.launch.serve.main(argv)`` with
     ``--device cuda`` at full published width (prompts capped at 48, 8
-    new tokens), seven runs, every LLM kernel's launch count set to 0 just
+    new tokens), eight runs, every LLM kernel's launch count set to 0 just
     before each and read just after, device memory printed before and
     after each: (a) 24 requests at δ = 5 (llama3-8b, recurrentgemma-2b);
     (b) ``--adapt --profile-out`` at δ = 23, 48 requests in batches of up
@@ -218,11 +222,13 @@ Phases, each printed as it ends; any failure exits non-zero:
     with ``--device cpu --reduced`` (integers exactly, floats within 1e-12
     relative), the card's measured lines beside them; (f) ``--archs
     deepseek-7b gemma2-9b-swa --requests 16`` at δ = 5 (bucket 4 to
-    gemma2-9b-swa, the rest to deepseek-7b).  In (a) and (c)-(f) every
-    decision equals the same policy's on the CPU; the runs serve all five
-    models of the default pool and both of (f), launch all four LLM
-    kernels, and leave device memory within 1 GiB of its level before the
-    phase;
+    gemma2-9b-swa, the rest to deepseek-7b); (g) ``--archs
+    deepseek-v2-lite-16b llama3-8b --requests 16`` at δ = 12.4 (bucket 0
+    to deepseek-v2-lite-16b, the rest to llama3-8b).  In (a) and (c)-(g)
+    every decision equals the same policy's on the CPU; the runs serve all
+    five models of the default pool and both of (f) and of (g), launch all
+    four LLM kernels, and leave device memory within 1 GiB of its level
+    before the phase;
 32. the examples through their ``main(argv)`` on the card: ``quickstart``
     and ``video_stream`` over phase 26's testbed (its checkpoints and
     profile), every histogram summing to its scenes, the ED rows' Canny
@@ -249,12 +255,40 @@ Phases, each printed as it ends; any failure exits non-zero:
     (complexity 40 000; a prompt three times its rings), 16 new tokens
     each, every LLM kernel's launch count set to 0 just before and read
     just after; then llama3-8b-swa's cache bytes beside a position-ordered
-    cache's.
+    cache's;
+36. deepseek-v2-lite-16b (MLA, 64 experts top-6) cut to two layers at
+    full width in f32 on the GPU and on the CPU, same parameters, 2 x 256
+    tokens and 8 decode steps: logits within 1e-3 and equal tokens (MLA
+    and the MoE run in plain PyTorch: no kernel launch);
+37. one MoE layer at full width in bf16, deepseek-v2-lite-16b's at T =
+    8192, 8, 256 and 512 and granite-moe-1b-a400m's at 2048, 8 and 8192:
+    the every-expert
+    form against the sorted form (grouped products, no host read), times,
+    the form ``moe_ragged`` takes, both within 2^-6 of the f32 layer;
+38. deepseek-v2-lite-16b at full depth (~30 GiB of bf16 weights) beside
+    llama3-8b in one service at δ = 12.4: 8 x 1024 tokens to each
+    (complexities 512 and 1024), 16 new tokens, routes equal to the CPU
+    policy's, launches counted (llama3-8b's only), the peak device memory,
+    the host syncs of one deepseek-v2-lite decode step, its prefill with
+    every MoE layer on each form in turns, device memory back within 1 GiB
+    after;
+39. llava-next-34b cut to two layers at full width in f32 on the GPU and
+    on the CPU, same parameters, one prompt of 2880 prefix embeddings
+    (``modality_inputs``, seeded) and 32 tokens, 4 decode steps: logits
+    within 1e-3, equal tokens, flash and decode launches counted;
+40. llava-next-34b at full depth (~63 GiB of bf16 weights) beside
+    mamba2-370m in one service at δ = 20: 4 x 1024 text tokens to llava
+    (complexity 1024), each behind its 2880 prefix embeddings (max_seq
+    3920), 8 x 512 to mamba2-370m (complexity 512), 16 new tokens, routes
+    equal to the CPU policy's, 60 flash and 60 x 15 decode launches for
+    llava's batch, the peak device memory under the card's, device memory
+    back within 1 GiB after.
 
-Phases 10, 14, 18, 30 and 35 also hold every route to the same policy's
-decision on the CPU.  It then prints one JSON line with every kernel (the
-LLM kernels' launches summed over the services of phases 10, 14, 18, 30,
-31 and 35), the card line, and last ``{"ok": true, "device": {...}}``.
+Phases 10, 14, 18, 30, 35, 38 and 40 also hold every route to the same
+policy's decision on the CPU.  It then prints one JSON line with every
+kernel (the LLM kernels' launches summed over the services of phases 10,
+14, 18, 30, 31, 35, 38 and 40), the card line, and last ``{"ok": true,
+"device": {...}}``.
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -330,18 +364,39 @@ DENSE_BATCHES = {512: (1024, 8), 6144: (6144, 2), 40_000: (12_288, 1)}
 DENSE_MAX_SEQ = {"deepseek-7b": 1040, "gemma2-9b": 6160,
                  "llama3-8b-swa": 4096}
 #: (B, H, KV, S, D) and the options of the flash kernel on phases 33-35's
-#: path (gemma2-9b's local and global layers, deepseek-7b, llama3-8b-swa),
-#: then the decode kernel's over their caches: gemma2-9b's ring of 4096
-#: rows (no window: every ring row is in the key set) and its global rows,
-#: deepseek-7b's, llama3-8b-swa's ring
+#: and 40's path (gemma2-9b's local and global layers, deepseek-7b,
+#: llama3-8b-swa, llava-next-34b's prefix and text), then the decode
+#: kernel's over their caches: gemma2-9b's ring of 4096 rows (no window:
+#: every ring row is in the key set) and its global rows, deepseek-7b's,
+#: llama3-8b-swa's ring, llava-next-34b's (56 heads over 8 KV heads: G = 7)
 DENSE_FLASH = (((1, 16, 8, 6144, 256), {"window": 4096, "softcap": 50.0}),
                ((1, 16, 8, 6144, 256), {"softcap": 50.0}),
                ((8, 32, 32, 1024, 128), {}),
-               ((1, 32, 8, 12_288, 128), {"window": 4096}))
+               ((1, 32, 8, 12_288, 128), {"window": 4096}),
+               ((4, 56, 8, 2880 + 1024, 128), {}))
 DENSE_DECODE = (((2, 16, 8, 4096, 256), {"softcap": 50.0}),
                 ((2, 16, 8, 6160, 256), {"softcap": 50.0}),
                 ((8, 32, 32, 1040, 128), {}),
-                ((1, 32, 8, 4096, 128), {}))
+                ((1, 32, 8, 4096, 128), {}),
+                ((4, 56, 8, 3920, 128), {}))
+#: phase 38: deepseek-v2-lite-16b (MLA, 64 experts top-6) beside
+#: llama3-8b at δ = 12.4.  deepseek-v2-lite's capability is 60.05 in
+#: buckets 0-3; bucket 0 is capped at 72.0, so it is within δ there and the
+#: cheaper; in bucket 1 llama3-8b's 72.86 is not within δ of it.  Each
+#: complexity -> (prompt tokens, batch), as phase 35 splits them
+DSV2 = "deepseek-v2-lite-16b"
+MLA_ARCHS, MLA_DELTA = (DSV2, "llama3-8b"), 12.4
+MLA_ROUTES = {512: DSV2, 1024: "llama3-8b"}
+MLA_BATCHES = {512: (1024, 8), 1024: (1024, 8)}
+#: phase 40: llava-next-34b beside mamba2-370m at δ = 20: mamba2-370m's
+#: 54.03 is within δ of bucket 0's capped 72.0, not of llava's 78.0 in
+#: bucket 1.  llava takes 4 x 1024 text tokens, each behind its 2880 prefix
+#: embeddings, and a cache of 2880 + 1024 + 16 rows
+LLAVA = "llava-next-34b"
+VLM_ARCHS, VLM_DELTA = (LLAVA, "mamba2-370m"), 20.0
+VLM_ROUTES = {512: "mamba2-370m", 1024: LLAVA}
+VLM_BATCHES = {512: (512, 8), 1024: (1024, 4)}
+VLM_MAX_SEQ = 2880 + 1024 + 16
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -758,7 +813,7 @@ def llm_service(archs, delta, routes, name, build_all=False, halved=False,
     # (global or local) and one decode launch per attention layer per step,
     # one SSD launch per Mamba-2 layer, one RG-LRU launch per recurrent layer
     expect = kernel_launches([k for a in routes.values()
-                              for k in backends[a].cfg.layer_kinds],
+                              for k in launch_kinds(backends[a].cfg)],
                              MAX_NEW - 1)
     if launches != expect:
         fail(f"the service's kernel launches {launches} are not one flash "
@@ -787,6 +842,13 @@ def llm_kernel_ops():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fl_ops, "decode_attention": dec_ops,
             "ssd_scan": ssd_ops, "rglru_scan": lru_ops}
+
+
+def launch_kinds(cfg):
+    """The layer kinds of ``cfg`` as the kernels see them: an MLA layer
+    (plain PyTorch, no kernel) is ``"mla"``, not ``"attn"``."""
+    return ["mla" if kind == "attn" and cfg.use_mla else kind
+            for kind in cfg.layer_kinds]
 
 
 def kernel_launches(kinds, steps):
@@ -900,6 +962,36 @@ def decode_syncs(backend, prompt_len) -> None:
           f"{dict(by_line)}")
 
 
+def moe_form_ab(backend, prompt_len) -> None:
+    """The prefill of one ``serve_batch`` of 8 prompts of ``prompt_len``
+    tokens with every MoE layer on the sorted form and with every one on
+    the every-expert form, in turns (sorted, every, every, sorted; outside
+    the counted run): which form serves the model's prefill faster end to
+    end, host included."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(47)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, prompt_len),
+                    max_new_tokens=2) for i in range(MAX_BATCH)]
+    default = moe.SORTED_MIN_MACS
+    ms = {"sorted": [], "every": []}
+    backend.serve_batch(reqs)   # warm-up
+    try:
+        for form in ("sorted", "every", "every", "sorted"):
+            moe.SORTED_MIN_MACS = 0.0 if form == "sorted" else float("inf")
+            ms[form].append(backend.serve_batch(reqs)[0].prefill_s * 1e3)
+    finally:
+        moe.SORTED_MIN_MACS = default
+    cfg = backend.cfg
+    macs = MAX_BATCH * prompt_len * cfg.num_experts * cfg.d_model \
+        * cfg.moe_d_ff
+    print(f"{backend.name} prefill of {MAX_BATCH} x {prompt_len} tokens, "
+          f"every MoE layer on one form: sorted {ms['sorted']} ms, "
+          f"every-expert {ms['every']} ms (by size, moe_ragged takes the "
+          f"{'sorted' if macs >= default else 'every-expert'} form)")
+
+
 def decode_splits_ab(backends) -> None:
     """The decode step per token of each backend with the decode kernel's
     cache cut into splits (the wrapper's sizing) and in one piece per
@@ -933,15 +1025,19 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4) -> None:
-    """Phases 11, 15, 19, 28 and 33: ``arch`` cut to ``num_layers`` layers
-    at full width in f32, on the GPU through the kernels and on the CPU
-    through their plain versions, a batch of 2 prompts of ``prompt_len``
-    tokens and ``new`` new tokens."""
+def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4,
+                    batch=2) -> None:
+    """Phases 11, 15, 19, 28, 33, 36 and 39: ``arch`` cut to
+    ``num_layers`` layers at full width in f32, on the GPU through the
+    kernels and on the CPU through their plain versions, a batch of
+    ``batch`` prompts of ``prompt_len`` tokens (after the config's prefix
+    embeddings, drawn by ``modality_inputs`` from a fixed seed) and
+    ``new`` new tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.data.tokens import modality_inputs
     from repro_torch.models import decode_step, init_params, prefill
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
@@ -949,13 +1045,17 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4) -> None:
     params = {"cuda": init_params(cfg, seed=7, device="cuda")}
     params["cpu"] = to_device(params["cuda"], "cpu")
     prompt = np.random.default_rng(19).integers(0, cfg.vocab_size,
-                                                (2, prompt_len))
+                                                (batch, prompt_len))
+    prefix = modality_inputs(cfg, batch, np.random.default_rng(37),
+                             device="cpu").get("prefix_embeds")
+    n_prefix = 0 if prefix is None else prefix.shape[1]
     logits, tokens = {}, {}
     kernel_ops = llm_kernel_ops()
     before = {k: ops.launches for k, ops in kernel_ops.items()}
     for dev, p in params.items():
         lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
-                            max_seq=prompt_len + new)
+                            None if prefix is None else prefix.to(dev),
+                            max_seq=n_prefix + prompt_len + new)
         outs, toks = [lg.cpu()], [lg.argmax(-1)]
         for _ in range(new - 1):
             lg, cache = decode_step(p, cfg, toks[-1], cache)
@@ -963,14 +1063,15 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4) -> None:
             toks.append(lg.argmax(-1))
         logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
     ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
-    want = kernel_launches(list(cfg.layer_kinds), new - 1)
+    want = kernel_launches(launch_kinds(cfg), new - 1)
     if ran != want:
         fail(f"the GPU run of the {num_layers}-layer model launched {ran}, "
              f"not {want}")
     err = max(float((a - b).abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
-    print(f"{arch}, {num_layers} layers {cfg.layer_kinds}, f32, batch 2, "
-          f"{prompt_len}-token prompt, {new} "
+    print(f"{arch}, {num_layers} layers {launch_kinds(cfg)}, f32, batch "
+          f"{batch}, {n_prefix} prefix embeddings + {prompt_len}-token "
+          f"prompt, {new} "
           f"new tokens: cuda vs cpu logits max err {err:.3g} (tolerance "
           f"1e-3); tokens {tokens['cuda'].tolist()} (cpu equal: "
           f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
@@ -986,8 +1087,8 @@ def moe_layer_check(dev) -> None:
     prefill (8 x 256 tokens) and decode (8 tokens): the same experts, and
     the largest per-token relative error (L2 over the model width) within
     2^-6.  Then, findings without a bar: the bf16 layer's call and device
-    time, and the sorted form's (the CPU's, its group sizes read on the
-    host) on the same input."""
+    time (``moe_ragged``'s form by size, phase 37), and the sorted form's
+    on the same input."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -1029,6 +1130,108 @@ def moe_layer_check(dev) -> None:
             fail(f"the bf16 MoE layer at T = {t} is not the f32 layer's "
                  f"within 2^-6 (error {err}, same experts: {same})")
     phase("29 granite MoE layer, bf16 against f32", t0)
+
+
+def moe_forms(dev) -> None:
+    """Phase 37: one MoE layer at full width in bf16 on the card,
+    deepseek-v2-lite-16b's (64 experts, top-6, d_ff 1408) at phase 38's
+    prefill (T = 8 x 1024) and decode (T = 8) and at T = 256 and 512,
+    then granite-moe-1b-a400m's at phase 30's 8 x 256 and 8 and at 8192:
+    the every-expert form against the sorted
+    form (grouped products, group ends on the card), each one's call time
+    (CUDA events, in turns: every, sorted, sorted, every) and device time,
+    the form ``moe_ragged`` takes, and each form's largest per-token
+    relative error (L2 over the model width) against the f32 layer (the
+    bf16 weights widened), within phase 29's 2^-6; the two forms' expert
+    ids are the same routing."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    # phase 38's and 30's prefill and decode, and on both sides of
+    # SORTED_MIN_MACS
+    for arch, sizes in ((DSV2, (MAX_BATCH * 1024, MAX_BATCH, 256, 512)),
+                        (GRANITE, (MAX_BATCH * 256, MAX_BATCH, 8192))):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(37)
+        p16 = moe.init_moe(gen, cfg, torch.bfloat16, dev)
+        p16.pop("shared", None)     # apply_moe adds it outside both forms
+        p32 = {n: w.float() for n, w in p16.items()}
+        for t in sizes:
+            x16 = torch.randn((t, cfg.d_model), generator=gen,
+                              device=dev).bfloat16()
+            w32, ids32, _ = moe.route_topk(p32["router"], x16.float(),
+                                           cfg.moe_top_k)
+            y32 = moe._experts_all(p32, x16.float(), w32, ids32)
+
+            def every():
+                w, ids, _ = moe.route_topk(p16["router"], x16,
+                                           cfg.moe_top_k)
+                return moe._experts_all(p16, x16, w, ids)
+
+            def sorted_form():
+                tok, w, _, sizes_, _ = moe._dispatch(cfg, p16["router"], x16)
+                return moe._experts_sorted(p16, x16, tok, w, sizes_)
+
+            def rel(y):
+                return float(((y.float() - y32).norm(dim=1)
+                              / y32.norm(dim=1)).max())
+
+            errs = {"every": rel(every()), "sorted": rel(sorted_form())}
+            ms = {"every": [], "sorted": []}
+            for form in ("every", "sorted", "sorted", "every"):
+                fn = every if form == "every" else sorted_form
+                ms[form].append(median_ms(fn, reps=10, inner=3))
+            dev_ms = {"every": device_total_ms(every),
+                      "sorted": device_total_ms(sorted_form)}
+            macs = t * cfg.num_experts * cfg.d_model * cfg.moe_d_ff
+            takes = "sorted" if macs >= moe.SORTED_MIN_MACS else "every"
+            print(f"{arch} MoE layer, T = {t}, bf16: every-expert "
+                  f"{ms['every']} ms a call (device time "
+                  f"{dev_ms['every']} ms), sorted {ms['sorted']} ms a call "
+                  f"(device time {dev_ms['sorted']} ms); moe_ragged takes "
+                  f"the {takes} form ({macs:.3g} multiply-adds a product "
+                  f"every-expert); largest per-token relative error "
+                  f"against f32: every {errs['every']:.6f}, sorted "
+                  f"{errs['sorted']:.6f} (bar {2 ** -6:.5f})")
+            if max(errs.values()) > 2 ** -6:
+                fail(f"a {arch} MoE form at T = {t} is not the f32 layer's "
+                     f"within 2^-6: {errs}")
+            del x16, y32
+        del p16, p32
+        torch.cuda.empty_cache()
+    phase("37 the MoE forms at deepseek-v2-lite's and granite's widths", t0)
+
+
+def served_phase(archs, delta, routes, name, batches, max_seq=None):
+    """Phases 38 and 40: ``archs`` built at full width and full depth in
+    one service (phase 30's path), the peak device memory of the phase,
+    and the device memory back within 1 GiB of its level before it.
+    Returns the launches of the counted run and the backends."""
+    import torch
+    start = device_memory("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches, backends = llm_service(archs, delta, routes, name,
+                                     build_all=True, batches=batches,
+                                     max_seq=max_seq)
+    weights = sum(tree_bytes(be.params) for be in backends.values())
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  {name}: weights {gib(weights)}, peak device memory "
+          f"{gib(peak)} of the card's {gib(total)}")
+    if peak > total - 2**30:
+        fail(f"{name} peaked at {gib(peak)}, within 1 GiB of the card's "
+             f"{gib(total)}")
+    return launches, backends, start
+
+
+def released(name, start) -> None:
+    """Fails unless device memory came back within 1 GiB of ``start``."""
+    after = device_memory("cuda")
+    print(f"  {name}: device memory {gib(start)} before, {gib(after)} "
+          "after the models were released")
+    if after - start > 2**30:
+        fail(f"{name} left {gib(after - start)} of device memory behind")
 
 
 def ring_on_card(dev) -> None:
@@ -1115,8 +1318,8 @@ def dense_service():
 
 def attention_timing(dev):
     """Phase 12: both attention kernels at the main path's shapes, those of
-    phases 33-35 too.  Returns the JSON fields of the llama3-8b shapes (the
-    larger backend of phase 10).  ``scaled_dot_product_attention`` has no
+    phases 33-35 and 40 too.  Returns the JSON fields of the llama3-8b
+    shapes (the larger backend of phase 10).  ``scaled_dot_product_attention`` has no
     softcap: at gemma2-9b's shapes the library column is empty."""
     import numpy as np
     import torch
@@ -1147,7 +1350,8 @@ def attention_timing(dev):
                              {"window": 4096, "softcap": 50.0}),
                             ("deepseek-7b", (8, 32, 32, 1024, 128), {}),
                             ("llama3-8b-swa", (1, 32, 8, 12_288, 128),
-                             {"window": 4096})):
+                             {"window": 4096}),
+                            (LLAVA, DENSE_FLASH[-1][0], {})):
         b, h, kv, s, d = shape
         q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
                         23, dev)
@@ -1162,7 +1366,7 @@ def attention_timing(dev):
         dk = device_ms(lambda: fl_ops.attention(q, k, v, **kw),
                        "flash_kernel", reps=5)
         layout = ""
-        if arch in ("llama3-8b", "deepseek-7b"):
+        if arch in ("llama3-8b", "deepseek-7b", LLAVA):
             # the model's prefill passes K/V as views of its [B, S, KV, D]
             # projections, not of a [B, KV, T, D] cache: the same call
             # with that layout
@@ -1216,7 +1420,8 @@ def attention_timing(dev):
             ("gemma2-9b", (2, 16, 8, 4096, 256), None, {"softcap": 50.0}),
             ("gemma2-9b", (2, 16, 8, 6160, 256), 6144, {"softcap": 50.0}),
             ("deepseek-7b", (8, 32, 32, 1040, 128), 1024, {}),
-            ("llama3-8b-swa", (1, 32, 8, 4096, 128), None, {})):
+            ("llama3-8b-swa", (1, 32, 8, 4096, 128), None, {}),
+            (LLAVA, DENSE_DECODE[-1][0], VLM_MAX_SEQ - MAX_NEW, {})):
         b, h, kv, t_max, d = shape
         q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
                           bf16, 31, dev)
@@ -2709,7 +2914,8 @@ def paper_comparison(dev, canny_ops):
 #: earlier batch of its shape.  (f) serves two of the rest of the dense
 #: family: over their own table at δ = 5, bucket 4 (the two 40 000-token
 #: requests of seed 0) goes to gemma2-9b-swa (sub-quadratic, 72.90 against
-#: deepseek-7b's 66.32), every other bucket to deepseek-7b.
+#: deepseek-7b's 66.32), every other bucket to deepseek-7b.  (g) serves
+#: deepseek-v2-lite-16b (bucket 0) beside llama3-8b (the rest) at δ = 12.4.
 SERVE_RUNS = (
     ("a", ["--requests", "24", "--delta", "5"],
      {"llama3-8b", "recurrentgemma-2b"}),
@@ -2725,6 +2931,8 @@ SERVE_RUNS = (
      {"qwen2.5-3b", "recurrentgemma-2b"}),
     ("f", ["--archs", "deepseek-7b", "gemma2-9b-swa", "--requests", "16",
            "--delta", "5"], {"deepseek-7b", "gemma2-9b-swa"}),
+    ("g", ["--archs", DSV2, "llama3-8b", "--delta", "12.4", "--requests",
+           "16"], {DSV2, "llama3-8b"}),
 )
 #: device memory a run may hold beyond one copy of its archs' weights
 #: (caches of 96 rows, activations of up to 4 pods' batches of 8)
@@ -2946,7 +3154,7 @@ def adapt_check(run, path):
 
 
 def serve_driver(device="cuda", extra=()):
-    """Phase 31: the serve driver's seven runs on ``device`` (``extra``:
+    """Phase 31: the serve driver's eight runs on ``device`` (``extra``:
     more flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run
     (e) again with ``--device cpu --reduced``.  Returns the LLM kernels'
     launches summed over the runs."""
@@ -3359,10 +3567,11 @@ def main() -> None:
     attn_rows = attention_timing(dev)
 
     ssd_err = ssd_check(dev)
+    # qwen2.5-3b is profiled after phase 10 and the SSD kernel timed alone
+    # in phase 16
     ssm_launches, backends = llm_service(SSM_ARCHS, SSM_DELTA, SSM_ROUTES,
                                          "14 LLM service with mamba2",
                                          halved=True)
-    llm_profile(backends, SSM_ROUTES)
     del backends
     torch.cuda.empty_cache()
     llm_cuda_vs_cpu("mamba2-370m", 500, "15 mamba2 cuda vs cpu")
@@ -3409,8 +3618,10 @@ def main() -> None:
     llm_profile(backends, {256: GRANITE}, ranges={
         "moe layer": (model_mod, "apply_moe"),
         "moe routing": (moe_mod, "route_topk"),
-        "moe experts": (moe_mod, "_experts_all")})
+        "moe experts, every": (moe_mod, "_experts_all"),
+        "moe experts, sorted": (moe_mod, "_experts_sorted")})
     decode_syncs(backends[GRANITE], 256)
+    moe_form_ab(backends[GRANITE], 256)
     del backends
     torch.cuda.empty_cache()
 
@@ -3424,9 +3635,27 @@ def main() -> None:
     llm_cuda_vs_cpu("deepseek-7b", 256, "33 deepseek-7b cuda vs cpu", new=9)
     ring_on_card(dev)
     dense_launches = dense_service()
+
+    # 36-40 ---------------------------- MLA and the vlm family, full depth
+    llm_cuda_vs_cpu(DSV2, 256, f"36 {DSV2} cuda vs cpu", new=9)
+    moe_forms(dev)
+    mla_launches, backends, start = served_phase(
+        MLA_ARCHS, MLA_DELTA, MLA_ROUTES, f"38 {DSV2} beside llama3-8b",
+        MLA_BATCHES, {arch: 1024 + MAX_NEW for arch in MLA_ARCHS})
+    decode_syncs(backends[DSV2], 1024)
+    moe_form_ab(backends[DSV2], 1024)
+    del backends
+    released("phase 38", start)
+    llm_cuda_vs_cpu(LLAVA, 32, f"39 {LLAVA} cuda vs cpu", new=5, batch=1)
+    vlm_launches, backends, start = served_phase(
+        VLM_ARCHS, VLM_DELTA, VLM_ROUTES, f"40 {LLAVA} beside mamba2-370m",
+        VLM_BATCHES, {LLAVA: VLM_MAX_SEQ})
+    del backends
+    released("phase 40", start)
     served_launches = {k: sum(run[k] for run in (
         llm_launches, ssm_launches, hybrid_launches, pool_launches,
-        driver_launches, dense_launches)) for k in llm_launches}
+        driver_launches, dense_launches, mla_launches, vlm_launches))
+        for k in llm_launches}
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -20,7 +20,9 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen2.5-3b": "qwen2_5_3b",
     "mamba2-370m": "mamba2_370m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "llama3-8b": "llama3_8b",
+    "llava-next-34b": "llava_next_34b",
     # sliding-window variants (all-local layouts)
     "gemma2-9b-swa": "gemma2_9b",
     "llama3-8b-swa": "llama3_8b",

@@ -13,10 +13,20 @@ them; decode writes the new token at slot pos % T and attends the first
 min(pos + 1, T) rows with no window, each of them in the key set.  A
 global layer's T is max_seq, which its config never passes
 (``bounded_by_max_seq``), so its slot is its position and it never wraps;
-a ``"local"`` layer's T is its ring's R rows.  MLA, cross-attention and
-the sharded paths are not ported.
+a ``"local"`` layer's T is its ring's R rows.
+
+MLA (DeepSeek-V2's multi-head latent attention) runs in plain PyTorch, as
+the JAX package runs it in XLA einsums: its q·k width of 192 and v width
+of 128 suit neither kernel.  Prefill expands the keys and values
+(``mla_forward``, the reference's ``chunked_causal_attention``: f32
+scores, probabilities cast to the values' dtype); decode attends in the
+latent space with the up-projections absorbed (``mla_decode_v2``, the
+reference's one-device carry path: the old latent rows merged with the
+new token's).  Cross-attention and the sharded paths are not ported.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,7 +34,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 from .base import ModelConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_rope, dense_init, softcap
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device=None):
@@ -37,6 +47,16 @@ def init_attention(gen, cfg: ModelConfig, dtype, device=None):
         for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
             p[name] = torch.zeros(n * hd, dtype=dtype, device=device)
     return p
+
+
+def init_mla(gen, cfg: ModelConfig, dtype, device=None):
+    d, h = cfg.d_model, cfg.num_heads
+    r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                     cfg.v_head_dim)
+    return {name: dense_init(gen, shape, dtype, device=device)
+            for name, shape in (("wq", (d, h * (dn + dr))), ("w_dkv", (d, r)),
+                                ("w_kr", (d, dr)), ("w_uk", (r, h * dn)),
+                                ("w_uv", (r, h * dv)), ("wo", (h * dv, d)))}
 
 
 def _project(p, cfg: ModelConfig, x, positions):
@@ -97,3 +117,99 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, positions,
     out = decode_ops.decode(q[:, 0], ck[:, :, :rows], cv[:, :, :rows],
                             lengths, softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["wo"]
+
+
+#: the reference's additive mask value
+NEG_INF = -1e30
+#: query rows per chunk of ``chunked_causal_attention``
+CHUNK = 1024
+
+
+def chunked_causal_attention(q, k, v, scale: float, cap=None):
+    """Causal attention over query chunks: q, k [B,S,H,D], v [B,S,H,Dv] ->
+    [B,S,H,Dv] in v's dtype.  Chunks of ``CHUNK`` rows (one chunk when S
+    is not a multiple of it); scores in f32 (the products of the inputs'
+    values, summed in f32), scaled, softcapped by ``cap``, masked, a
+    softmax in f32, the probabilities cast to v's dtype before the product
+    with v."""
+    s = q.shape[1]
+    chunk = min(CHUNK, s)
+    if s % chunk:
+        chunk = s
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # [B,H,S,D]
+    k32 = kt.float().transpose(2, 3)
+    cols = torch.arange(s, device=q.device)
+    outs = []
+    for c0 in range(0, s, chunk):
+        scores = softcap((qt[:, :, c0:c0 + chunk].float() @ k32) * scale,
+                         cap)
+        rows = torch.arange(c0, c0 + chunk, device=q.device)[:, None]
+        scores = scores.masked_fill(cols[None, :] > rows, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(probs @ vt)
+    return torch.cat(outs, 2).transpose(1, 2)
+
+
+def _mla_queries(p, cfg: ModelConfig, x, positions):
+    """q_nope [B,S,H,dn] and q_rope [B,S,H,dr] after RoPE; the latent c
+    [B,S,r] and the shared rope key k_rope [B,S,dr] after RoPE."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ p["wq"]).view(b, s, cfg.num_heads, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    k_rope = apply_rope(x @ p["w_kr"], positions, cfg.rope_theta)
+    return q[..., :dn], q_rope, x @ p["w_dkv"], k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions, *, return_cache=False):
+    """MLA over the full sequence (forward / prefill), keys and values
+    expanded from the latent.  x [B,S,d] -> [B,S,d]; with
+    ``return_cache``, also (c [B,S,r], k_rope [B,S,dr]), the rows the
+    latent cache keeps."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_queries(p, cfg, x, positions)
+    k_nope = (c_kv @ p["w_uk"]).view(b, s, h, dn)
+    v = (c_kv @ p["w_uv"]).view(b, s, h, cfg.v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)],
+                       dim=-1)
+    out = chunked_causal_attention(q_full, k_full, v, _mla_scale(cfg),
+                                   cfg.attn_softcap)
+    out = out.reshape(b, s, -1) @ p["wo"]
+    return (out, (c_kv, k_rope)) if return_cache else out
+
+
+def mla_decode_v2(p, cfg: ModelConfig, x, c_old, kr_old, pos: int):
+    """One-token MLA decode in the latent space over the old cache rows
+    merged with the new token.  x [B,1,d]; c_old [B,T,r] and kr_old
+    [B,T,dr] are the latent rows of positions [0, T), every one attended
+    (the caller passes the first ``pos`` rows).  Returns (out [B,1,d],
+    c_col [B,1,r], kr_col [B,1,dr]): the new token's rows, which the
+    caller writes at row ``pos``.  The reference's casts, op by op: the
+    absorbed query in x's dtype, both score products in f32, the merge of
+    the old rows' context with the new row's in x's dtype."""
+    b = x.shape[0]
+    h, r, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_dim
+    adt = x.dtype
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope, c_col, kr_col = _mla_queries(p, cfg, x, positions)
+    scale = _mla_scale(cfg)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                         p["w_uk"].view(r, h, dn))              # [B,H,r]
+    q_abs32, q_rope32 = q_abs.float(), q_rope[:, 0].float()
+    s_old = (q_abs32 @ c_old.float().transpose(1, 2)
+             + q_rope32 @ kr_old.float().transpose(1, 2)) * scale
+    s_new = (q_abs32 @ c_col.float().transpose(1, 2)
+             + q_rope32 @ kr_col.float().transpose(1, 2)) * scale  # [B,H,1]
+    m = torch.maximum(s_old.amax(dim=-1, keepdim=True), s_new)
+    p_old, p_new = torch.exp(s_old - m), torch.exp(s_new - m)
+    denom = p_old.sum(dim=-1, keepdim=True) + p_new
+    ctx = (p_old.to(adt) @ c_old + p_new.to(adt) * c_col) / denom.to(adt)
+    out = torch.einsum("bhr,rhd->bhd", ctx,
+                       p["w_uv"].view(r, h, cfg.v_head_dim))
+    return out.reshape(b, 1, -1) @ p["wo"], c_col, kr_col

@@ -1,8 +1,9 @@
-"""Decode-time caches: the K/V of attention layers and the recurrent state
-of Mamba-2 and RG-LRU layers.
+"""Decode-time caches: the K/V (or MLA's latent rows) of attention layers
+and the recurrent state of Mamba-2 and RG-LRU layers.
 
-Layout: ``AttnCache.k`` / ``.v`` are [layers, B, KV, T, hd] for the dense
-family's global layout, so that one layer's slice [B, KV, T, hd] is what
+Layout: ``AttnCache.k`` / ``.v`` are [layers, B, KV, T, hd] for the
+``("attn",)`` layout without MLA (the dense, moe and vlm families), so
+that one layer's slice [B, KV, T, hd] is what
 the flash-decode kernel reads: for a (batch, KV head), the cache rows lie
 contiguously along T.  The JAX package keeps [n, B, W, KV, hd] with a ring
 buffer and a ``pos_buf`` of the position held in each slot; for ``"attn"``
@@ -19,7 +20,10 @@ The other layouts keep one entry per layer, in layer order, in a list
   [B, K-1, ch] in the activation dtype;
 - ``"rec"``: a ``RecState``, ``h`` [B, W] in f32 and ``conv`` [B, K-1, W];
 - ``"attn"``: an ``AttnCache`` of this layer's K/V [B, KV, max_seq, hd] in
-  position order, as above;
+  position order, as above; with MLA (``cfg.use_mla``), an ``MLACache``
+  of this layer's latent rows, ``c`` [B, max_seq, r] and ``kr`` [B,
+  max_seq, dr] in the activation dtype, position p at row p (the JAX
+  package's ``MLACache``);
 - ``"local"`` (sliding-window attention): an ``AttnCache`` of this
   layer's K/V [B, KV, R, hd], a ring: position p lives in slot p % R, and
   the ring wraps without bound.  ``R = ring_rows(cfg, max_seq)`` is the
@@ -51,6 +55,11 @@ class AttnCache(NamedTuple):
     v: torch.Tensor
 
 
+class MLACache(NamedTuple):
+    c: torch.Tensor   # [B, T, kv_lora_rank]
+    kr: torch.Tensor  # [B, T, qk_rope_dim]
+
+
 def ring_rows(cfg: ModelConfig, max_seq: int) -> int:
     """Rows of a ``"local"`` layer's ring: the window, or max_seq + 1 when
     max_seq is shorter (the JAX ring's key set, see the module
@@ -76,7 +85,7 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
         return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
                          v=torch.zeros(shape, dtype=dtype, device=device))
 
-    if cfg.block_layout == ("attn",):
+    if cfg.block_layout == ("attn",) and not cfg.use_mla:
         shape = (cfg.n_blocks, bsz, cfg.num_kv_heads, max_seq, cfg.head_dim)
         return {"pos": 0, "max_seq": max_seq, "blocks": {"s0": AttnCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
@@ -87,6 +96,10 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
             return ssm_init_state(cfg, bsz, dtype, device)
         if kind == "rec":
             return rec_init_state(cfg, bsz, dtype, device)
+        if kind == "attn" and cfg.use_mla:
+            return MLACache(*(torch.zeros((bsz, max_seq, n), dtype=dtype,
+                                          device=device)
+                              for n in (cfg.kv_lora_rank, cfg.qk_rope_dim)))
         return kv(max_seq if kind == "attn" else ring_rows(cfg, max_seq))
 
     return {"pos": 0, "max_seq": max_seq,

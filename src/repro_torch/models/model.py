@@ -1,4 +1,4 @@
-"""Model assembly of the dense, moe, ssm and hybrid families: init /
+"""Model assembly of the dense, moe, vlm, ssm and hybrid families: init /
 forward / prefill / decode.
 
 A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU or
@@ -7,7 +7,11 @@ GeGLU MLP] -> final norm -> tied unembedding, its attention layers global
 global), optionally with gemma-scaled embeddings, post-norms after the
 mixer and the MLP (``norm1b``, ``norm2b``) and logit softcaps; a moe
 model (Granite MoE) the same with top-k routed SwiGLU experts in place of
-the MLP (``models/moe.py``); an ssm model (Mamba-2) is embed -> N x
+the MLP (``models/moe.py``), its attention GQA or MLA (deepseek-v2:
+``mla`` in place of ``attn``, a latent cache); a vlm model (LLaVA-NeXT)
+is a dense model whose input is the projected prefix embeddings
+(``vision_proj``) placed before the text's, positions running over both;
+an ssm model (Mamba-2) is embed -> N x
 [pre-norm Mamba-2 block] -> final norm -> tied unembedding, with no MLP;
 a hybrid model (RecurrentGemma) is gemma-scaled embed -> 8 x [rec, rec,
 local] + [rec, rec] sub-layers, each [pre-norm mixer][pre-norm GeGLU MLP]
@@ -16,7 +20,8 @@ tied unembedding.  Where the JAX package scans over layer parameters
 stacked on a leading n_blocks dim per block slot, the port loops over a
 list: ``params["blocks"]["s0"]`` holds one dict per layer in layer order
 (``cfg.layer_kinds``) with the JAX names (``norm1``,
-``attn.{wq,wk,wv,wo[,bq,bk,bv]}`` or ``rec.{w_gate,w_x,conv_w,conv_b,
+``attn.{wq,wk,wv,wo[,bq,bk,bv]}``, ``mla.{wq,w_dkv,w_kr,w_uk,w_uv,wo}`` or
+``rec.{w_gate,w_x,conv_w,conv_b,
 lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, [``norm1b``,] ``norm2``,
 ``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,w_gate,w_up,w_down[,
 shared]}``[, ``norm2b``]; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
@@ -26,11 +31,11 @@ Matrices, biases and the convs are kept in the activation dtype (cast once
 at load); norm weights, the Mamba-2 per-head scalars, the RG-LRU gate
 parameters and the MoE router stay in f32.
 
-The other families (encdec, vlm) and the variants with MLA, experts
-outside the moe family, prefix embeddings, positions without RoPE or other
-layouts raise ``ValueError``.  A config with a global ``"attn"`` layer
-raises past ``max_seq`` (its cache holds positions in order); a ``"local"``
-layer's ring takes any length, as in the JAX package (``kvcache.py``).
+The encdec family and the variants with experts outside the moe family,
+positions without RoPE or other layouts raise ``ValueError``.  A config
+with a global ``"attn"`` layer raises past ``max_seq`` (its cache holds
+positions in order); a ``"local"`` layer's ring takes any length, as in
+the JAX package (``kvcache.py``).
 """
 from __future__ import annotations
 
@@ -41,11 +46,12 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .attention import attention_decode, attention_forward, init_attention
+from .attention import (attention_decode, attention_forward, init_attention,
+                        init_mla, mla_decode_v2, mla_forward)
 from .base import ModelConfig
 from .kvcache import AttnCache, bounded_by_max_seq, init_cache
-from .layers import (apply_mlp, embed, init_embedding, init_mlp, rms_norm,
-                     unembed)
+from .layers import (apply_mlp, dense_init, embed, init_embedding, init_mlp,
+                     rms_norm, unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
@@ -62,6 +68,7 @@ _PORTED = {
     "dense": _Family(((("attn",), ()), (("local", "attn"), ()),
                       (("local",), ())), ("swiglu", "geglu"), True, True),
     "moe": _Family(((("attn",), ()),), ("swiglu",), False, False),
+    "vlm": _Family(((("attn",), ()),), ("swiglu",), False, False),
     "ssm": _Family(((("ssm",), ()),), ("swiglu",), False, False),
     "hybrid": _Family(((("rec", "rec", "local"), ("rec", "rec")),),
                       ("geglu",), True, False)}
@@ -81,12 +88,10 @@ def check_config(cfg: ModelConfig) -> None:
         (f"layout {cfg.block_layout}+{cfg.trailing_layout}",
          (cfg.block_layout, cfg.trailing_layout) not in fam.layouts),
         (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant not in fam.mlps),
-        ("MLA", cfg.use_mla),
         ("experts", bool(cfg.num_experts) and cfg.family != "moe"),
         ("post-norms", cfg.post_norm and not fam.post_norm),
         ("scaled embeddings", cfg.embed_scale and not fam.scaled),
-        ("positions without RoPE", not cfg.use_rope),
-        ("prefix embeddings", bool(cfg.num_prefix_embeds))) if bad]
+        ("positions without RoPE", not cfg.use_rope)) if bad]
     if unported:
         raise ValueError(f"{cfg.name}: not ported yet: {', '.join(unported)}")
 
@@ -106,17 +111,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         if kind == "ssm":
             return {"norm1": norm(), "ssm": init_ssm(gen, cfg, adt, dev)}
         mixer = ({"rec": init_rec(gen, cfg, adt, dev)} if kind == "rec" else
-                 {"attn": init_attention(gen, cfg, adt, dev)})
+                 {"mla": init_mla(gen, cfg, adt, dev)} if _is_mla(cfg, kind)
+                 else {"attn": init_attention(gen, cfg, adt, dev)})
         mlp = ({"moe": init_moe(gen, cfg, adt, dev)} if cfg.num_experts else
                {"mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt, dev)})
         post = {"norm1b": norm(), "norm2b": norm()} if cfg.post_norm else {}
         return {"norm1": norm(), **mixer, "norm2": norm(), **mlp, **post}
 
-    return {
-        "embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
-        "final_norm": norm(),
-        "blocks": {"s0": [layer(kind) for kind in cfg.layer_kinds]},
-    }
+    params = {"embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
+              "final_norm": norm()}
+    if _has_prefix(cfg):
+        params["vision_proj"] = dense_init(gen, (cfg.vision_dim, d), adt,
+                                           device=dev)
+    params["blocks"] = {"s0": [layer(kind) for kind in cfg.layer_kinds]}
+    return params
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
@@ -147,11 +155,23 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
              for j in range(len(cfg.block_layout))]
     slots += [(tree["trailing"][f"s{j}"], 0)
               for j in range(len(cfg.trailing_layout))]
-    return {
-        "embed": {"table": mat(tree["embed"]["table"])},
-        "final_norm": vec(tree["final_norm"]),
-        "blocks": {"s0": [layer(slot, i) for slot, i in slots]},
-    }
+    params = {"embed": {"table": mat(tree["embed"]["table"])},
+              "final_norm": vec(tree["final_norm"])}
+    if _has_prefix(cfg):
+        params["vision_proj"] = mat(tree["vision_proj"])
+    params["blocks"] = {"s0": [layer(slot, i) for slot, i in slots]}
+    return params
+
+
+def _has_prefix(cfg: ModelConfig) -> bool:
+    """True if ``cfg`` projects prefix embeddings (``vision_proj``)."""
+    return cfg.family == "vlm" or bool(cfg.num_prefix_embeds)
+
+
+def _is_mla(cfg: ModelConfig, kind: str) -> bool:
+    """True if a layer of ``kind`` runs MLA: the global attention layers of
+    an MLA config."""
+    return kind == "attn" and cfg.use_mla
 
 
 def _window(cfg: ModelConfig, kind: str):
@@ -182,8 +202,8 @@ def _residuals(p, cfg: ModelConfig, kind, x, o):
 
 
 def _entry(c, i):
-    """Layer i's cache entry: a view of the dense family's stacked K/V, or
-    the i-th of the per-layer list."""
+    """Layer i's cache entry: a view of the stacked K/V, or the i-th of the
+    per-layer list."""
     return c[i] if isinstance(c, list) else AttnCache(c.k[i], c.v[i])
 
 
@@ -192,19 +212,40 @@ def _embed(params, cfg: ModelConfig, tokens):
                  adtype=cfg.adtype)
 
 
-def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None):
-    """The hidden states [B,S,d] after every layer; with ``cache``, each
-    global attention layer's K/V land in its rows [0, S), each local
-    layer's ring keeps the last of them, and each Mamba-2 or RG-LRU layer's
-    state after the prompt replaces its entry."""
-    check_config(cfg)
+def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """The text's embeddings [B,S,d], after the prefix embeddings [B,P,
+    vision_dim] cast to the activation dtype and projected by
+    ``vision_proj`` in it, when given: [B,P+S,d]."""
     x = _embed(params, cfg, tokens)
+    if prefix_embeds is None:
+        return x
+    pre = prefix_embeds.to(x.device, cfg.adtype) @ params["vision_proj"]
+    return torch.cat([pre, x], dim=1)
+
+
+def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
+                   prefix_embeds=None):
+    """The hidden states [B,P+S,d] after every layer (P prefix positions,
+    0 without ``prefix_embeds``); with ``cache``, each global attention
+    layer's K/V (or MLA's latent rows) land in its rows [0, P+S), each
+    local layer's ring keeps the last of them, and each Mamba-2 or RG-LRU
+    layer's state after the prompt replaces its entry."""
+    check_config(cfg)
+    x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
                                       params["blocks"]["s0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
-        if kind in ("ssm", "rec"):
+        if _is_mla(cfg, kind):
+            if cache is None:
+                o = mla_forward(p["mla"], cfg, h, positions)
+            else:
+                o, rows = mla_forward(p["mla"], cfg, h, positions,
+                                      return_cache=True)
+                for full, new in zip(cache[i], rows):
+                    full[:, :s].copy_(new)
+        elif kind in ("ssm", "rec"):
             fwd = ssm_forward if kind == "ssm" else rec_forward
             if cache is None:
                 o = fwd(p[kind], cfg, h)
@@ -219,18 +260,25 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None):
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Full-sequence logits [B, S, V] (f32).  tokens [B, S] int."""
-    return unembed(params["embed"], _prompt_layers(params, cfg, tokens),
-                   cap=cfg.final_softcap)
+def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Full-sequence logits [B, P+S, V] (f32).  tokens [B, S] int;
+    ``prefix_embeds`` [B, P, vision_dim] (vlm) go before the text."""
+    return unembed(params["embed"], _prompt_layers(
+        params, cfg, tokens, prefix_embeds=prefix_embeds),
+        cap=cfg.final_softcap)
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
-    """Run the prompt: (last-position logits [B, 1, V], cache holding the
-    prompt's K/V and recurrent states for ``decode_step``).  ``max_seq``
-    sizes the attention caches (a local layer's ring, ``kvcache.py``); a
-    config without a global ``"attn"`` layer takes any prompt."""
-    b, s = tokens.shape
+def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
+            max_seq=None):
+    """Run the prompt, after ``prefix_embeds`` [B, P, vision_dim] where
+    given: (last-position logits [B, 1, V], cache holding the prompt's K/V
+    and recurrent states for ``decode_step``, its ``pos`` P + S).
+    ``max_seq`` sizes the attention caches (a local layer's ring,
+    ``kvcache.py``); a config without a global ``"attn"`` layer takes any
+    prompt."""
+    b = tokens.shape[0]
+    s = tokens.shape[1] + (0 if prefix_embeds is None
+                           else prefix_embeds.shape[1])
     max_seq = max_seq or s
     if bounded_by_max_seq(cfg) and s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit max_seq="
@@ -238,16 +286,17 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None):
                          "not ported)")
     cache = init_cache(cfg, b, max_seq, cfg.adtype,
                        params["embed"]["table"].device)
-    x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"])
+    x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
+                       prefix_embeds)
     cache["pos"] = s
     return unembed(params["embed"], x[:, -1:], cap=cfg.final_softcap), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache):
     """One decode step.  token [B, 1] int -> (logits [B, 1, V], cache).
-    The cache is updated in place (the new K/V row at ``pos``, or at slot
-    pos % R of a local layer's ring, each recurrent layer's new state,
-    then ``pos + 1``) and returned."""
+    The cache is updated in place (the new K/V or latent row at ``pos``,
+    or at slot pos % R of a local layer's ring, each recurrent layer's new
+    state, then ``pos + 1``) and returned."""
     check_config(cfg)
     pos, c = cache["pos"], cache["blocks"]["s0"]
     x = _embed(params, cfg, token)
@@ -256,7 +305,8 @@ def decode_step(params, cfg: ModelConfig, token, cache):
         raise ValueError(f"the cache holds {cache['max_seq']} positions and "
                          "is full (the global layers' wrapping ring is not "
                          "ported)")
-    entries = [_entry(c, i) if kind in ("attn", "local") else None
+    entries = [_entry(c, i) if kind in ("attn", "local")
+               and not _is_mla(cfg, kind) else None
                for i, kind in enumerate(cfg.layer_kinds)]
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     # the rows each cache size attends: min(pos + 1, T)
@@ -266,7 +316,12 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
                                       params["blocks"]["s0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
-        if kind in ("ssm", "rec"):
+        if _is_mla(cfg, kind):
+            o, c_col, kr_col = mla_decode_v2(p["mla"], cfg, h, c[i].c[:, :pos],
+                                             c[i].kr[:, :pos], pos)
+            c[i].c[:, pos].copy_(c_col[:, 0])
+            c[i].kr[:, pos].copy_(kr_col[:, 0])
+        elif kind in ("ssm", "rec"):
             step = ssm_decode_step if kind == "ssm" else rec_decode_step
             o, c[i] = step(p[kind], cfg, h, c[i])
         else:

@@ -5,27 +5,33 @@ expert) pairs by expert, runs ``lax.ragged_dot`` over the groups and
 scatter-adds the k weighted outputs of each token in the activation dtype:
 every token gets its top-k experts' SiLU-gated MLPs, weighted by the
 renormalised router weights.  The port computes that function in two
-forms, by the device of the tokens:
+forms:
 
-* on the CPU, the reference's own (``_experts_sorted``): the sorted rows
-  split at each expert's group size (read on the host), one product per
-  expert, and the k weighted outputs of a token added one at a time in
+* the reference's own (``_experts_sorted``): the sorted rows, one grouped
+  product per weight over the experts' groups (``torch._grouped_mm``, the
+  group ends kept on the tokens' device, so nothing is read on the host),
+  and the k weighted outputs of a token added one at a time in
   expert-sorted order in the activation dtype, as XLA's scatter-add does
   (``index_add_`` would add them in f32 and round once), so a bf16 result
-  rounds as the reference's does;
-* on the card, one with no host read (``_experts_all``): every expert
-  over every token (products over the stacked [E, d, ff] weights), each
-  expert's hidden row scaled by the token's combine weight (zero off its
-  top-k), then one product over the experts' concatenated hidden rows and
-  stacked down-projections, accumulated in f32 in a fixed order.  That is
-  deterministic (bf16 atomics in ``index_add_`` on the card are not) and
-  adds the k outputs before rounding.  It runs E / k times the sorted
-  form's expert operations; a decode batch reads nearly every expert's
-  weights either way.
+  rounds as the reference's does.  On the CPU the grouped product is the
+  per-group ``mm``, bit for bit;
+* every expert over every token (``_experts_all``): products over the
+  stacked [E, d, ff] weights, each expert's hidden row scaled by the
+  token's combine weight (zero off its top-k), then one product over the
+  experts' concatenated hidden rows and stacked down-projections,
+  accumulated in f32 in a fixed order.  It runs E / k times the sorted
+  form's expert operations, which a decode batch pays anyway: its few
+  tokens read nearly every expert's weights.
 
-The router stays f32.  ``moe_capacity_local`` runs in the reference only
-under a mesh; here it is a plain function for its relations to
-``moe_ragged`` and nothing on the serving path calls it.
+The card runs the sorted form on bf16 batches whose every-expert form
+would take at least ``SORTED_MIN_MACS`` multiply-adds a product (T x E x
+d x ff), and the every-expert form on the rest: the grouped product keeps
+its group ends on the card only in bf16 (in f32 it reads them on the
+host), and below that size the sorted form's fixed cost (the sort, the
+gathers, k adds) loses to the every-expert products.  The CPU runs the
+sorted form.  The router stays f32.  ``moe_capacity_local`` runs in
+the reference only under a mesh; here it is a plain function for its
+relations to ``moe_ragged`` and nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -33,6 +39,16 @@ import torch
 
 from .base import ModelConfig
 from .layers import apply_mlp, dense_init, init_mlp, silu
+
+#: the every-expert form's multiply-adds a product (T x E x d x ff) from
+#: which the card runs the sorted form on a bf16 batch.  On an NVIDIA H100
+#: 80GB HBM3 at 700 W (``chip_smoke.py`` phase 37) the sorted form's device
+#: time is the lower from ~2.5e10 (deepseek-v2-lite's T = 128), but it
+#: issues about three times the launches: its call time was the longer at
+#: deepseek-v2-lite's T = 256 (4.7e10) and granite's T = 2048 (3.4e10),
+#: the shorter at deepseek-v2-lite's T = 512 (9.4e10) and granite's
+#: T = 8192 (1.4e11)
+SORTED_MIN_MACS = 6e10
 
 
 def init_moe(gen, cfg: ModelConfig, dtype, device=None):
@@ -60,14 +76,17 @@ def route_topk(router_w, x_flat, top_k: int):
 def _dispatch(cfg: ModelConfig, router_w, x_flat):
     """Route, then sort the (token, expert) pairs stably by expert id:
     (token of each sorted pair, its weight, expert ids [T,k], group sizes
-    [E] int32, router probs)."""
+    [E] int32, router probs).  Nothing is read on the host (``bincount``
+    on the card would read its input's range)."""
     t = x_flat.shape[0]
     k, e = cfg.moe_top_k, cfg.num_experts
     weights, ids, probs = route_topk(router_w, x_flat, k)
     flat_ids = ids.reshape(t * k)
     token_idx = torch.arange(t, device=x_flat.device).repeat_interleave(k)
     order = torch.argsort(flat_ids, stable=True)
-    group_sizes = torch.bincount(flat_ids, minlength=e).to(torch.int32)
+    group_sizes = torch.zeros(e, dtype=torch.int32,
+                              device=x_flat.device).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
     return (token_idx[order], weights.reshape(t * k)[order], ids,
             group_sizes, probs)
 
@@ -98,11 +117,17 @@ def _expert(p, e: int, rows):
 
 
 def _experts_sorted(p, x_flat, sorted_tok, sorted_w, group_sizes):
-    """The reference's form: one product per expert over its group of the
-    sorted rows, the weighted outputs added in sorted order."""
+    """The reference's form: each expert's MLP over its group of the sorted
+    rows (grouped products, group ends on the rows' device), the weighted
+    outputs added in sorted order."""
     xs = x_flat[sorted_tok]
-    y = torch.cat([_expert(p, e, rows) for e, rows in
-                   enumerate(xs.split(group_sizes.tolist()))])
+    ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+
+    def grouped(rows, w):
+        return torch._grouped_mm(rows, w, offs=ends)
+
+    y = grouped(silu(grouped(xs, p["w_gate"])) * grouped(xs, p["w_up"]),
+                p["w_down"])
     return _add_in_order(sorted_tok, y * sorted_w.to(x_flat.dtype)[:, None],
                          x_flat.shape[0])
 
@@ -124,8 +149,10 @@ def moe_ragged(p, cfg: ModelConfig, x_flat, *, aux: bool = True):
     """x_flat [T, d] -> (out [T, d] in x's dtype, the load-balance loss, or
     None without ``aux``): every token's top-k experts, SiLU-gated and
     weighted, with no token dropped."""
-    t = x_flat.shape[0]
-    if x_flat.is_cuda:
+    t, d = x_flat.shape
+    e, ff = cfg.num_experts, cfg.moe_d_ff
+    if x_flat.is_cuda and (x_flat.dtype != torch.bfloat16
+                           or t * e * d * ff < SORTED_MIN_MACS):
         weights, ids, probs = route_topk(p["router"], x_flat, cfg.moe_top_k)
         out = _experts_all(p, x_flat, weights, ids)
     else:

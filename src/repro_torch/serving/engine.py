@@ -1,7 +1,7 @@
 """Batched serving engine: the LLM ``Backend`` (prefill + greedy decode
-over a dense, MoE, Mamba-2 or RecurrentGemma model), the queued request, its
-result, and the per-backend ``DispatchQueue`` that batches requests into
-``serve_batch`` calls.
+over a dense, MoE, VLM, Mamba-2 or RecurrentGemma model), the queued
+request, its result, and the per-backend ``DispatchQueue`` that batches
+requests into ``serve_batch`` calls.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.data.tokens import modality_inputs
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_params, prefill
 from repro_torch.models.kvcache import bounded_by_max_seq
@@ -48,7 +49,9 @@ class Backend:
     Implements the ``ExecutionBackend`` protocol (serving/backend.py);
     registered under kind ``"llm"``.  The model runs on ``device`` (CUDA
     unless the caller asks for the CPU); ``params`` default to seeded
-    random weights drawn there."""
+    random weights drawn there.  A vlm model's prefix embeddings are drawn
+    for each batch from the backend's own generator (seeded with
+    ``seed``), as the JAX package's backend draws them."""
 
     def __init__(self, name: str, cfg: ModelConfig, params=None, *,
                  max_batch: int = 8, max_seq: int = 256, seed: int = 0,
@@ -60,6 +63,7 @@ class Backend:
             cfg, seed, self.device)
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self._rng = np.random.default_rng(seed)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -74,8 +78,9 @@ class Backend:
         position (prefill only returns last-position logits), so mixed
         lengths corrupt the shorter requests' outputs — ``DispatchQueue``
         groups by length automatically.  With a global attention layer
-        (``"attn"``) the prompt and the generated tokens must fit
-        ``max_seq`` (that layer's cache, kept in position order); a
+        (``"attn"``) the prefix embeddings, the prompt and the generated
+        tokens must fit ``max_seq`` (that layer's cache, kept in position
+        order); a
         sliding-window layer's ring (``max_seq`` sizes it), an ssm or an
         RG-LRU state takes any length, as in the JAX package."""
         if not requests:
@@ -83,11 +88,14 @@ class Backend:
         b = len(requests)
         max_prompt = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
+        prefix = modality_inputs(self.cfg, b, self._rng,
+                                 device=self.device).get("prefix_embeds")
+        n_prefix = 0 if prefix is None else prefix.shape[1]
         if bounded_by_max_seq(self.cfg) and \
-                max_prompt + max(max_new, 1) - 1 > self.max_seq:
+                n_prefix + max_prompt + max(max_new, 1) - 1 > self.max_seq:
             raise ValueError(
-                f"{max_prompt} prompt + {max_new} new tokens do not fit "
-                f"max_seq={self.max_seq}")
+                f"{n_prefix} prefix + {max_prompt} prompt + {max_new} new "
+                f"tokens do not fit max_seq={self.max_seq}")
         tokens = np.zeros((b, max_prompt), np.int64)
         for i, r in enumerate(requests):  # right-padded
             tokens[i, :len(r.prompt)] = (np.asarray(r.prompt, np.int64)
@@ -96,7 +104,7 @@ class Backend:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = prefill(self.params, self.cfg, tokens,
+        logits, cache = prefill(self.params, self.cfg, tokens, prefix,
                                 max_seq=self.max_seq)
         next_tok = logits[:, -1:].argmax(dim=-1)
         self._sync()

@@ -113,14 +113,13 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_unported_configs_raise():
-    assert sorted(list_configs()) == sorted(POOL5 + ("deepseek-7b",
-                                                     "gemma2-9b"))
-    for name in ("deepseek-v2-lite-16b", "whisper-small", "llava-next-34b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(name)
+    assert sorted(list_configs()) == sorted(POOL5 + (
+        "deepseek-7b", "gemma2-9b", "deepseek-v2-lite-16b", "llava-next-34b"))
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("whisper-small")
     cfg = get_config("llama3-8b").reduced(num_layers=2)
-    with pytest.raises(ValueError, match="not ported yet: family 'vlm'"):
-        init_params(dataclasses.replace(cfg, family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="not ported yet: family 'encdec'"):
+        init_params(dataclasses.replace(cfg, family="encdec"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
         init_params(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(ValueError, match="layout"):
@@ -341,13 +340,15 @@ def test_check_config_accepts_the_hybrid_family():
     assert get_config(RG).is_subquadratic
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-lite-16b", "MLA"),
-    ("whisper-small", "family 'encdec'"), ("llava-next-34b", "family 'vlm'"),
-    ("llava-next-34b", "prefix embeddings"),
-    ("whisper-small", "positions without RoPE")])
-def test_check_config_rejects_what_is_not_ported(arch, what):
-    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
+@pytest.mark.parametrize("arch,change,what", [
+    ("deepseek-v2-lite-16b", {"post_norm": True}, "post-norms"),
+    ("whisper-small", {}, "family 'encdec'"),
+    ("llava-next-34b", {"mlp_variant": "geglu"}, "mlp 'geglu'"),
+    ("llava-next-34b", {"embed_scale": True}, "scaled embeddings"),
+    ("whisper-small", {}, "positions without RoPE")])
+def test_check_config_rejects_what_is_not_ported(arch, change, what):
+    cfg = ModelConfig(**{**dataclasses.asdict(jax_get_config(arch)),
+                         **change})
     with pytest.raises(ValueError, match=what):
         check_config(cfg)
 
