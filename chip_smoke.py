@@ -38,7 +38,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    (8, 32, 32, 1024, 128), llama3-8b-swa's (1, 32, 8, 12288, 128) with
    window 4096, and phase 40's llava-next-34b (4, 56, 8, 3904, 128) over
    its prefix and text (the plain version one KV head's group at a time
-   where its scores would pass 4 GiB);
+   where its scores would pass 4 GiB); then without the causal mask:
+   phase 42's whisper-small (8, 12, 12, S, 64) over its 1500 frames
+   (encoder: S = 1500; cross-attention: S = 128) beside its causal
+   decoder self-attention, and GQA, D = 32, 64, 128 and 256, ragged S and
+   T, S < T and S > T, window and softcap;
 9. the flash-decode kernel against its plain version at the same bar, with
    lengths 1, T and random, T not a multiple of 256, groups up to 10 at
    D = 256, granite-moe-1b-a400m's (8, 16, 8) at D = 64 over phase 30's
@@ -46,8 +50,10 @@ Phases, each printed as it ends; any failure exits non-zero:
    serve driver's caches (32 and 48 prompt rows plus 8), and phases
    33-35's: gemma2-9b's (2, 16, 8) at D = 256 over its 4096-row ring and
    6160 global rows with softcap 50, deepseek-7b's (8, 32, 32) at D = 128
-   over 1040 rows, llama3-8b-swa's (1, 32, 8) over its 4096-row ring, and
-   llava-next-34b's (4, 56, 8), G = 7, over 3920 rows;
+   over 1040 rows, llama3-8b-swa's (1, 32, 8) over its 4096-row ring,
+   llava-next-34b's (4, 56, 8), G = 7, over 3920 rows, and whisper-small's
+   (8, 12, 12) at D = 64 over its 1500 frames (cross-attention) and its
+   144-row self cache;
 10. the LLM face's main path at full published width and half depth
     (both serve at full depth in phase 31): ``EcoreService``
     over ``PoolPolicy(ServingPool(δ=10))`` with qwen2.5-3b and llama3-8b
@@ -65,8 +71,12 @@ Phases, each printed as it ends; any failure exits non-zero:
     gemma2-9b's (2, 16, 8, 6144, 256) local layers and its decode over the
     ring and the global rows, where the library has no softcap,
     deepseek-7b's, llama3-8b-swa's at 12288 tokens under window 4096, its
-    flash bound reckoned from the windowed keys, and phase 40's
-    llava-next-34b (4, 56, 8, 3904, 128) and its decode over 3920 rows),
+    flash bound reckoned from the windowed keys, phase 40's
+    llava-next-34b (4, 56, 8, 3904, 128) and its decode over 3920 rows,
+    and phase 42's whisper-small: flash without the causal mask over its
+    1500 frames from 1500 and from 128 query rows, its causal 128-row
+    prompt, the library unmasked or ``is_causal`` alike, and the decode
+    kernel over all 1500 frames),
     flash's achieved TFLOP/s beside the library's, flash's device time at
     llama3-8b's, deepseek-7b's and llava-next-34b's shapes with K/V laid
     out as the model's prefill passes them (views of [B, S, KV, D]), the
@@ -206,7 +216,7 @@ Phases, each printed as it ends; any failure exits non-zero:
     on each form in turns;
 31. the serve driver, ``repro_torch.launch.serve.main(argv)`` with
     ``--device cuda`` at full published width (prompts capped at 48, 8
-    new tokens), eight runs, every LLM kernel's launch count set to 0 just
+    new tokens), nine runs, every LLM kernel's launch count set to 0 just
     before each and read just after, device memory printed before and
     after each: (a) 24 requests at δ = 5 (llama3-8b, recurrentgemma-2b);
     (b) ``--adapt --profile-out`` at δ = 23, 48 requests in batches of up
@@ -224,9 +234,11 @@ Phases, each printed as it ends; any failure exits non-zero:
     deepseek-7b gemma2-9b-swa --requests 16`` at δ = 5 (bucket 4 to
     gemma2-9b-swa, the rest to deepseek-7b); (g) ``--archs
     deepseek-v2-lite-16b llama3-8b --requests 16`` at δ = 12.4 (bucket 0
-    to deepseek-v2-lite-16b, the rest to llama3-8b).  In (a) and (c)-(g)
-    every decision equals the same policy's on the CPU; the runs serve all
-    five models of the default pool and both of (f) and of (g), launch all
+    to deepseek-v2-lite-16b, the rest to llama3-8b); (h) ``--archs
+    whisper-small llama3-8b --requests 16`` at δ = 25.8 (bucket 0 to
+    whisper-small, the rest to llama3-8b).  In (a) and (c)-(h) every
+    decision equals the same policy's on the CPU; the runs serve all five
+    models of the default pool and both of (f), (g) and (h), launch all
     four LLM kernels, and leave device memory within 1 GiB of its level
     before the phase;
 32. the examples through their ``main(argv)`` on the card: ``quickstart``
@@ -282,13 +294,29 @@ Phases, each printed as it ends; any failure exits non-zero:
     3920), 8 x 512 to mamba2-370m (complexity 512), 16 new tokens, routes
     equal to the CPU policy's, 60 flash and 60 x 15 decode launches for
     llava's batch, the peak device memory under the card's, device memory
-    back within 1 GiB after.
+    back within 1 GiB after;
+41. whisper-small cut to two encoder and two decoder layers at full width
+    in f32 on the GPU and on the CPU, same parameters, 1500 frames
+    (``modality_inputs``, seeded), 2 x 32 tokens and 8 decode steps:
+    logits within 1e-4, equal tokens, the flash launches without the
+    causal mask counted (one per encoder layer, one per decoder layer's
+    cross-attention);
+42. whisper-small at full depth (0.44 GiB of bf16 weights) beside
+    llama3-8b in one service at δ = 25.8: 8 x 128 tokens to whisper-small
+    (complexity 512), each with its 1500 frames, 8 x 1024 to llama3-8b
+    (complexity 1024), 16 new tokens, routes equal to the CPU policy's,
+    the peak device memory; then whisper-small's batch again with the
+    counts at 0 (36 flash launches: 12 encoder, 12 self, 12 cross; 360
+    decode: 12 self and 12 cross a step), its prefill's encoder and
+    decoder apart, and the host syncs of both backends' decode steps;
+    device memory back within 1 GiB after.  The serve driver's run (h), ``--archs
+    whisper-small llama3-8b --delta 25.8 --requests 16``, is phase 31's.
 
-Phases 10, 14, 18, 30, 35, 38 and 40 also hold every route to the same
-policy's decision on the CPU.  It then prints one JSON line with every
-kernel (the LLM kernels' launches summed over the services of phases 10,
-14, 18, 30, 31, 35, 38 and 40), the card line, and last ``{"ok": true,
-"device": {...}}``.
+Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
+same policy's decision on the CPU.  It then prints one JSON line with
+every kernel (the LLM kernels' launches summed over the services of
+phases 10, 14, 18, 30, 31, 35, 38, 40 and 42), the card line, and last
+``{"ok": true, "device": {...}}``.
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -397,6 +425,31 @@ VLM_ARCHS, VLM_DELTA = (LLAVA, "mamba2-370m"), 20.0
 VLM_ROUTES = {512: "mamba2-370m", 1024: LLAVA}
 VLM_BATCHES = {512: (512, 8), 1024: (1024, 4)}
 VLM_MAX_SEQ = 2880 + 1024 + 16
+#: phase 42: whisper-small beside llama3-8b at δ = 25.8: whisper-small's
+#: 46.58 in buckets 0-3 is within δ of bucket 0's capped 72.0, not of
+#: llama3-8b's 72.86 in bucket 1.  Each complexity -> (prompt tokens,
+#: batch), as phase 35 splits them; whisper's cache holds the prompt and
+#: the new tokens (its 1500 frames feed the encoder)
+WHISPER = "whisper-small"
+ENCDEC_ARCHS, ENCDEC_DELTA = (WHISPER, "llama3-8b"), 25.8
+ENCDEC_ROUTES = {512: WHISPER, 1024: "llama3-8b"}
+ENCDEC_BATCHES = {512: (128, 8), 1024: (1024, 8)}
+#: (B, H, KV, S, T, D) and the options of the flash kernel on phase 42's
+#: path: whisper-small's encoder over its 1500 frames, its prompt's
+#: cross-attention over them (not causal) and its causal self-attention;
+#: then the kernel's other cases without the causal mask: GQA, D = 32, 64,
+#: 128 and 256, ragged S and T, S < T and S > T, window and softcap (every
+#: row keeps some column)
+ENCDEC_FLASH = (((MAX_BATCH, 12, 12, 1500, 1500, 64), {"causal": False}),
+                ((MAX_BATCH, 12, 12, 128, 1500, 64), {"causal": False}),
+                ((MAX_BATCH, 12, 12, 128, 128, 64), {}))
+NONCAUSAL_FLASH = (((2, 8, 2, 100, 300, 128), {}),
+                   ((2, 4, 4, 37, 1500, 32), {}),
+                   ((1, 10, 1, 300, 191, 256), {}),
+                   ((2, 16, 8, 256, 200, 64), {"window": 96}),
+                   ((2, 8, 2, 64, 500, 128), {"softcap": 30.0}),
+                   ((2, 8, 8, 129, 130, 64), {"window": 64,
+                                              "softcap": 30.0}))
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -661,6 +714,21 @@ def attention_grids(dev) -> None:
                     q.float(), k.float(), v.float(), **kw))
             n += 1
             del q, k, v, got
+    # phase 42's whisper-small, then the other cases without the causal mask
+    for shape, kw in ENCDEC_FLASH + tuple(
+            (sh, {"causal": False, **kw}) for sh, kw in NONCAUSAL_FLASH):
+        b, h, kv, s, t, d = shape
+        for dt in dtypes:
+            q, k, v = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)],
+                            dt, sum(shape), dev)
+            got = fl_ops.attention(q, k, v, **kw)
+            errs[dt] = max(errs[dt], attention_close(
+                f"flash {shape} {dt} {kw}", got, flash_plain(q, k, v, **kw)))
+            if dt == torch.bfloat16:
+                attention_close_f32(f"flash {shape} {kw}", got, flash_plain(
+                    q.float(), k.float(), v.float(), **kw))
+            n += 1
+            del q, k, v, got
     q, cache = randn([(2, 100, 8, 128), (2, 2, 160, 128)], torch.bfloat16, 1,
                      dev)
     got = fl_ops.attention(q.transpose(1, 2), cache[:, :, :100],
@@ -676,15 +744,20 @@ def attention_grids(dev) -> None:
     errs = {dt: 0.0 for dt in dtypes}
     n = 0
     rng = np.random.default_rng(3)
-    # then granite-moe-1b-a400m's decode over phase 30's caches, and every
-    # attention model of the pool over the serve driver's (phase 31)
+    # then granite-moe-1b-a400m's decode over phase 30's caches, every
+    # attention model of the pool over the serve driver's (phase 31),
+    # phases 33-40's, and whisper-small's over its frames and its self
+    # cache (phase 42)
     for shape in [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
                   (3, 8, 2, 1000, 128), (2, 4, 4, 70, 32),
                   (2, 10, 1, 256, 256), (3, 10, 1, 1000, 256),
                   (2, 20, 2, 300, 256), (MAX_BATCH, 16, 8, 256 + MAX_NEW, 64)
                   ] + [(MAX_BATCH, h, kv, s + DRIVER_NEW, d)
                        for h, kv, d in pool_heads() for s in DRIVER_PROMPTS
-                       ] + [shape for shape, _ in DENSE_DECODE]:
+                       ] + [shape for shape, _ in DENSE_DECODE] + [
+                           (MAX_BATCH, 12, 12, 1500, 64),
+                           (MAX_BATCH, 12, 12, ENCDEC_BATCHES[512][0]
+                            + MAX_NEW, 64)]:
         b, h, kv, t, d = shape
         dense = [kw for sh, kw in DENSE_DECODE if sh == shape]
         for dt in dtypes:
@@ -846,7 +919,13 @@ def llm_kernel_ops():
 
 def launch_kinds(cfg):
     """The layer kinds of ``cfg`` as the kernels see them: an MLA layer
-    (plain PyTorch, no kernel) is ``"mla"``, not ``"attn"``."""
+    (plain PyTorch, no kernel) is ``"mla"``, not ``"attn"``; an encdec
+    model's encoder layers are ``"enc"`` (flash, not causal, once a
+    batch) and each decoder layer an ``"attn"`` and a ``"cross"``
+    (cross-attention: flash, not causal, once a batch, and the decode
+    kernel once a step)."""
+    if cfg.family == "encdec":
+        return ["enc"] * cfg.enc_layers + ["attn", "cross"] * cfg.dec_layers
     return ["mla" if kind == "attn" and cfg.use_mla else kind
             for kind in cfg.layer_kinds]
 
@@ -854,9 +933,28 @@ def launch_kinds(cfg):
 def kernel_launches(kinds, steps):
     """The LLM kernels' launches of one prefill and ``steps`` decode steps
     over layers of these kinds."""
-    attn = sum(k in ("attn", "local") for k in kinds)
-    return {"flash_attention": attn, "decode_attention": attn * steps,
+    cached = sum(k in ("attn", "local", "cross") for k in kinds)
+    return {"flash_attention": cached + kinds.count("enc"),
+            "decode_attention": cached * steps,
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+
+
+class NonCausalFlash:
+    """While entered, counts the flash kernel's launches without the
+    causal mask (``attention(..., causal=False)`` on CUDA tensors)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fl_ops
+        self.count, self._ops, real = 0, fl_ops, fl_ops.attention
+
+        def attention(q, k, v, *, causal=True, **kw):
+            self.count += not causal and q.is_cuda
+            return real(q, k, v, causal=causal, **kw)
+        fl_ops.attention, self._real = attention, real
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.attention = self._real
 
 
 def in_range(label, fn):
@@ -930,36 +1028,46 @@ def llm_profile(backends, routes, ranges=None) -> None:
 
 
 def decode_syncs(backend, prompt_len) -> None:
-    """The host syncs of one decode step of ``backend`` at batch 8 after a
-    ``prompt_len``-token prompt (torch's sync debug mode warns at every
-    device-to-host read and every copy the host waits for), by line
-    (outside the counted run)."""
+    """The host syncs of the first two decode steps of ``backend`` at batch
+    8 after a ``prompt_len``-token prompt (torch's sync debug mode warns at
+    every device-to-host read and every copy the host waits for), by line
+    (outside the counted run).  The first step also builds the decode
+    kernel's launch plans for caches of these strides; the second shows a
+    step's own syncs."""
     import collections
     import warnings
     import numpy as np
     import torch
+    from repro_torch.data.tokens import modality_inputs
     from repro_torch.models import decode_step, prefill
-    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+    rng = np.random.default_rng(41)
+    tokens = torch.from_numpy(rng.integers(
         0, backend.cfg.vocab_size, (MAX_BATCH, prompt_len))).cuda()
+    # an encdec model's frames (they feed its encoder, not the cache)
+    frames = (modality_inputs(backend.cfg, MAX_BATCH, rng, device="cuda")
+              ["prefix_embeds"] if backend.cfg.family == "encdec" else None)
     with torch.inference_mode():
-        logits, cache = prefill(backend.params, backend.cfg, tokens,
+        logits, cache = prefill(backend.params, backend.cfg, tokens, frames,
                                 max_seq=MAX_SEQ)
         nxt = logits.argmax(-1)
         torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                decode_step(backend.params, backend.cfg, nxt, cache)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
-                                  for w in caught)
-    in_moe = sum(c for line, c in by_line.items()
-                 if line.startswith("moe.py"))
-    print(f"host syncs in one {backend.name} decode step: "
-          f"{sum(by_line.values())} ({in_moe} in the MoE layers), by line "
-          f"{dict(by_line)}")
+        for step in ("first", "second"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    logits, cache = decode_step(backend.params, backend.cfg,
+                                                nxt, cache)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            nxt = logits.argmax(-1)
+            by_line = collections.Counter(
+                f"{Path(w.filename).name}:{w.lineno}" for w in caught)
+            in_moe = sum(c for line, c in by_line.items()
+                         if line.startswith("moe.py"))
+            print(f"host syncs in the {step} {backend.name} decode step: "
+                  f"{sum(by_line.values())} ({in_moe} in the MoE layers), "
+                  f"by line {dict(by_line)}")
 
 
 def moe_form_ab(backend, prompt_len) -> None:
@@ -1026,13 +1134,14 @@ def to_device(tree, dev):
 
 
 def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4,
-                    batch=2) -> None:
-    """Phases 11, 15, 19, 28, 33, 36 and 39: ``arch`` cut to
-    ``num_layers`` layers at full width in f32, on the GPU through the
-    kernels and on the CPU through their plain versions, a batch of
-    ``batch`` prompts of ``prompt_len`` tokens (after the config's prefix
-    embeddings, drawn by ``modality_inputs`` from a fixed seed) and
-    ``new`` new tokens."""
+                    batch=2, tol=1e-3) -> None:
+    """Phases 11, 15, 19, 28, 33, 36, 39 and 41: ``arch`` cut to
+    ``num_layers`` layers (an encdec model's halves encoder and half
+    decoder layers) at full width in f32, on the GPU through the kernels
+    and on the CPU through their plain versions, a batch of ``batch``
+    prompts of ``prompt_len`` tokens (after the config's prefix embeddings,
+    or with its frames, drawn by ``modality_inputs`` from a fixed seed) and
+    ``new`` new tokens: logits within ``tol``, tokens equal."""
     import dataclasses
     import numpy as np
     import torch
@@ -1042,40 +1151,52 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4,
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
                               activ_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, enc_layers=num_layers // 2,
+                                  dec_layers=num_layers // 2)
     params = {"cuda": init_params(cfg, seed=7, device="cuda")}
     params["cpu"] = to_device(params["cuda"], "cpu")
     prompt = np.random.default_rng(19).integers(0, cfg.vocab_size,
                                                 (batch, prompt_len))
     prefix = modality_inputs(cfg, batch, np.random.default_rng(37),
                              device="cpu").get("prefix_embeds")
-    n_prefix = 0 if prefix is None else prefix.shape[1]
+    n_prefix = (0 if prefix is None or cfg.family == "encdec"
+                else prefix.shape[1])
     logits, tokens = {}, {}
     kernel_ops = llm_kernel_ops()
     before = {k: ops.launches for k, ops in kernel_ops.items()}
-    for dev, p in params.items():
-        lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
-                            None if prefix is None else prefix.to(dev),
-                            max_seq=n_prefix + prompt_len + new)
-        outs, toks = [lg.cpu()], [lg.argmax(-1)]
-        for _ in range(new - 1):
-            lg, cache = decode_step(p, cfg, toks[-1], cache)
-            outs.append(lg.cpu())
-            toks.append(lg.argmax(-1))
-        logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
+    with NonCausalFlash() as noncausal:
+        for dev, p in params.items():
+            lg, cache = prefill(p, cfg, torch.from_numpy(prompt).to(dev),
+                                None if prefix is None else prefix.to(dev),
+                                max_seq=n_prefix + prompt_len + new)
+            outs, toks = [lg.cpu()], [lg.argmax(-1)]
+            for _ in range(new - 1):
+                lg, cache = decode_step(p, cfg, toks[-1], cache)
+                outs.append(lg.cpu())
+                toks.append(lg.argmax(-1))
+            logits[dev], tokens[dev] = outs, torch.cat(toks, 1).cpu()
     ran = {k: ops.launches - before[k] for k, ops in kernel_ops.items()}
-    want = kernel_launches(launch_kinds(cfg), new - 1)
-    if ran != want:
+    kinds = launch_kinds(cfg)
+    want = kernel_launches(kinds, new - 1)
+    # one flash launch without the causal mask per encoder layer and per
+    # cross-attention: none outside the encdec family
+    unmasked = kinds.count("enc") + kinds.count("cross")
+    if ran != want or noncausal.count != unmasked:
         fail(f"the GPU run of the {num_layers}-layer model launched {ran}, "
-             f"not {want}")
+             f"{noncausal.count} flash without the causal mask, not {want}, "
+             f"{unmasked}")
     err = max(float((a - b).abs().max())
               for a, b in zip(logits["cuda"], logits["cpu"]))
-    print(f"{arch}, {num_layers} layers {launch_kinds(cfg)}, f32, batch "
-          f"{batch}, {n_prefix} prefix embeddings + {prompt_len}-token "
-          f"prompt, {new} "
-          f"new tokens: cuda vs cpu logits max err {err:.3g} (tolerance "
-          f"1e-3); tokens {tokens['cuda'].tolist()} (cpu equal: "
-          f"{torch.equal(tokens['cuda'], tokens['cpu'])})")
-    if err > 1e-3 or not torch.equal(tokens["cuda"], tokens["cpu"]):
+    frames = (f"{prefix.shape[1]} frames, " if cfg.family == "encdec"
+              else f"{n_prefix} prefix embeddings + ")
+    print(f"{arch}, {num_layers} layers {kinds}, f32, batch "
+          f"{batch}, {frames}{prompt_len}-token prompt, {new} new tokens: "
+          f"cuda vs cpu logits max err {err:.3g} (tolerance {tol:g}); "
+          f"flash launches {ran['flash_attention']}, {noncausal.count} "
+          f"without the causal mask; tokens {tokens['cuda'].tolist()} (cpu "
+          f"equal: {torch.equal(tokens['cuda'], tokens['cpu'])})")
+    if err > tol or not torch.equal(tokens["cuda"], tokens["cpu"]):
         fail(f"the {num_layers}-layer {arch} differs between cuda and cpu")
     phase(name, t0)
 
@@ -1204,8 +1325,8 @@ def moe_forms(dev) -> None:
 
 
 def served_phase(archs, delta, routes, name, batches, max_seq=None):
-    """Phases 38 and 40: ``archs`` built at full width and full depth in
-    one service (phase 30's path), the peak device memory of the phase,
+    """Phases 38, 40 and 42: ``archs`` built at full width and full depth
+    in one service (phase 30's path), the peak device memory of the phase,
     and the device memory back within 1 GiB of its level before it.
     Returns the launches of the counted run and the backends."""
     import torch
@@ -1223,6 +1344,64 @@ def served_phase(archs, delta, routes, name, batches, max_seq=None):
         fail(f"{name} peaked at {gib(peak)}, within 1 GiB of the card's "
              f"{gib(total)}")
     return launches, backends, start
+
+
+def encdec_service():
+    """Phase 42: whisper-small at full depth beside llama3-8b in one
+    service (phase 38's path), then, outside the counted run,
+    whisper-small's batch again with every count at 0 (36 flash launches,
+    24 of them without the causal mask, and 360 decode launches), its
+    prefill's encoder and decoder apart, and the host syncs of both
+    backends' decode steps.  Returns the launches of the counted run."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import modality_inputs
+    from repro_torch.models import prefill
+    from repro_torch.models.model import encode
+    from repro_torch.serving.engine import Request
+    name = f"42 {WHISPER} beside llama3-8b"
+    launches, backends, start = served_phase(
+        ENCDEC_ARCHS, ENCDEC_DELTA, ENCDEC_ROUTES, name, ENCDEC_BATCHES,
+        {ENCDEC_ROUTES[n]: tokens + MAX_NEW
+         for n, (tokens, _) in ENCDEC_BATCHES.items()})
+    be = backends[WHISPER]
+    prompt_len = ENCDEC_BATCHES[512][0]
+    rng = np.random.default_rng(53)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 100_000, prompt_len),
+                    max_new_tokens=MAX_NEW) for i in range(MAX_BATCH)]
+    kernel_ops = llm_kernel_ops()
+    for ops in kernel_ops.values():
+        ops.launches = 0
+    with NonCausalFlash() as noncausal:
+        res = be.serve_batch(reqs)[0]
+    ran = {k: ops.launches for k, ops in kernel_ops.items()}
+    print(f"  {WHISPER}'s batch of {MAX_BATCH} x {prompt_len} tokens, "
+          f"{be.cfg.enc_seq} frames each, alone: launches {ran}, "
+          f"{noncausal.count} flash without the causal mask")
+    if (ran["flash_attention"], ran["decode_attention"],
+            noncausal.count) != (36, 360, 24) or ran != kernel_launches(
+                launch_kinds(be.cfg), MAX_NEW - 1):
+        fail(f"{WHISPER}'s batch launched {ran} with {noncausal.count} "
+             "unmasked flash, not 36 flash (24 unmasked) and 360 decode")
+    frames = modality_inputs(be.cfg, MAX_BATCH, rng,
+                             device="cuda")["prefix_embeds"]
+    tokens = torch.from_numpy(rng.integers(
+        0, be.cfg.vocab_size, (MAX_BATCH, prompt_len))).cuda()
+    with torch.inference_mode():
+        enc = min(synced(lambda: encode(be.params, be.cfg, frames))[1]
+                  for _ in range(3))
+        pre = min(synced(lambda: prefill(
+            be.params, be.cfg, tokens, frames,
+            max_seq=be.max_seq))[1] for _ in range(3))
+    print(f"  {WHISPER} prefill (best of 3): {pre * 1e3:.2f} ms = encoder "
+          f"{enc * 1e3:.2f} ms + decoder {(pre - enc) * 1e3:.2f} ms; the "
+          f"served batch: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+          f"{res.decode_s / (MAX_NEW - 1) * 1e3:.3f} ms per step")
+    decode_syncs(be, prompt_len)
+    decode_syncs(backends["llama3-8b"], ENCDEC_BATCHES[1024][0])
+    del backends, be
+    released("phase 42", start)
+    return launches
 
 
 def released(name, start) -> None:
@@ -1340,7 +1519,9 @@ def attention_timing(dev):
                                                             "operations")
 
     # recurrentgemma-2b's local layers pass window 2048, wider than the
-    # 1024-token prompt: causal attention is the same function there
+    # 1024-token prompt: causal attention is the same function there.  A
+    # shape of five is (B, H, KV, S, D) over T = S rows, of six (B, H, KV,
+    # S, T, D)
     for arch, shape, kw in (("llama3-8b", (8, 32, 8, 1024, 128), {}),
                             ("qwen2.5-3b", (8, 16, 2, 256, 128), {}),
                             ("recurrentgemma-2b", (8, 10, 1, 1024, 256),
@@ -1351,9 +1532,16 @@ def attention_timing(dev):
                             ("deepseek-7b", (8, 32, 32, 1024, 128), {}),
                             ("llama3-8b-swa", (1, 32, 8, 12_288, 128),
                              {"window": 4096}),
-                            (LLAVA, DENSE_FLASH[-1][0], {})):
-        b, h, kv, s, d = shape
-        q, k, v = randn([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], bf16,
+                            (LLAVA, DENSE_FLASH[-1][0], {}),
+                            (f"{WHISPER} encoder", ENCDEC_FLASH[0][0],
+                             {"causal": False}),
+                            (f"{WHISPER} cross", ENCDEC_FLASH[1][0],
+                             {"causal": False}),
+                            (f"{WHISPER} decoder", ENCDEC_FLASH[2][0], {})):
+        b, h, kv, s, t, d = shape if len(shape) == 6 else shape[:4] + \
+            shape[3:]
+        causal = kw.get("causal", True)
+        q, k, v = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)], bf16,
                         23, dev)
         got = fl_ops.attention(q, k, v, **kw)
         err = attention_close(f"flash at {shape}", got,
@@ -1389,11 +1577,12 @@ def attention_timing(dev):
             mask = (None if window is None or window >= s else
                     (cols <= rows_) & (cols > rows_ - window))
             lib = median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None,
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True), reps=10, inner=5)
-        # row i sees min(i + 1, window) columns; 4 flops per (row, col, d)
-        flops = 4 * b * h * d * causal_keys(s, window)
-        bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * s * d))
+        # causal, row i sees min(i + 1, window) columns, else all T (these
+        # shapes pass no window then); 4 flops per (row, col, d)
+        flops = 4 * b * h * d * (causal_keys(s, window) if causal else s * t)
+        bnd, by = bound(flops, 2 * (2 * b * h * s * d + 2 * b * kv * t * d))
         rate = flops / (dk or kern) / 1e9
         library = ("none (softcap)" if lib is None else
                    f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s)")
@@ -1411,7 +1600,8 @@ def attention_timing(dev):
     # recurrentgemma-2b's ring: 1281 rows at MAX_SEQ 1280 (< its window),
     # of which a 1024-token prompt fills the first lengths; the rings of
     # gemma2-9b and llama3-8b-swa are full (lo None: every length the
-    # ring's 4096 rows), and read with no window
+    # ring's 4096 rows), and read with no window; whisper-small's
+    # cross-attention reads all 1500 frames (lo None too)
     for arch, shape, lo, kw in (
             ("llama3-8b", (8, 32, 8, MAX_SEQ, 128), 1024, {}),
             ("qwen2.5-3b", (8, 16, 2, MAX_SEQ, 128), 256, {}),
@@ -1421,7 +1611,8 @@ def attention_timing(dev):
             ("gemma2-9b", (2, 16, 8, 6160, 256), 6144, {"softcap": 50.0}),
             ("deepseek-7b", (8, 32, 32, 1040, 128), 1024, {}),
             ("llama3-8b-swa", (1, 32, 8, 4096, 128), None, {}),
-            (LLAVA, DENSE_DECODE[-1][0], VLM_MAX_SEQ - MAX_NEW, {})):
+            (LLAVA, DENSE_DECODE[-1][0], VLM_MAX_SEQ - MAX_NEW, {}),
+            (WHISPER, (MAX_BATCH, 12, 12, 1500, 64), None, {})):
         b, h, kv, t_max, d = shape
         q, ck, cv = randn([(b, h, d), (b, kv, t_max, d), (b, kv, t_max, d)],
                           bf16, 31, dev)
@@ -1447,7 +1638,7 @@ def attention_timing(dev):
         # the service reads it (this layer's K/V not left in L2 by the last
         # call)
         n_layers = sum(kind in ("attn", "local")
-                       for kind in get_config(arch).layer_kinds)
+                       for kind in launch_kinds(get_config(arch)))
         caches = torch.empty((n_layers, 2) + ck.shape, dtype=bf16, device=dev)
         caches[:] = torch.stack([ck, cv])
         layer = iter(range(10 ** 6))
@@ -2916,6 +3107,8 @@ def paper_comparison(dev, canny_ops):
 #: requests of seed 0) goes to gemma2-9b-swa (sub-quadratic, 72.90 against
 #: deepseek-7b's 66.32), every other bucket to deepseek-7b.  (g) serves
 #: deepseek-v2-lite-16b (bucket 0) beside llama3-8b (the rest) at δ = 12.4.
+#: (h) serves whisper-small (bucket 0, each batch with its 1500 frames)
+#: beside llama3-8b (the rest) at δ = 25.8.
 SERVE_RUNS = (
     ("a", ["--requests", "24", "--delta", "5"],
      {"llama3-8b", "recurrentgemma-2b"}),
@@ -2933,6 +3126,8 @@ SERVE_RUNS = (
            "--delta", "5"], {"deepseek-7b", "gemma2-9b-swa"}),
     ("g", ["--archs", DSV2, "llama3-8b", "--delta", "12.4", "--requests",
            "16"], {DSV2, "llama3-8b"}),
+    ("h", ["--archs", WHISPER, "llama3-8b", "--delta", "25.8", "--requests",
+           "16"], {WHISPER, "llama3-8b"}),
 )
 #: device memory a run may hold beyond one copy of its archs' weights
 #: (caches of 96 rows, activations of up to 4 pods' batches of 8)
@@ -3154,7 +3349,7 @@ def adapt_check(run, path):
 
 
 def serve_driver(device="cuda", extra=()):
-    """Phase 31: the serve driver's eight runs on ``device`` (``extra``:
+    """Phase 31: the serve driver's nine runs on ``device`` (``extra``:
     more flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run
     (e) again with ``--device cpu --reduced``.  Returns the LLM kernels'
     launches summed over the runs."""
@@ -3652,9 +3847,15 @@ def main() -> None:
         VLM_BATCHES, {LLAVA: VLM_MAX_SEQ})
     del backends
     released("phase 40", start)
+
+    # 41-42 ------------------------------------ the encdec family, whisper
+    llm_cuda_vs_cpu(WHISPER, 32, f"41 {WHISPER} cuda vs cpu", num_layers=4,
+                    new=9, tol=1e-4)
+    encdec_launches = encdec_service()
     served_launches = {k: sum(run[k] for run in (
         llm_launches, ssm_launches, hybrid_launches, pool_launches,
-        driver_launches, dense_launches, mla_launches, vlm_launches))
+        driver_launches, dense_launches, mla_launches, vlm_launches,
+        encdec_launches))
         for k in llm_launches}
 
     leaked = sorted(m for m in sys.modules

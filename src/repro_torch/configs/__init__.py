@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full-size published config, equal field
 for field to the JAX package's (a ``-swa`` name gives its module's
 ``SWA_VARIANT``); ``get_config(name).reduced()`` is the CPU test variant.
-The other architectures of ``repro.configs`` raise ``KeyError`` until the
-slice that ports their family.
+Every architecture of ``repro.configs`` is here, in its registry's order;
+an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ _MODULES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "deepseek-7b": "deepseek_7b",
     "gemma2-9b": "gemma2_9b",
+    "whisper-small": "whisper_small",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen2.5-3b": "qwen2_5_3b",
     "mamba2-370m": "mamba2_370m",
@@ -31,8 +32,7 @@ _MODULES = {
 
 def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"arch '{name}' is unknown or its family is not "
-                       f"ported yet; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch '{name}'; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SWA_VARIANT if name.endswith("-swa") else mod.CONFIG
 

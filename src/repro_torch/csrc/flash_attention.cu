@@ -1,5 +1,5 @@
-// Causal GQA flash attention (prefill) with an optional sliding window and
-// tanh softcap.
+// GQA flash attention (prefill), causal or not, with an optional sliding
+// window and tanh softcap.
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py::flash_attention
@@ -8,10 +8,12 @@
 // in VMEM scratch.  Here one thread block owns one (batch, head, 64-row Q
 // tile) and loops over the K/V tiles itself, carrying the state in
 // registers; tiles that the causal or window mask excludes entirely are
-// never loaded.  Head h reads KV head h / (H / KV).  The kernels mask a
-// ragged S and T themselves (the Pallas kernel asserted S % 128 == 0):
-// rows past S are not written, columns past T are masked and their K/V
-// rows zero-filled.
+// never loaded.  Causal, row i sees the columns j <= i (by index, with
+// S != T too); not causal, every column j < T, a window still keeping
+// only j > i - window (the Pallas kernel's `causal` flag).  Head h reads
+// KV head h / (H / KV).  The kernels mask a ragged S and T themselves
+// (the Pallas kernel asserted S % 128 == 0): rows past S are not written,
+// columns past T are masked and their K/V rows zero-filled.
 //
 // Bound on the H100: operations.  Per (row, visible column) the function
 // does 4 * D flops against 2 * D * sizeof(T) / 64 bytes of K/V per row of
@@ -65,7 +67,7 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int group,
@@ -101,7 +103,7 @@ __global__ void __launch_bounds__(NT)
 
   // the columns any row of this tile can see: causal stops at the tile's
   // last row, the window starts after row0 - window
-  const int col_end = min(t_len, row0 + BQ);
+  const int col_end = CAUSAL ? min(t_len, row0 + BQ) : t_len;
   const int col_begin = window > 0 ? max(0, row0 - window + 1) : 0;
   for (int col0 = (col_begin / BK) * BK; col0 < col_end; col0 += BK) {
     __syncthreads();  // the previous tile's readers are done
@@ -138,7 +140,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + tx + 16 * j;
-        bool ok = col < t_len && col <= row;
+        bool ok = col < t_len && (!CAUSAL || col <= row);
         if (window > 0) ok = ok && col > row - window;
         const float x = repro_torch::apply_softcap(sc[i][j] * scale, cap);
         sc[i][j] = ok ? x : NEG_INF;
@@ -193,17 +195,29 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The causal mask is a template argument: the unmasked kernel is compiled
+// apart, and the causal one exactly as it was before it existed.
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kv, int s, int t, const long long* st, float scale,
-           int window, float cap, cudaStream_t stream) {
+           bool causal, int window, float cap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const cudaError_t attr[2] = {
+      allow_smem(flash_kernel<T, D, false>, smem),
+      allow_smem(flash_kernel<T, D, true>, smem)};
+  if (attr[causal] != cudaSuccess) return static_cast<int>(attr[causal]);
+  const auto kernel =
+      causal ? flash_kernel<T, D, true> : flash_kernel<T, D, false>;
   const dim3 grid((s + BQ - 1) / BQ, h, b);
-  flash_kernel<T, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), h / kv, s, t,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
@@ -215,20 +229,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
              int b, int h, int kv, int s, int t, const long long* st,
-             float scale, int window, float cap, cudaStream_t stream) {
+             float scale, bool causal, int window, float cap,
+             cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                           cap, stream);
+      return launch<T, 32>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                           window, cap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                           cap, stream);
+      return launch<T, 64>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                           window, cap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                            cap, stream);
+      return launch<T, 128>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                            window, cap, stream);
     case 256:  // 213,760 B of shared memory: one block per SM
-      return launch<T, 256>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                            cap, stream);
+      return launch<T, 256>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                            window, cap, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -313,7 +328,7 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[DP / 2],
     repro_torch::wgmma_rs_n256(o, a, db);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WgTile<D>::NT)
     flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -351,9 +366,10 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
   // the columns any row of the block can see: causal stops at its last
   // row, the window starts after row0 - window; and those of the
   // warpgroup's rows, which compute only the tiles they see
-  const int col_end = min(t_len, row0 + MQ * NWG);
+  const int col_end = CAUSAL ? min(t_len, row0 + MQ * NWG) : t_len;
   const int col_begin = window > 0 ? max(0, row0 - window + 1) : 0;
-  const int wg_end = wg_row0 < s_len ? min(t_len, wg_row0 + MQ) : 0;
+  const int wg_end =
+      wg_row0 >= s_len ? 0 : CAUSAL ? min(t_len, wg_row0 + MQ) : t_len;
   const int wg_begin = window > 0 ? max(0, wg_row0 - window + 1) : 0;
   const int first = (col_begin / BK) * BK;
   const int ntiles = (col_end - first + BK - 1) / BK;
@@ -417,8 +433,9 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
       repro_torch::fence_regs(sc);
 
       // scale (in log2 units: exp2 of the scaled score is exp of the
-      // score), softcap and mask (only where the tile crosses the diagonal,
-      // T or the window for some row of the warp); sc[4 j + e] is row
+      // score), softcap and mask (only where the tile crosses the causal
+      // diagonal, T or the window for some row of the warp); sc[4 j + e] is
+      // row
       // wrow + g + 8 (e / 2), column col0 + 8 j + 2 t4 + e % 2
       if (cap > 0.f) {
 #pragma unroll
@@ -428,13 +445,13 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
       }
-      if (col0 + BK - 1 > wrow || col0 + BK > t_len ||
+      if ((CAUSAL && col0 + BK - 1 > wrow) || col0 + BK > t_len ||
           (window > 0 && col0 <= wrow + 15 - window)) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int row = wrow + g + (i % 4 / 2) * 8;
           const int col = col0 + i / 4 * 8 + 2 * t4 + (i & 1);
-          bool ok = col < t_len && col <= row;
+          bool ok = col < t_len && (!CAUSAL || col <= row);
           if (window > 0) ok = ok && col > row - window;
           if (!ok) sc[i] = NEG_INF;
         }
@@ -509,16 +526,19 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
                  int h, int kv, int s, int t, const long long* st,
-                 float scale, int window, float cap, cudaStream_t stream) {
+                 float scale, bool causal, int window, float cap,
+                 cudaStream_t stream) {
   constexpr size_t smem = WgTile<D>::smem();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const cudaError_t attr[2] = {
+      allow_smem(flash_kernel_wgmma<D, false>, smem),
+      allow_smem(flash_kernel_wgmma<D, true>, smem)};
+  if (attr[causal] != cudaSuccess) return static_cast<int>(attr[causal]);
+  const auto kernel =
+      causal ? flash_kernel_wgmma<D, true> : flash_kernel_wgmma<D, false>;
   constexpr int rows = MQ * WgTile<D>::NWG;
   const dim3 grid(b * h, (s + rows - 1) / rows);
   using bf16 = __nv_bfloat16;
-  flash_kernel_wgmma<D><<<grid, WgTile<D>::NT, smem, stream>>>(
+  kernel<<<grid, WgTile<D>::NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), h, h / kv, s, t,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
@@ -529,21 +549,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
 
 int dispatch_wgmma(int d, const void* q, const void* k, const void* v,
                    void* o, int b, int h, int kv, int s, int t,
-                   const long long* st, float scale, int window, float cap,
-                   cudaStream_t stream) {
+                   const long long* st, float scale, bool causal,
+                   int window, float cap, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch_wgmma<32>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                              cap, stream);
+      return launch_wgmma<32>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                              window, cap, stream);
     case 64:
-      return launch_wgmma<64>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                              cap, stream);
+      return launch_wgmma<64>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                              window, cap, stream);
     case 128:
-      return launch_wgmma<128>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                               cap, stream);
+      return launch_wgmma<128>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                               window, cap, stream);
     case 256:
-      return launch_wgmma<256>(q, k, v, o, b, h, kv, s, t, st, scale, window,
-                               cap, stream);
+      return launch_wgmma<256>(q, k, v, o, b, h, kv, s, t, st, scale, causal,
+                               window, cap, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -553,17 +573,18 @@ int dispatch_wgmma(int d, const void* q, const void* k, const void* v,
 // q [b, h, s, d], k and v [b, kv, t, d], o [b, h, s, d] on the device, in
 // f32 (bf16 == 0) or bf16 (bf16 == 1), with the element strides of the
 // batch, head and sequence dims in st[12] (q, k, v, o; the last dim is
-// contiguous, rows 16-byte aligned).  window <= 0: none; cap <= 0: none.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// contiguous, rows 16-byte aligned).  causal != 0: row i sees columns
+// j <= i only; window <= 0: none; cap <= 0: none.  Launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int h, int kv, int s, int t,
                                int d, const long long* st, float scale,
-                               int window, float cap, int bf16,
+                               int causal, int window, float cap, int bf16,
                                void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch_wgmma(d, q, k, v, o, b, h, kv, s, t, st, scale, window,
-                          cap, cs);
-  return dispatch<float>(d, q, k, v, o, b, h, kv, s, t, st, scale, window,
-                         cap, cs);
+    return dispatch_wgmma(d, q, k, v, o, b, h, kv, s, t, st, scale,
+                          causal != 0, window, cap, cs);
+  return dispatch<float>(d, q, k, v, o, b, h, kv, s, t, st, scale,
+                         causal != 0, window, cap, cs);
 }

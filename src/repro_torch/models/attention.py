@@ -1,5 +1,6 @@
-"""GQA attention (global, and sliding-window for ``"local"`` layers),
-through the port's two kernels.
+"""GQA attention (global, and sliding-window for ``"local"`` layers; the
+encoder's unmasked self-attention and the decoder's cross-attention of
+the encdec family), through the port's two kernels.
 
 Prefill runs the flash-attention kernel where the JAX package runs
 ``chunked_causal_attention``; decode runs the flash-decode kernel over the
@@ -13,7 +14,16 @@ them; decode writes the new token at slot pos % T and attends the first
 min(pos + 1, T) rows with no window, each of them in the key set.  A
 global layer's T is max_seq, which its config never passes
 (``bounded_by_max_seq``), so its slot is its position and it never wraps;
-a ``"local"`` layer's T is its ring's R rows.
+a ``"local"`` layer's T is its ring's R rows.  A config without RoPE
+(``use_rope`` False: whisper, whose decoder positions are all zero in the
+JAX package, where RoPE at angle 0 is the identity) projects without it.
+
+Whisper's encoder runs flash with ``causal=False`` over its frames (the
+JAX package's ``gqa_scores_softmax`` with a zero bias).  Cross-attention
+reads K/V projected once from the encoder's output (``encode_cross_kv``)
+and kept in the cache as [B, KV, T, hd]: every query attends all T rows,
+through flash with ``causal=False`` over the prompt and through the decode
+kernel over all T rows in a decode step.
 
 MLA (DeepSeek-V2's multi-head latent attention) runs in plain PyTorch, as
 the JAX package runs it in XLA einsums: its q·k width of 192 and v width
@@ -22,7 +32,7 @@ of 128 suit neither kernel.  Prefill expands the keys and values
 scores, probabilities cast to the values' dtype); decode attends in the
 latent space with the up-projections absorbed (``mla_decode_v2``, the
 reference's one-device carry path: the old latent rows merged with the
-new token's).  Cross-attention and the sharded paths are not ported.
+new token's).  The sharded paths are not ported.
 """
 from __future__ import annotations
 
@@ -60,14 +70,17 @@ def init_mla(gen, cfg: ModelConfig, dtype, device=None):
 
 
 def _project(p, cfg: ModelConfig, x, positions):
-    """q [B,S,H,hd] and k [B,S,KV,hd] after RoPE, v [B,S,KV,hd]."""
+    """q [B,S,H,hd] and k [B,S,KV,hd] after RoPE (none without
+    ``cfg.use_rope``: ``positions`` unused), v [B,S,KV,hd]."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.view(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.view(b, s, kv, hd), positions, cfg.rope_theta)
+    q, k = q.view(b, s, h, hd), k.view(b, s, kv, hd)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.view(b, s, kv, hd)
 
 
@@ -84,17 +97,18 @@ def _fill_ring(cache, k, v) -> None:
         ring[:, :, :n - head].copy_(new[:, :, s - n + head:])
 
 
-def attention_forward(p, cfg: ModelConfig, x, positions, *, window=None,
-                      cache=None):
-    """Full-sequence causal attention (forward / prefill), over the last
-    ``window`` positions when windowed.  x [B,S,d]; ``cache`` (optional)
-    is this layer's (k, v) [B,KV,T,hd], which keeps the last min(S, T) of
-    the prompt's K/V."""
+def attention_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
+                      window=None, cache=None):
+    """Full-sequence self-attention (forward / prefill), causal unless
+    ``causal`` is False (whisper's encoder), over the last ``window``
+    positions when windowed.  x [B,S,d]; ``cache`` (optional) is this
+    layer's (k, v) [B,KV,T,hd], which keeps the last min(S, T) of the
+    prompt's K/V."""
     b, s, _ = x.shape
     q, k, v = _project(p, cfg, x, positions)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
-    out = flash_ops.attention(q.transpose(1, 2), k, v, window=window,
-                              softcap=cfg.attn_softcap)
+    out = flash_ops.attention(q.transpose(1, 2), k, v, causal=causal,
+                              window=window, softcap=cfg.attn_softcap)
     if cache is not None:
         _fill_ring(cache, k, v)
     return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
@@ -117,6 +131,46 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, positions,
     out = decode_ops.decode(q[:, 0], ck[:, :, :rows], cv[:, :, :rows],
                             lengths, softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["wo"]
+
+
+def encode_cross_kv(p, cfg: ModelConfig, enc, cache=None):
+    """The cross-attention K/V [B,KV,T,hd] of the encoder's output enc
+    [B,T,d] (``wk``, ``wv``; no bias, as in the JAX package), written into
+    ``cache`` (this layer's (k, v) [B,KV,T,hd]) when given."""
+    b, t, _ = enc.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k, v = ((enc @ p[w]).view(b, t, kv, hd).transpose(1, 2)
+            for w in ("wk", "wv"))
+    if cache is None:
+        return k, v
+    cache.k.copy_(k)
+    cache.v.copy_(v)
+    return cache
+
+
+def _cross_queries(p, cfg: ModelConfig, x):
+    b, s, _ = x.shape
+    return (x @ p["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
+
+
+def cross_attention_forward(p, cfg: ModelConfig, x, enc_kv):
+    """Cross-attention over the prompt: x [B,S,d], every query row over
+    every row of ``enc_kv``'s k, v [B,KV,T,hd] (flash, not causal) ->
+    [B,S,d]."""
+    b, s, _ = x.shape
+    k, v = enc_kv
+    out = flash_ops.attention(_cross_queries(p, cfg, x).transpose(1, 2), k,
+                              v, causal=False)
+    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+
+
+def cross_attention_decode(p, cfg: ModelConfig, x, enc_kv, lengths):
+    """A decode step's cross-attention: x [B,1,d] over all T rows of
+    ``enc_kv``'s k, v [B,KV,T,hd] (the decode kernel; ``lengths`` [B]
+    int32 holds T) -> [B,1,d]."""
+    k, v = enc_kv
+    out = decode_ops.decode(_cross_queries(p, cfg, x)[:, 0], k, v, lengths)
+    return out.reshape(x.shape[0], 1, -1) @ p["wo"]
 
 
 #: the reference's additive mask value

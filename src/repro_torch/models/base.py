@@ -2,10 +2,8 @@
 
 One dataclass covers every family of ``repro.models`` and keeps all its
 fields, so a config compares field for field with the reference.  The port
-runs the ``dense`` and ``moe`` families with the ``("attn",)`` layout, the
-``ssm`` family with the ``("ssm",)`` layout and the ``hybrid`` family with
-RecurrentGemma's ``("rec", "rec", "local")`` blocks and ``("rec", "rec")``
-tail so far (``models/model.py`` raises for the rest).
+runs every family, in the layouts and variants of the configs it
+registers (``models/model.py::check_config`` raises for the rest).
 """
 from __future__ import annotations
 

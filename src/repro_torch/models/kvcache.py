@@ -37,6 +37,15 @@ The other layouts keep one entry per layer, in layer order, in a list
   them, give that key set with every row valid, so the kernel reads the
   ring's first min(pos + 1, R) rows with no window and no ``pos_buf``.
 
+The encdec family (whisper) keeps the decoder's self-attention K/V
+stacked as above, [dec_layers, B, KV, max_seq, hd], and the
+cross-attention K/V of every decoder layer, ``cross_k`` / ``cross_v``
+[dec_layers, B, KV, enc_seq, hd] in the activation dtype, computed once
+from the encoder's output in prefill and read at every decode step.  The
+JAX package allocates the same rows as [dec_layers, B, enc_seq, KV, hd];
+the port keeps them in the layout of its other K/V caches, the one the
+kernels read with each (batch, KV head)'s rows contiguous.
+
 The cache is written in place by ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
@@ -80,16 +89,20 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
                device) -> Dict[str, Any]:
     """Zeroed cache for ``decode_step``; ``pos`` (a Python int) counts the
     tokens so far.  ``max_seq`` sizes the attention caches only."""
-    def kv(rows):
-        shape = (bsz, cfg.num_kv_heads, rows, cfg.head_dim)
+    def kv(rows, *layers):
+        """K/V of ``rows`` rows, [*layers, B, KV, rows, hd]."""
+        shape = (*layers, bsz, cfg.num_kv_heads, rows, cfg.head_dim)
         return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
                          v=torch.zeros(shape, dtype=dtype, device=device))
 
+    if cfg.family == "encdec":
+        cross = kv(cfg.enc_seq, cfg.dec_layers)
+        return {"pos": 0, "max_seq": max_seq,
+                "blocks": {"s0": kv(max_seq, cfg.dec_layers)},
+                "cross_k": cross.k, "cross_v": cross.v}
     if cfg.block_layout == ("attn",) and not cfg.use_mla:
-        shape = (cfg.n_blocks, bsz, cfg.num_kv_heads, max_seq, cfg.head_dim)
-        return {"pos": 0, "max_seq": max_seq, "blocks": {"s0": AttnCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device))}}
+        return {"pos": 0, "max_seq": max_seq,
+                "blocks": {"s0": kv(max_seq, cfg.n_blocks)}}
 
     def entry(kind):
         if kind == "ssm":

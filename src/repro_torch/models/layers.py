@@ -1,5 +1,6 @@
-"""Shared layer primitives: norms, SiLU, tanh GeLU, the SwiGLU and GeGLU
-MLPs, the causal depthwise conv, embeddings and RoPE.
+"""Shared layer primitives: norms, SiLU, tanh GeLU, the SwiGLU, GeGLU and
+ungated GELU MLPs, the causal depthwise conv, embeddings, sinusoidal
+positions and RoPE.
 
 ``init_*`` builds a parameter sub-tree (a dict of tensors), the apply
 functions take (params, x).  Matrices are stored in the activation dtype:
@@ -50,8 +51,9 @@ def silu(x):
 def gelu_tanh(x):
     """``jax.nn.gelu(approximate=True)`` with each op rounded to x's dtype,
     as XLA rounds it in bf16 (``F.gelu(approximate="tanh")`` rounds once):
-    the constants are cast to x's dtype first."""
-    c, k = (torch.tensor(v, dtype=x.dtype, device=x.device)
+    the constants are cast to x's dtype first (filled on x's device: no
+    copy from the host)."""
+    c, k = (torch.full((), v, dtype=x.dtype, device=x.device)
             for v in (math.sqrt(2 / math.pi), 0.044715))
     return x * (0.5 * (1 + torch.tanh(c * (x + k * x ** 3))))
 
@@ -85,19 +87,27 @@ def softcap(x, cap: Optional[float]):
 
 
 _GATES = {"swiglu": silu, "geglu": gelu_tanh}
+#: every MLP variant: the two gated ones, and whisper's ungated GELU
+MLP_VARIANTS = tuple(_GATES) + ("gelu",)
 
 
 def init_mlp(gen, d_model: int, d_ff: int, variant: str, dtype, device=None):
-    if variant not in _GATES:
-        raise ValueError(f"mlp variant {variant!r} is not ported yet")
-    return {"w_gate": dense_init(gen, (d_model, d_ff), dtype, device=device),
-            "w_up": dense_init(gen, (d_model, d_ff), dtype, device=device),
-            "w_down": dense_init(gen, (d_ff, d_model), dtype, device=device)}
+    """A gated MLP's ``w_gate``, ``w_up`` [d, d_ff] and ``w_down`` [d_ff,
+    d]; the ungated ``"gelu"`` one has no ``w_gate``."""
+    if variant not in MLP_VARIANTS:
+        raise ValueError(f"mlp variant {variant!r} is unknown")
+    names = ("w_up",) if variant == "gelu" else ("w_gate", "w_up")
+    p = {n: dense_init(gen, (d_model, d_ff), dtype, device=device)
+         for n in names}
+    p["w_down"] = dense_init(gen, (d_ff, d_model), dtype, device=device)
+    return p
 
 
 def apply_mlp(params, x, variant: str):
-    if variant not in _GATES:
-        raise ValueError(f"mlp variant {variant!r} is not ported yet")
+    if variant not in MLP_VARIANTS:
+        raise ValueError(f"mlp variant {variant!r} is unknown")
+    if variant == "gelu":
+        return gelu_tanh(x @ params["w_up"]) @ params["w_down"]
     act = _GATES[variant](x @ params["w_gate"]) * (x @ params["w_up"])
     return act @ params["w_down"]
 
@@ -126,6 +136,31 @@ def embed(params, tokens, *, scale_by_sqrt_dim: bool = False,
 def unembed(params, x, *, cap: Optional[float] = None):
     """Logits in f32 through the tied embedding table."""
     return softcap((x @ params["table"].to(x.dtype).T).float(), cap)
+
+
+def sinusoidal_positions(num_pos: int, dim: int, dtype=torch.float32,
+                         device=None):
+    """[num_pos, dim] absolute position embeddings: angle pos / 10000 **
+    (2 i / dim) in f32, then [sin, cos] concatenated (not interleaved) and
+    cast to ``dtype``."""
+    pos = torch.arange(num_pos, dtype=torch.float32, device=device)[:, None]
+    return _sin_cos(pos, dim).to(dtype)
+
+
+def _sin_cos(pos, dim: int):
+    """[..., dim]: [sin, cos] of pos [..., 1] (f32) over the dim // 2
+    frequencies 10000 ** -(2 i / dim)."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
+    angle = pos / torch.pow(10_000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def position_embedding(pos: int, dim: int, dtype, device=None):
+    """[dim]: row ``pos`` of ``sinusoidal_positions``, computed for that
+    position alone (the JAX decode step's formula), the position filled on
+    the device."""
+    p = torch.full((1,), pos, dtype=torch.float32, device=device)
+    return _sin_cos(p, dim).to(dtype)
 
 
 # ---------------------------------------------------------------- RoPE

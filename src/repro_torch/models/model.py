@@ -1,5 +1,5 @@
-"""Model assembly of the dense, moe, vlm, ssm and hybrid families: init /
-forward / prefill / decode.
+"""Model assembly of the dense, moe, vlm, ssm, hybrid and encdec families:
+init / forward / prefill / decode.
 
 A dense model is embed -> N x [pre-norm attention][pre-norm SwiGLU or
 GeGLU MLP] -> final norm -> tied unembedding, its attention layers global
@@ -16,26 +16,36 @@ an ssm model (Mamba-2) is embed -> N x
 a hybrid model (RecurrentGemma) is gemma-scaled embed -> 8 x [rec, rec,
 local] + [rec, rec] sub-layers, each [pre-norm mixer][pre-norm GeGLU MLP]
 (the mixer an RG-LRU block or sliding-window attention) -> final norm ->
-tied unembedding.  Where the JAX package scans over layer parameters
-stacked on a leading n_blocks dim per block slot, the port loops over a
-list: ``params["blocks"]["s0"]`` holds one dict per layer in layer order
-(``cfg.layer_kinds``) with the JAX names (``norm1``,
+tied unembedding; an encdec model (Whisper) encodes frame embeddings
+(``frame_proj``, sinusoidal positions, N x [pre-norm unmasked attention]
+[pre-norm GELU MLP], ``enc_norm``) and decodes text with embed +
+sinusoidal positions -> N x [pre-norm causal attention][pre-norm
+cross-attention over the encoder's output][pre-norm GELU MLP] -> final
+norm -> tied unembedding, no RoPE.  Where the JAX package scans over
+layer parameters stacked on a leading n_blocks dim per block slot, the
+port loops over a list: ``params["blocks"]["s0"]`` holds one dict per
+layer in layer order (``cfg.layer_kinds``) with the JAX names (``norm1``,
 ``attn.{wq,wk,wv,wo[,bq,bk,bv]}``, ``mla.{wq,w_dkv,w_kr,w_uk,w_uv,wo}`` or
 ``rec.{w_gate,w_x,conv_w,conv_b,
 lru_wa,lru_ba,lru_wx,lru_bx,log_lambda,w_out}``, [``norm1b``,] ``norm2``,
 ``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,w_gate,w_up,w_down[,
 shared]}``[, ``norm2b``]; or ``norm1``, ``ssm.{in_proj,conv_w,conv_b,
-dt_bias,A_log,D,norm_w,out_proj}``); ``params_from_jax`` unstacks a JAX
-parameter tree into that form, the hybrid's block slots interleaved.
+dt_bias,A_log,D,norm_w,out_proj}``); an encdec model's
+``params["enc_blocks"]`` and ``params["dec_blocks"]`` hold its encoder
+and decoder layers (``norm1``, ``attn``, [``norm_x``, ``xattn``,]
+``norm2``, ``mlp.{w_up,w_down}``) beside ``enc_norm`` and ``frame_proj``;
+``params_from_jax`` unstacks a JAX parameter tree into that form, the
+hybrid's block slots interleaved.
 Matrices, biases and the convs are kept in the activation dtype (cast once
 at load); norm weights, the Mamba-2 per-head scalars, the RG-LRU gate
 parameters and the MoE router stay in f32.
 
-The encdec family and the variants with experts outside the moe family,
-positions without RoPE or other layouts raise ``ValueError``.  A config
-with a global ``"attn"`` layer raises past ``max_seq`` (its cache holds
-positions in order); a ``"local"`` layer's ring takes any length, as in
-the JAX package (``kvcache.py``).
+The variants with experts outside the moe family, positions without RoPE
+or a GELU MLP outside the encdec family, or other layouts raise
+``ValueError``.  A config with a global ``"attn"`` layer (an encdec
+model's decoder too) raises past ``max_seq`` (its cache holds positions
+in order); a ``"local"`` layer's ring takes any length, as in the JAX
+package (``kvcache.py``).
 """
 from __future__ import annotations
 
@@ -46,12 +56,15 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .attention import (attention_decode, attention_forward, init_attention,
-                        init_mla, mla_decode_v2, mla_forward)
+from .attention import (attention_decode, attention_forward,
+                        cross_attention_decode, cross_attention_forward,
+                        encode_cross_kv, init_attention, init_mla,
+                        mla_decode_v2, mla_forward)
 from .base import ModelConfig
 from .kvcache import AttnCache, bounded_by_max_seq, init_cache
 from .layers import (apply_mlp, dense_init, embed, init_embedding, init_mlp,
-                     rms_norm, unembed)
+                     position_embedding, rms_norm, sinusoidal_positions,
+                     unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
@@ -71,7 +84,8 @@ _PORTED = {
     "vlm": _Family(((("attn",), ()),), ("swiglu",), False, False),
     "ssm": _Family(((("ssm",), ()),), ("swiglu",), False, False),
     "hybrid": _Family(((("rec", "rec", "local"), ("rec", "rec")),),
-                      ("geglu",), True, False)}
+                      ("geglu",), True, False),
+    "encdec": _Family(((("attn",), ()),), ("gelu",), False, False)}
 #: the Mamba-2 parameters kept in f32 (the rest take the activation dtype)
 _SSM_F32 = ("dt_bias", "A_log", "D", "norm_w")
 #: the RG-LRU parameters kept in f32: the gates read them in f32
@@ -91,7 +105,10 @@ def check_config(cfg: ModelConfig) -> None:
         ("experts", bool(cfg.num_experts) and cfg.family != "moe"),
         ("post-norms", cfg.post_norm and not fam.post_norm),
         ("scaled embeddings", cfg.embed_scale and not fam.scaled),
-        ("positions without RoPE", not cfg.use_rope)) if bad]
+        ("positions without RoPE", not cfg.use_rope
+         and cfg.family != "encdec"),
+        ("RoPE or q/k/v biases in the encdec family",
+         cfg.family == "encdec" and (cfg.use_rope or cfg.qkv_bias))) if bad]
     if unported:
         raise ValueError(f"{cfg.name}: not ported yet: {', '.join(unported)}")
 
@@ -120,6 +137,25 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
     params = {"embed": init_embedding(gen, cfg.vocab_size, d, adt, dev),
               "final_norm": norm()}
+    if cfg.family == "encdec":
+        def coder_layer(cross):
+            xattn = ({"norm_x": norm(),
+                      "xattn": init_attention(gen, cfg, adt, dev)}
+                     if cross else {})
+            return {"norm1": norm(),
+                    "attn": init_attention(gen, cfg, adt, dev), **xattn,
+                    "norm2": norm(),
+                    "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, adt,
+                                    dev)}
+
+        params["enc_blocks"] = [coder_layer(False)
+                                for _ in range(cfg.enc_layers)]
+        params["dec_blocks"] = [coder_layer(True)
+                                for _ in range(cfg.dec_layers)]
+        params["enc_norm"] = norm()
+        params["frame_proj"] = dense_init(gen, (cfg.vision_dim, d), adt,
+                                          device=dev)
+        return params
     if _has_prefix(cfg):
         params["vision_proj"] = dense_init(gen, (cfg.vision_dim, d), adt,
                                            device=dev)
@@ -151,12 +187,19 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
                 subtree(sub, i, _F32.get(name, ()))
                 for name, sub in slot.items()}
 
+    params = {"embed": {"table": mat(tree["embed"]["table"])},
+              "final_norm": vec(tree["final_norm"])}
+    if cfg.family == "encdec":
+        for name, n in (("enc_blocks", cfg.enc_layers),
+                        ("dec_blocks", cfg.dec_layers)):
+            params[name] = [layer(tree[name], i) for i in range(n)]
+        params["enc_norm"] = vec(tree["enc_norm"])
+        params["frame_proj"] = mat(tree["frame_proj"])
+        return params
     slots = [(tree["blocks"][f"s{j}"], i) for i in range(cfg.n_blocks)
              for j in range(len(cfg.block_layout))]
     slots += [(tree["trailing"][f"s{j}"], 0)
               for j in range(len(cfg.trailing_layout))]
-    params = {"embed": {"table": mat(tree["embed"]["table"])},
-              "final_norm": vec(tree["final_norm"])}
     if _has_prefix(cfg):
         params["vision_proj"] = mat(tree["vision_proj"])
     params["blocks"] = {"s0": [layer(slot, i) for slot, i in slots]}
@@ -260,12 +303,88 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
+def encode(params, cfg: ModelConfig, frames):
+    """An encdec model's encoder output [B, T, d] of frame embeddings
+    ``frames`` [B, T, vision_dim]: cast to the activation dtype and
+    projected by ``frame_proj`` in it, plus the sinusoidal positions, then
+    every encoder layer (unmasked self-attention, GELU MLP) and
+    ``enc_norm``."""
+    check_config(cfg)
+    if frames is None:
+        raise ValueError(f"{cfg.name} needs frame embeddings "
+                         "(prefix_embeds)")
+    adt, proj = cfg.adtype, params["frame_proj"]
+    x = frames.to(proj.device, adt) @ proj
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, adt, x.device)
+    for p in params["enc_blocks"]:
+        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
+        x = x + attention_forward(p["attn"], cfg, h, None, causal=False)
+        h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps, plus_one=True)
+
+
+def _cross_entry(cache, i):
+    """Decoder layer i's cross-attention K/V, views of the cache."""
+    return AttnCache(cache["cross_k"][i], cache["cross_v"][i])
+
+
+def _decoder_prompt(params, cfg: ModelConfig, tokens, enc, cache=None):
+    """An encdec model's decoder hidden states [B,S,d] over the prompt,
+    after the final norm; with ``cache``, each layer's self-attention K/V
+    land in its rows [0, S) and its cross-attention K/V of ``enc`` in
+    ``cross_k`` / ``cross_v``."""
+    x = _embed(params, cfg, tokens)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, x.device)
+    for i, p in enumerate(params["dec_blocks"]):
+        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
+        x = x + attention_forward(p["attn"], cfg, h, None, cache=None
+                                  if cache is None else
+                                  _entry(cache["blocks"]["s0"], i))
+        h = rms_norm(x, p["norm_x"], cfg.norm_eps, plus_one=True)
+        kv = encode_cross_kv(p["xattn"], cfg, enc, None if cache is None
+                             else _cross_entry(cache, i))
+        x = x + cross_attention_forward(p["xattn"], cfg, h, kv)
+        h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
+
+
+def _decoder_step(params, cfg: ModelConfig, token, cache):
+    """An encdec model's decode step: the token's embedding plus its
+    position's, each decoder layer's self-attention over the first pos + 1
+    rows of its cache (the new K/V written at row pos) and cross-attention
+    over all ``enc_seq`` rows of its cross K/V."""
+    pos = cache["pos"]
+    x = _embed(params, cfg, token)
+    x = x + position_embedding(pos, cfg.d_model, x.dtype, x.device)
+    b, dev = x.shape[0], x.device
+    self_rows = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+    cross_rows = torch.full((b,), cfg.enc_seq, dtype=torch.int32, device=dev)
+    for i, p in enumerate(params["dec_blocks"]):
+        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
+        x = x + attention_decode(p["attn"], cfg, h,
+                                 _entry(cache["blocks"]["s0"], i), pos, None,
+                                 self_rows)
+        h = rms_norm(x, p["norm_x"], cfg.norm_eps, plus_one=True)
+        x = x + cross_attention_decode(p["xattn"], cfg, h,
+                                       _cross_entry(cache, i), cross_rows)
+        h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
+
+
 def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Full-sequence logits [B, P+S, V] (f32).  tokens [B, S] int;
-    ``prefix_embeds`` [B, P, vision_dim] (vlm) go before the text."""
-    return unembed(params["embed"], _prompt_layers(
-        params, cfg, tokens, prefix_embeds=prefix_embeds),
-        cap=cfg.final_softcap)
+    ``prefix_embeds`` [B, P, vision_dim] (vlm) go before the text; an
+    encdec model's (its frame embeddings [B, T, vision_dim]) go through
+    the encoder, and the logits are the text's [B, S, V]."""
+    if cfg.family == "encdec":
+        x = _decoder_prompt(params, cfg, tokens,
+                            encode(params, cfg, prefix_embeds))
+    else:
+        x = _prompt_layers(params, cfg, tokens, prefix_embeds=prefix_embeds)
+    return unembed(params["embed"], x, cap=cfg.final_softcap)
 
 
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
@@ -275,9 +394,12 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
     and recurrent states for ``decode_step``, its ``pos`` P + S).
     ``max_seq`` sizes the attention caches (a local layer's ring,
     ``kvcache.py``); a config without a global ``"attn"`` layer takes any
-    prompt."""
+    prompt.  An encdec model's ``prefix_embeds`` are its frames: the
+    encoder takes them, the cache keeps their cross-attention K/V, and
+    ``pos`` and ``max_seq`` count the text only."""
     b = tokens.shape[0]
     s = tokens.shape[1] + (0 if prefix_embeds is None
+                           or cfg.family == "encdec"
                            else prefix_embeds.shape[1])
     max_seq = max_seq or s
     if bounded_by_max_seq(cfg) and s > max_seq:
@@ -286,8 +408,12 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
                          "not ported)")
     cache = init_cache(cfg, b, max_seq, cfg.adtype,
                        params["embed"]["table"].device)
-    x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
-                       prefix_embeds)
+    if cfg.family == "encdec":
+        x = _decoder_prompt(params, cfg, tokens,
+                            encode(params, cfg, prefix_embeds), cache)
+    else:
+        x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
+                           prefix_embeds)
     cache["pos"] = s
     return unembed(params["embed"], x[:, -1:], cap=cfg.final_softcap), cache
 
@@ -298,13 +424,22 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     or at slot pos % R of a local layer's ring, each recurrent layer's new
     state, then ``pos + 1``) and returned."""
     check_config(cfg)
-    pos, c = cache["pos"], cache["blocks"]["s0"]
-    x = _embed(params, cfg, token)
-    b = x.shape[0]
-    if bounded_by_max_seq(cfg) and pos >= cache["max_seq"]:
+    if bounded_by_max_seq(cfg) and cache["pos"] >= cache["max_seq"]:
         raise ValueError(f"the cache holds {cache['max_seq']} positions and "
                          "is full (the global layers' wrapping ring is not "
                          "ported)")
+    step = _decoder_step if cfg.family == "encdec" else _layers_step
+    x = step(params, cfg, token, cache)
+    cache["pos"] += 1
+    return unembed(params["embed"], x, cap=cfg.final_softcap), cache
+
+
+def _layers_step(params, cfg: ModelConfig, token, cache):
+    """The hidden state [B,1,d] after every layer and the final norm, for
+    one decode step of the token at ``cache["pos"]``."""
+    pos, c = cache["pos"], cache["blocks"]["s0"]
+    x = _embed(params, cfg, token)
+    b = x.shape[0]
     entries = [_entry(c, i) if kind in ("attn", "local")
                and not _is_mla(cfg, kind) else None
                for i, kind in enumerate(cfg.layer_kinds)]
@@ -328,6 +463,4 @@ def decode_step(params, cfg: ModelConfig, token, cache):
             o = attention_decode(p["attn"], cfg, h, entries[i], pos,
                                  positions, lengths[entries[i].k.shape[2]])
         x = _residuals(p, cfg, kind, x, o)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
-    cache["pos"] += 1
-    return unembed(params["embed"], x, cap=cfg.final_softcap), cache
+    return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)

@@ -1,5 +1,5 @@
 """Batched serving engine: the LLM ``Backend`` (prefill + greedy decode
-over a dense, MoE, VLM, Mamba-2 or RecurrentGemma model), the queued
+over a dense, MoE, VLM, Mamba-2, RecurrentGemma or Whisper model), the queued
 request, its result, and the per-backend ``DispatchQueue`` that batches
 requests into ``serve_batch`` calls.
 """
@@ -49,9 +49,10 @@ class Backend:
     Implements the ``ExecutionBackend`` protocol (serving/backend.py);
     registered under kind ``"llm"``.  The model runs on ``device`` (CUDA
     unless the caller asks for the CPU); ``params`` default to seeded
-    random weights drawn there.  A vlm model's prefix embeddings are drawn
-    for each batch from the backend's own generator (seeded with
-    ``seed``), as the JAX package's backend draws them."""
+    random weights drawn there.  A vlm model's prefix embeddings (an
+    encdec model's frame embeddings) are drawn for each batch from the
+    backend's own generator (seeded with ``seed``), as the JAX package's
+    backend draws them."""
 
     def __init__(self, name: str, cfg: ModelConfig, params=None, *,
                  max_batch: int = 8, max_seq: int = 256, seed: int = 0,
@@ -80,9 +81,10 @@ class Backend:
         groups by length automatically.  With a global attention layer
         (``"attn"``) the prefix embeddings, the prompt and the generated
         tokens must fit ``max_seq`` (that layer's cache, kept in position
-        order); a
-        sliding-window layer's ring (``max_seq`` sizes it), an ssm or an
-        RG-LRU state takes any length, as in the JAX package."""
+        order); an encdec model's frames feed its encoder, not that cache,
+        and do not count.  A sliding-window layer's ring (``max_seq`` sizes
+        it), an ssm or an RG-LRU state takes any length, as in the JAX
+        package."""
         if not requests:
             raise ValueError("serve_batch needs at least one request")
         b = len(requests)
@@ -90,7 +92,9 @@ class Backend:
         max_new = max(r.max_new_tokens for r in requests)
         prefix = modality_inputs(self.cfg, b, self._rng,
                                  device=self.device).get("prefix_embeds")
-        n_prefix = 0 if prefix is None else prefix.shape[1]
+        # the prefix rows that enter the decoder's cache (not the frames)
+        n_prefix = (0 if prefix is None or self.cfg.family == "encdec"
+                    else prefix.shape[1])
         if bounded_by_max_seq(self.cfg) and \
                 n_prefix + max_prompt + max(max_new, 1) - 1 > self.max_seq:
             raise ValueError(

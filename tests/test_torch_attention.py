@@ -41,6 +41,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 4, 4, 128, 128),
                 (1, 10, 1, 128, 256)]
 FLASH_KW = [{}, {"window": 64}, {"softcap": 30.0}]
+#: flash without the causal mask, (B, H, KV, S, T, D): S < T, S > T, MHA
+#: at D = 128 and the MQA group of 10 heads of 256; a window (96 columns)
+#: leaves every row some of the T columns
+NONCAUSAL_SHAPES = [(1, 2, 1, 128, 256, 64), (2, 4, 2, 192, 128, 64),
+                    (1, 4, 4, 64, 192, 128), (1, 10, 1, 128, 128, 256)]
+NONCAUSAL_KW = [{}, {"window": 96}, {"softcap": 30.0}]
 DECODE_SHAPES = [(2, 4, 2, 256, 64), (1, 8, 1, 512, 128),
                  (2, 10, 1, 256, 256)]
 DECODE_KW = [{}, {"window": 128}, {"softcap": 25.0}]
@@ -101,6 +107,40 @@ def test_flash_plain_ragged_sequence_matches_jax_oracle(dtype, kw):
         [(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], dtype, 3)
     _close(flash_ops.attention(q, k, v, **kw).float(),
            jax_mha(jq, jk, jv, **kw), dtype)
+
+
+@pytest.mark.parametrize("shape", NONCAUSAL_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kw", NONCAUSAL_KW,
+                         ids=["plain", "window", "softcap"])
+def test_flash_plain_noncausal_matches_jax_oracle_and_pallas(shape, dtype,
+                                                             kw):
+    """``causal=False`` (whisper's encoder and cross-attention) with S !=
+    T: the oracle's and the Pallas kernel's mask keeps every column, or
+    the window's."""
+    b, h, kv, s, t, d = shape
+    (jq, jk, jv), (q, k, v) = _inputs(
+        [(b, h, s, d), (b, kv, t, d), (b, kv, t, d)], dtype, sum(shape))
+    got = flash_ops.attention(q, k, v, causal=False, **kw).float().numpy()
+    assert got.shape == (b, h, s, d)
+    _close(got, jax_mha(jq, jk, jv, causal=False, **kw), dtype)
+    _close(got, pallas_flash(jq, jk, jv, causal=False, interpret=True,
+                             block_q=64, block_k=64, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kw", FLASH_KW, ids=["plain", "window", "softcap"])
+def test_flash_plain_noncausal_ragged_matches_jax_oracle(dtype, kw):
+    """Any S and T without the mask: a 37-row prompt over 300 frames (not a
+    multiple of 64), and 300 rows over 37."""
+    for s, t in ((37, 300), (300, 37)):
+        b, h, kv, d = 2, 4, 2, 32
+        if "window" in kw and s >= t + kw["window"]:
+            kw = {"window": s}   # every row keeps some column
+        (jq, jk, jv), (q, k, v) = _inputs(
+            [(b, h, s, d), (b, kv, t, d), (b, kv, t, d)], dtype, s)
+        _close(flash_ops.attention(q, k, v, causal=False, **kw).float(),
+               jax_mha(jq, jk, jv, causal=False, **kw), dtype)
 
 
 # ----------------------------------------------------- plain vs JAX, decode
@@ -301,6 +341,47 @@ def _flash_f32_bar(got, q, k, v, **kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", NONCAUSAL_SHAPES + [
+    (2, 12, 12, 100, 1500, 64), (1, 4, 2, 37, 300, 32),
+    (2, 8, 2, 300, 130, 128), (1, 10, 1, 65, 191, 256)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kw", NONCAUSAL_KW + [{"window": 96,
+                                                "softcap": 30.0}],
+                         ids=["plain", "window", "softcap", "both"])
+def test_flash_kernel_noncausal_matches_plain(cuda, shape, dtype, kw):
+    """Both kernels (f32 and bf16) without the causal mask, S != T, ragged
+    S and T; bf16 also within phase 12's bar of the f32 plain version."""
+    b, h, kv, s, t, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)],
+                           dtype, sum(shape), cuda)
+    if "window" in kw and s >= t + kw["window"]:
+        kw = {**kw, "window": s}   # every row keeps some column
+    before = flash_ops.launches
+    got = flash_ops.attention(q, k, v, causal=False, **kw)
+    assert flash_ops.launches == before + 1
+    _close(got.float().cpu(), flash_ref.mha_reference(
+        q, k, v, causal=False, **kw).float().cpu(), dtype)
+    if dtype == "bfloat16":
+        _flash_f32_bar(got, q, k, v, causal=False, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t,causal", [
+    ((8, 12, 12, 1500, 64), 1500, False), ((8, 12, 12, 128, 64), 1500, False),
+    ((8, 12, 12, 128, 64), 128, True)],
+    ids=["encoder", "cross", "decoder"])
+def test_flash_kernel_bf16_at_whispers_shapes(cuda, shape, t, causal):
+    """whisper-small's three flash calls at batch 8: the encoder over its
+    1500 frames, the prompt's cross-attention over them and its causal
+    self-attention."""
+    b, h, kv, s, d = shape
+    q, k, v = _cuda_inputs([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)],
+                           "bfloat16", 29, cuda)
+    _flash_f32_bar(flash_ops.attention(q, k, v, causal=causal), q, k, v,
+                   causal=causal)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,kw", [((8, 32, 8, 1024, 128), {}),
                                       ((8, 10, 1, 1024, 256),
                                        {"window": 2048})],
@@ -426,7 +507,8 @@ def test_decode_kernel_f32_bits_unchanged(cuda, shape, kw):
 @pytest.mark.parametrize("shape,kw", [((8, 32, 8, 1039, 128), {}),
                                       ((8, 16, 2, 270, 128), {}),
                                       ((8, 10, 1, 1036, 256),
-                                       {"window": 2048})])
+                                       {"window": 2048}),
+                                      ((8, 12, 12, 1500, 64), {})])
 def test_decode_kernel_bf16_at_the_main_path_shapes(cuda, shape, kw):
     """Against the plain version in f32, within the output's rounding to
     bf16 plus 1e-4 (phase 12's bar), with the cache cut into splits."""

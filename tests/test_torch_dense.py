@@ -43,8 +43,6 @@ torch.set_num_threads(1)
 
 DENSE = ("deepseek-7b", "gemma2-9b", "gemma2-9b-swa", "llama3-8b-swa")
 SWA = ("llama3-8b-swa", "gemma2-9b-swa")
-#: the registry's architectures whose family is not ported yet
-UNPORTED = ("whisper-small",)
 #: gemma2's caps replaced by ones that bite at the reduced width
 BITING = {"attn_softcap": 0.5, "final_softcap": 1.0}
 
@@ -109,22 +107,28 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_list_configs_equal_jax_but_the_unported():
+    """Every architecture of the JAX registry is ported (whisper-small, the
+    last, since the encdec family): the lists are equal, in order; an
+    unknown name still raises."""
     for variants in (False, True):
-        assert list_configs(include_variants=variants) == [
-            n for n in jax_list_configs(include_variants=variants)
-            if n not in UNPORTED]
+        assert list_configs(include_variants=variants) == \
+            jax_list_configs(include_variants=variants)
     assert set(SWA) <= set(list_configs(True)) - set(list_configs())
-    for name in UNPORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(name)
+    check_config(get_config("whisper-small"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("whisper-small", "family 'encdec'"), ("whisper-small", "mlp 'gelu'"),
-    ("whisper-small", "positions without RoPE")])
-def test_check_config_still_refuses(arch, what):
+@pytest.mark.parametrize("arch,change,what", [
+    ("whisper-small", {"use_rope": True}, "RoPE or q/k/v biases"),
+    ("llama3-8b", {"mlp_variant": "gelu"}, "mlp 'gelu'"),
+    ("deepseek-7b", {"use_rope": False}, "positions without RoPE")])
+def test_check_config_still_refuses(arch, change, what):
+    """What stays refused now that whisper-small runs: RoPE in the encdec
+    family, and its ungated GELU MLP and RoPE-less positions outside it."""
     with pytest.raises(ValueError, match=what):
-        check_config(ModelConfig(**dataclasses.asdict(jax_get_config(arch))))
+        check_config(ModelConfig(**{**dataclasses.asdict(
+            jax_get_config(arch)), **change}))
 
 
 def test_post_norms_carried_across_in_f32():

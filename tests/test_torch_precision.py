@@ -45,13 +45,13 @@ def _parts(x, k):
     return out
 
 
-def flash_emulation(q, k, v, *, window=None, softcap=None, block_k=64,
-                    split=True):
+def flash_emulation(q, k, v, *, causal=True, window=None, softcap=None,
+                    block_k=64, split=True):
     """``flash_kernel_wgmma``'s arithmetic: per K tile of ``block_k``
     columns the scores (exact bf16 products, f32 sums), scale (in log2
-    units), softcap and mask, the online softmax in f32 with exp2, and P V
-    with P as bf16 hi + lo (``split``) or rounded to bf16 once; the output
-    rounded to bf16."""
+    units), softcap and mask (causal or not), the online softmax in f32
+    with exp2, and P V with P as bf16 hi + lo (``split``) or rounded to
+    bf16 once; the output rounded to bf16."""
     b, h, s, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, kv, h // kv, s, d)
@@ -68,9 +68,10 @@ def flash_emulation(q, k, v, *, window=None, softcap=None, block_k=64,
         else:
             sc = sc * (d ** -0.5 * LOG2E)
         cols = torch.arange(c0, c0 + kt.shape[-2])[None, :]
-        ok = cols <= rows
+        ok = cols <= rows if causal else torch.ones(s, kt.shape[-2],
+                                                    dtype=torch.bool)
         if window is not None:
-            ok &= cols > rows - window
+            ok = ok & (cols > rows - window)
         sc = torch.where(ok, sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = torch.exp2(m - m_new)
@@ -138,10 +139,12 @@ def _normal(shapes, seed, dtype=torch.bfloat16):
             for s in shapes]
 
 
-def _flash_share(shape, kw, seed, **emu):
-    """The largest share of phase 12's bar an output element takes."""
+def _flash_share(shape, kw, seed, t=None, **emu):
+    """The largest share of phase 12's bar an output element takes, over
+    keys of ``t`` rows (default S)."""
     b, h, kv, s, d = shape
-    q, k, v = _normal([(b, h, s, d), (b, kv, s, d), (b, kv, s, d)], seed)
+    t = t or s
+    q, k, v = _normal([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)], seed)
     got = flash_emulation(q, k, v, **kw, **emu).float()
     want = flash_ref.mha_reference(q.float(), k.float(), v.float(), **kw)
     return float(((got - want).abs() / (1e-4 + 2 ** -8 * want.abs())).max())
@@ -159,6 +162,24 @@ FLASH_CASES = [((2, 4, 2, 256, 128), {}, 64),
 @pytest.mark.parametrize("shape,kw,block_k", FLASH_CASES)
 def test_flash_rounding_meets_the_f32_bar(shape, kw, block_k):
     assert _flash_share(shape, kw, sum(shape), block_k=block_k) <= 1
+
+
+#: flash without the causal mask, T != S: whisper's encoder (MHA, D = 64,
+#: T = S ragged past the last 64-column tile), its cross-attention (S the
+#: prompt, T the frames), and the generic cases (GQA, D = 32 and 256, S >
+#: T, a window or a softcap without the mask)
+NONCAUSAL_CASES = [((2, 4, 4, 100, 64), 100, {}, 64),
+                   ((2, 4, 4, 48, 64), 300, {}, 64),
+                   ((2, 4, 2, 37, 32), 130, {}, 64),
+                   ((2, 4, 2, 200, 128), 150, {"window": 96}, 64),
+                   ((2, 4, 2, 64, 128), 200, {"softcap": 30.0}, 64),
+                   ((1, 10, 1, 70, 256), 90, {}, 32)]
+
+
+@pytest.mark.parametrize("shape,t,kw,block_k", NONCAUSAL_CASES)
+def test_flash_noncausal_rounding_meets_the_f32_bar(shape, t, kw, block_k):
+    assert _flash_share(shape, {"causal": False, **kw}, sum(shape) + t, t,
+                        block_k=block_k) <= 1
 
 
 def test_flash_needs_the_split_of_p():

@@ -235,6 +235,29 @@ def test_reduced_backends_route_and_decode_as_the_reference(monkeypatch,
                                                             capsys):
     """Real reduced backends (f32) in both drivers, the port's weights the
     JAX backends' own: every request's route and tokens equal."""
+    served = _drive_reduced(monkeypatch, capsys, ["--requests", "8",
+                                                  "--max-new", "4"]
+                            + TWO_ARCHS)
+    assert {b for b, _ in served.values()} == {"qwen2.5-3b", "mamba2-370m"}
+
+
+def test_whisper_beside_llama_routes_and_decodes_as_the_reference(
+        monkeypatch, capsys):
+    """``--archs whisper-small llama3-8b --delta 25.8 --reduced``: bucket 0
+    (whisper-small's 46.58 within 25.8 of the capped 72.0) goes to
+    whisper-small, every longer bucket to llama3-8b; each whisper batch
+    draws its frames (enc_seq of them) at the driver's max_seq of 96.
+    Routes and tokens equal the reference driver's."""
+    served = _drive_reduced(monkeypatch, capsys, [
+        "--archs", "whisper-small", "llama3-8b", "--delta", "25.8",
+        "--requests", "16", "--max-new", "4"])
+    assert {b for b, _ in served.values()} == {"whisper-small", "llama3-8b"}
+
+
+def _drive_reduced(monkeypatch, capsys, argv):
+    """Both drivers over ``argv`` with real reduced backends (f32): the
+    routes of every request equal, each request served once and its
+    tokens equal.  Returns the port's {uid: (backend, tokens)}."""
     monkeypatch.setattr(jax_serve, "get_config", _f32(jax_serve.get_config))
     monkeypatch.setattr(serve, "get_config", _f32(serve.get_config))
     jax_built, served = {}, {}
@@ -264,18 +287,18 @@ def test_reduced_backends_route_and_decode_as_the_reference(monkeypatch,
         return out
 
     monkeypatch.setattr(jax_engine.Backend, "serve_batch", ref_serve)
-    want, got, _ = _drive(monkeypatch, capsys,
-                          ["--requests", "8", "--max-new", "4"] + TWO_ARCHS,
+    want, got, _ = _drive(monkeypatch, capsys, argv,
                           backends=(ref_backend, port_backend),
                           port_flags=["--reduced"])
     route = re.compile(r"^req +(\d+) len= *(\d+) bucket=(\d) -> (\S+)")
     assert [route.match(ln).groups() for ln in got if route.match(ln)] == \
         [route.match(ln).groups() for ln in want if route.match(ln)]
-    assert sorted(served) == sorted(want_served) == list(range(8))
-    assert {b for b, _ in served.values()} == {"qwen2.5-3b", "mamba2-370m"}
+    n = int(argv[argv.index("--requests") + 1])
+    assert sorted(served) == sorted(want_served) == list(range(n))
     for uid, (backend, tokens) in served.items():
         assert backend == want_served[uid][0]
         np.testing.assert_array_equal(tokens, np.asarray(want_served[uid][1]))
+    return served
 
 
 def test_pods_share_one_parameter_set_per_arch(monkeypatch, capsys):

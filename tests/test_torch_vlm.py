@@ -75,8 +75,9 @@ def test_config_equals_jax_and_is_listed():
     assert LLAVA in list_configs()
     check_config(tc)
     assert (tc.num_prefix_embeds, tc.vision_dim) == (2880, 1152)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-small")
+    # the other family with prefix embeddings (frames) is registered too
+    assert "whisper-small" in list_configs()
+    check_config(get_config("whisper-small"))
 
 
 def test_vision_proj_carried_across():

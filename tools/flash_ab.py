@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Times one tree's flash-attention kernel at the main path's shapes, so
+that two versions can be compared in turns on one card.
+
+    python3 tools/flash_ab.py SRC LABEL
+
+SRC is the ``src`` directory of a tree of the port (this checkout's, or a
+``git archive`` of another commit unpacked into a git-ignored directory),
+LABEL names it in the output.  Run from the repository's root on a
+machine with a GPU, once per tree and in turns (parent, change, change,
+parent), each in a process of its own:
+
+    git archive HEAD~1 src/repro_torch | tar -x -C artifacts/parent
+    for t in parent change change parent; do
+        src=src; [ $t = parent ] && src=artifacts/parent/src
+        python3 tools/flash_ab.py $src $t
+    done
+
+It builds that tree's ``flash_attention`` library, prints its ptxas
+report (registers per kernel) and, for each shape, one JSON line: the
+call time (CUDA events, the median of back-to-back calls) and the device
+time (profiler).  Shapes without the causal mask need a tree whose
+wrapper takes ``causal``.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(Path(sys.argv[1]).resolve()), str(ROOT)]
+
+import torch  # noqa: E402
+
+from chip_smoke import card_line, device_ms, median_ms, randn  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+
+#: (name, (B, H, KV, S, T, D), options): the causal prefills of the dense
+#: models, then whisper-small's unmasked encoder and cross-attention
+SHAPES = [("llama3-8b", (8, 32, 8, 1024, 1024, 128), {}),
+          ("deepseek-7b", (8, 32, 32, 1024, 1024, 128), {}),
+          ("llava-next-34b", (4, 56, 8, 3904, 3904, 128), {}),
+          ("llama3-8b-swa", (1, 32, 8, 12288, 12288, 128), {"window": 4096}),
+          ("gemma2-9b", (2, 16, 8, 6144, 6144, 256),
+           {"window": 4096, "softcap": 50.0}),
+          ("granite-moe-1b-a400m", (8, 16, 8, 256, 256, 64), {}),
+          ("whisper-small decoder", (8, 12, 12, 128, 128, 64), {}),
+          ("whisper-small encoder", (8, 12, 12, 1500, 1500, 64),
+           {"causal": False}),
+          ("whisper-small cross", (8, 12, 12, 128, 1500, 64),
+           {"causal": False})]
+
+
+def main() -> None:
+    label = sys.argv[2]
+    print(card_line())
+    _build.build(["flash_attention"])
+    log = (_build.BUILD_DIR / "libflash_attention.log").read_text()
+    print(label, "ptxas:", [ln.split(": ", 1)[1] for ln in log.splitlines()
+                            if "registers" in ln])
+    takes_causal = "causal" in ops.attention.__kwdefaults__
+    dev = torch.device("cuda")
+    for name, (b, h, kv, s, t, d), kw in SHAPES:
+        if "causal" in kw and not takes_causal:
+            continue
+        q, k, v = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d)],
+                        torch.bfloat16, 23, dev)
+        call = median_ms(lambda: ops.attention(q, k, v, **kw), reps=10,
+                         inner=5)
+        dev_ms = device_ms(lambda: ops.attention(q, k, v, **kw),
+                           "flash_kernel", reps=5)
+        print(json.dumps({"tree": label, "shape": name, "call_ms": call,
+                          "device_ms": dev_ms}))
+
+
+if __name__ == "__main__":
+    main()
