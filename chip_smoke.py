@@ -310,12 +310,34 @@ Phases, each printed as it ends; any failure exits non-zero:
     decode: 12 self and 12 cross a step), its prefill's encoder and
     decoder apart, and the host syncs of both backends' decode steps;
     device memory back within 1 GiB after.  The serve driver's run (h), ``--archs
-    whisper-small llama3-8b --delta 25.8 --requests 16``, is phase 31's.
+    whisper-small llama3-8b --delta 25.8 --requests 16``, is phase 31's;
+43. the flash backward kernel (``csrc/flash_attention_bwd.cu``) against
+    its plain backward computed in f64 on the card (``FLASH_BWD``:
+    qwen2.5-3b's training batch in bf16 and f32, llama3-8b's prefill,
+    gemma2-9b's windowed softcapped D = 256 layer, whisper-small's encoder
+    and cross-attention, D = 64 at G = 1 with a ragged S): within four
+    times the f32 plain backward's own error (plus bf16's rounding), equal
+    bits in two calls, and the kernel's, the plain backward's and
+    ``scaled_dot_product_attention``'s backward times beside the bound;
+44. one training step on the card against the CPU, f32 activations, TF32
+    off, from the same f32 masters and 2 x 32 tokens: qwen2.5-3b cut to
+    two layers and whisper-small to 2 + 2, at full width: the loss within
+    1e-5 relative, each gradient leaf within 1e-4 of its largest |value|,
+    the flash kernel's forward and backward launches counted, and
+    ``make_train_step``'s metrics, moments and updated parameters at the
+    same bars;
+45. ``launch/train.py`` on qwen2.5-3b at full width and depth (``--full
+    --steps 20 --batch 8 --seq 128 --device cuda``, as a user calls it):
+    every loss finite, the mean of the last five below the first five's,
+    36 flash forward and 36 backward launches a step (the counts at 0
+    just before the run and read just after), the step time, tokens/s,
+    the peak device memory and the host syncs of each step.
 
 Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
 same policy's decision on the CPU.  It then prints one JSON line with
 every kernel (the LLM kernels' launches summed over the services of
-phases 10, 14, 18, 30, 31, 35, 38, 40 and 42), the card line, and last
+phases 10, 14, 18, 30, 31, 35, 38, 40 and 42, and the training run of
+phase 45; the flash backward's from phase 45), the card line, and last
 ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -450,6 +472,26 @@ NONCAUSAL_FLASH = (((2, 8, 2, 100, 300, 128), {}),
                    ((2, 8, 2, 64, 500, 128), {"softcap": 30.0}),
                    ((2, 8, 8, 129, 130, 64), {"window": 64,
                                               "softcap": 30.0}))
+
+#: phase 43: the flash backward kernel, (label, (B, H, KV, S, T, D), dtype,
+#: options): qwen2.5-3b's training batch (phase 45: 8 x 128 tokens) in bf16
+#: and f32, llama3-8b's prefill shape, gemma2-9b's windowed softcapped
+#: D = 256 layer at 2 x 6144, whisper-small's encoder over its 1500 frames
+#: and its prompt's cross-attention over them (not causal), and D = 64 at
+#: G = 1 with a ragged S
+FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
+             ("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "float32", {}),
+             ("llama3-8b", (2, 32, 8, 1024, 1024, 128), "bfloat16", {}),
+             ("gemma2-9b", (2, 16, 8, 6144, 6144, 256), "bfloat16",
+              {"window": 4096, "softcap": 50.0}),
+             (f"{WHISPER} encoder", (8, 12, 12, 1500, 1500, 64), "bfloat16",
+              {"causal": False}),
+             (f"{WHISPER} cross", (8, 12, 12, 128, 1500, 64), "bfloat16",
+              {"causal": False}),
+             ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "float32", {}))
+#: phase 45: launch/train.py at full width and depth, as a user calls it
+TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "20", "--batch",
+              "8", "--seq", "128", "--device", "cuda"]
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -1199,6 +1241,309 @@ def llm_cuda_vs_cpu(arch, prompt_len, name, num_layers=2, new=4,
     if err > tol or not torch.equal(tokens["cuda"], tokens["cpu"]):
         fail(f"the {num_layers}-layer {arch} differs between cuda and cpu")
     phase(name, t0)
+
+
+def flash_bwd_plain(q, k, v, do, **kw):
+    """The flash kernel's plain backward, in the inputs' precision (f32 for
+    bf16 and f32, f64 for f64), one KV head's group of heads at a time
+    where the scores of all heads would pass 4 GiB."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+    b, h, s, _ = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    if b * h * s * t * q.element_size() <= 2**32:
+        return fl_ref.mha_backward_reference(q, k, v, do, **kw)
+    g = h // kv
+    parts = [fl_ref.mha_backward_reference(
+        q[:, i * g:(i + 1) * g], k[:, i:i + 1], v[:, i:i + 1],
+        do[:, i * g:(i + 1) * g], **kw) for i in range(kv)]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def flash_backward(dev):
+    """Phase 43: the flash backward kernel against its plain backward on
+    the card at ``FLASH_BWD``'s shapes.  Bar: the plain backward computed
+    in f64 from the same inputs; the kernel within four times the f32
+    plain backward's own largest error against it (plus 1e-7), and for
+    bf16 also the rounding of each output to bf16 (2^-8 of it).  Two calls
+    give equal bits.  Times (CUDA events): the kernel (one backward call,
+    its two launches), the plain backward, and the library's backward
+    (``scaled_dot_product_attention`` with ``enable_gqa``: its forward
+    once, then its backward alone, the graph kept; none under a softcap or
+    a window).  Bound: 2.5 times the forward's operations (the visible
+    (row, column) pairs) at the inputs' peak, or the bytes of q, k, v, dO
+    read and dq, dk, dv written.  Returns the JSON fields of the first
+    shape, phase 45's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    t0 = time.perf_counter()
+    row = None
+    for label, shape, dt, kw in FLASH_BWD:
+        b, h, kv, s, t, d = shape
+        dtype = getattr(torch, dt)
+        causal, window = kw.get("causal", True), kw.get("window")
+        q, k, v, do = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d),
+                             (b, h, s, d)], dtype, 43 + s, dev)
+        opts = (causal, window, kw.get("softcap"))
+        runs = [fl_ops._launch_backward(q, k, v, do, *opts) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(*runs)):
+            fail(f"phase 43: two backward calls at {shape} differ")
+        want = flash_bwd_plain(*(x.double() for x in (q, k, v, do)), **kw)
+        plain32 = flash_bwd_plain(*(x.float() for x in (q, k, v, do)),
+                                  **kw)
+        rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        errs, notes = [], []
+        for part, got, w, p in zip("qkv", runs[0], want, plain32):
+            e32 = float((p.double() - w).abs().max())
+            err = (got.double() - w).abs()
+            if not bool((err <= 4 * e32 + 1e-7 + rel * w.abs()).all()):
+                fail(f"phase 43: flash backward d{part} at {shape} {dt} "
+                     f"{kw} off by up to {float(err.max())} (the f32 plain "
+                     f"backward's own error {e32})")
+            errs.append(float(err.max()))
+            notes.append(f"d{part} {errs[-1]:.3g} (plain f32 {e32:.3g})")
+        del runs, want, plain32
+        kern = median_ms(lambda: fl_ops._launch_backward(q, k, v, do, *opts),
+                         reps=5, inner=2)
+        plain = median_ms(lambda: flash_bwd_plain(q, k, v, do, **kw),
+                          reps=3, inner=1)
+        lib = None
+        if "softcap" not in kw and window is None:
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            lib = median_ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True), reps=5, inner=2)
+            del out, qq, kk, vv
+        pairs = b * h * (causal_keys(s, window) if causal else s * t)
+        flops = 2.5 * 4 * d * pairs
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = q.element_size() * 2 * (2 * b * h * s * d
+                                          + 2 * b * kv * t * d) \
+            / HBM_BYTES_PER_S * 1e3
+        bnd, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                   else (t_ops, "operations"))
+        library = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"time flash backward {label} {shape} {dt} {kw}: kernel "
+              f"{kern:.4f} ms ({flops / kern / 1e9:.1f} TFLOP/s of the "
+              f"backward's {flops / 1e9:.1f} GFLOP), plain {plain:.4f} ms, "
+              f"library backward {library}, bound {bnd:.5f} ms ({by}); "
+              f"max err against f64: " + ", ".join(notes)
+              + "; equal bits in two calls")
+        if row is None:
+            row = (kern, plain, bnd, by, lib, max(errs))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    phase("43 flash backward kernel", t0)
+    return row
+
+
+def leaves_close(label, got, want, bar=1e-4):
+    """Each leaf of ``got`` (a list) within ``bar`` of the largest |value|
+    of its leaf in ``want`` ((paths, leaves)); returns the worst ratio."""
+    worst = 0.0
+    for path, a, w in zip(want[0], got, want[1]):
+        w = w.double()
+        err = float((a.cpu().double() - w).abs().max())
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, err / scale)
+        if err > bar * scale:
+            fail(f"phase 44: {label} {path} differs by {err} (bar {bar} of "
+                 f"its largest |value| {scale})")
+    return worst
+
+
+def first_step_spread(m, opt, bar=1e-4):
+    """How far Adam's first step can move each parameter apart, over lr,
+    between two runs whose gradients agree to ``bar`` of the leaf's
+    largest |value|: the step is lr (u(g) + weight decay p), u(x) = x /
+    (|x| + eps) of the clipped gradient g (the first moment ``m`` over 1 -
+    b1), and u moves by at most the larger of |u(g +- gamma) - u(g)|, gamma
+    = ``bar`` max |g| (nearly 2 where g lies within gamma of zero, where
+    the two steps may take opposite signs)."""
+    import torch
+    g = m.double() / (1 - opt.b1)
+    gamma = bar * float(g.abs().max())
+    u = lambda x: x / (x.abs() + opt.eps)
+    return torch.maximum(u(g + gamma) - u(g), u(g) - u(g - gamma)).float()
+
+
+def train_step_cuda_vs_cpu(arch, num_layers, name) -> None:
+    """Phase 44: one training step of ``arch`` cut to ``num_layers``
+    layers (an encdec model's halves encoder and half decoder layers) at
+    full width, f32 activations, TF32 off, on the card (the flash kernel
+    and its backward) and on the CPU (the plain versions), from the same
+    f32 masters, a batch of 2 x 32 tokens (and the family's frames): the
+    loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+    largest |value|; then ``make_train_step`` on both: the metrics within
+    1e-5 relative, the moments at the gradient bar, and the updated
+    parameters within 1e-4 of each leaf's largest |value| plus the
+    gradient bar carried through Adam's first step (``first_step_spread``:
+    the step moves a parameter by about lr times its gradient's sign, so
+    a gradient near zero or near eps moves it by up to 2 lr)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import modality_inputs
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         tree_leaves, tree_paths)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
+                              activ_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, enc_layers=num_layers // 2,
+                                  dec_layers=num_layers // 2)
+    masters = {"cpu": init_params(cfg, seed=13, device="cpu",
+                                  keep_f32=True)}
+    masters["cuda"] = to_device(masters["cpu"], "cuda")
+    rng = np.random.default_rng(44)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 32))),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (2, 32)))}
+    batch.update(modality_inputs(cfg, 2, rng, device="cpu"))
+    losses, grads, launches = {}, {}, {}
+    for dev, p in masters.items():
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        fl_ops.launches = fl_ops.backward_launches = 0
+        loss, _ = loss_fn(p, cfg, to_device(batch, dev))
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        launches[dev] = (fl_ops.launches, fl_ops.backward_launches)
+        losses[dev] = float(loss.detach())
+        for x in leaves:
+            x.requires_grad_(False)
+    paths = tree_paths(masters["cpu"])
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if rel > 1e-5:
+        fail(f"phase 44: {arch} loss {losses['cuda']} on the card, "
+             f"{losses['cpu']} on the cpu")
+    worst = leaves_close(f"{arch} gradient", grads["cuda"],
+                         (paths, grads["cpu"]))
+    n_attn = (cfg.enc_layers + 2 * cfg.dec_layers
+              if cfg.family == "encdec" else num_layers)
+    if launches["cuda"] != (n_attn, n_attn) or launches["cpu"] != (0, 0):
+        fail(f"phase 44: {arch} launched flash forward / backward "
+             f"{launches}, not {n_attn} each on the card")
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    out = {}
+    for dev, p in masters.items():
+        out[dev] = make_train_step(cfg, opt)(p, init_opt_state(p),
+                                             to_device(batch, dev))
+    for k in out["cpu"][2]:
+        a, w = float(out["cuda"][2][k]), float(out["cpu"][2][k])
+        if abs(a - w) > 1e-5 * abs(w):
+            fail(f"phase 44: {arch} step metric {k} {a} on the card, {w} "
+                 f"on the cpu")
+    mu = tree_leaves(out["cpu"][1].mu)
+    worst_mu = leaves_close(f"{arch} first moment",
+                            tree_leaves(out["cuda"][1].mu), (paths, mu))
+    lr, loose = float(out["cpu"][2]["lr"]), 0
+    for path, a, w, m in zip(paths, tree_leaves(out["cuda"][0]),
+                             tree_leaves(out["cpu"][0]), mu):
+        err = (a.cpu() - w).abs()
+        bar = 1e-4 * float(w.abs().max())
+        moved = lr * first_step_spread(m, opt)
+        loose += int((err > bar).sum())
+        if not bool((err <= bar + moved).all()):
+            fail(f"phase 44: {arch} updated {path} differs by "
+                 f"{float(err.max())} (bar {bar} + the gradient bar "
+                 f"carried through the step)")
+    print(f"{arch}, {num_layers} layers, f32, 2 x 32 tokens: loss "
+          f"{losses['cuda']:.6f} on the card, {losses['cpu']:.6f} on the "
+          f"cpu (rel {rel:.2e}, tolerance 1e-5); gradients within "
+          f"{worst:.2e} of each leaf's largest |value| (tolerance 1e-4), "
+          f"first moments {worst_mu:.2e}; flash forward / backward "
+          f"launches {launches['cuda']}; one step's metrics within 1e-5, "
+          f"parameters within the bar ({loose} elements past 1e-4 of "
+          f"their leaf's largest |value|, each within the gradient bar "
+          f"carried through the step)")
+    del masters, grads, out
+    torch.cuda.empty_cache()
+    phase(name, t0)
+
+
+def train_lm_full(dev):
+    """Phase 45: ``launch/train.py`` through its ``main`` at
+    ``TRAIN_ARGV``: qwen2.5-3b at full width and depth, f32 masters, bf16
+    layers, 20 steps of 8 x 128 tokens on the card.  Every step's loss
+    finite, the mean of the last 5 below that of the first 5; the flash
+    kernel's forward and backward launches, counted from 0 around the
+    run, one each per layer a step; each step's host syncs (torch's sync
+    debug mode, inside the train step).  Returns the launches."""
+    import collections
+    import contextlib
+    import io
+    import math
+    import re
+    import warnings
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    losses, syncs = [], collections.Counter()
+    make = train.make_train_step
+
+    def recorded(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = step(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.update(f"{Path(w.filename).name}:{w.lineno}"
+                         for w in caught)
+            losses.append(out[2]["loss"])
+            return out
+        return run
+
+    train.make_train_step = recorded
+    buf = io.StringIO()
+    fl_ops.launches = fl_ops.backward_launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(TRAIN_ARGV)
+    finally:
+        train.make_train_step = make
+    launches = (fl_ops.launches, fl_ops.backward_launches)
+    out = buf.getvalue()
+    print(out.rstrip())
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    vals = [float(x) for x in losses]
+    n_layers = get_config("qwen2.5-3b").num_layers
+    if rc != 0 or len(vals) != steps or not all(map(math.isfinite, vals)):
+        fail(f"phase 45: train.main returned {rc} with losses {vals}")
+    first, last = sum(vals[:5]) / 5, sum(vals[-5:]) / 5
+    if not last < first:
+        fail(f"phase 45: the loss did not fall: {vals}")
+    if launches != (n_layers * steps, n_layers * steps):
+        fail(f"phase 45: flash forward / backward launches {launches}, not "
+             f"{n_layers} a step each")
+    peak = re.search(r"peak device memory: ([\d.]+) GiB", out)
+    print(f"train.py qwen2.5-3b full: losses {[round(x, 4) for x in vals]}; "
+          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+          f"flash forward / backward launches {launches[0]} / "
+          f"{launches[1]} ({launches[0] // steps} / {launches[1] // steps} "
+          f"a step); host syncs in the train step "
+          f"{sum(syncs.values()) / steps:.1f} a step, by line "
+          f"{dict(syncs)}; peak {peak.group(1) if peak else '?'} GiB on "
+          f"{card_line()}")
+    phase("45 train.py, qwen2.5-3b at full width", t0)
+    return launches
 
 
 def moe_layer_check(dev) -> None:
@@ -3858,6 +4203,15 @@ def main() -> None:
         encdec_launches))
         for k in llm_launches}
 
+    # 43-45 ----------------------------------------------- LM training
+    bwd_row = flash_backward(dev)
+    train_step_cuda_vs_cpu("qwen2.5-3b", 2, "44 qwen2.5-3b train step cuda "
+                           "vs cpu")
+    train_step_cuda_vs_cpu(WHISPER, 4, f"44 {WHISPER} train step cuda vs "
+                           "cpu")
+    fwd_launches, bwd_launches = train_lm_full(dev)
+    served_launches["flash_attention"] += fwd_launches
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
@@ -3888,6 +4242,14 @@ def main() -> None:
             "launches": served_launches[name], "max_abs_err": err, "ms": kern,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
+    kern, plain, bnd, by, lib, err = bwd_row
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:102",
+        "launches": bwd_launches, "max_abs_err": err, "ms": kern,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib})
     kern, plain, bnd, by = ssd_row
     kernels.append({
         "name": "ssd_scan", "route": "cuda",

@@ -59,11 +59,9 @@ def train_step(model: Detector, opt: OptState, batch: Dict,
         loss = detection_loss(model, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
     with torch.no_grad():
-        new, opt, _ = adamw_update(
+        _, opt, _ = adamw_update(
             opt_cfg, {k: p.detach() for k, p in params.items()},
             dict(zip(params, grads)), opt)
-        for k, p in params.items():
-            p.copy_(new[k])
     return opt, loss.detach()
 
 

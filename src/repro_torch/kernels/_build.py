@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("sobel", "canny_fused", "flash_attention",
+SOURCES = ("sobel", "canny_fused", "flash_attention", "flash_attention_bwd",
            "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -120,10 +120,24 @@ def function(name: str, symbol: str, argtypes: Sequence) -> object:
     return fn
 
 
-def count_launch(module: str) -> None:
-    """Add one to the ``launches`` count of the wrapper module ``module``
-    (its ``__name__``), under a lock: callers set the count to 0 and read
-    it back as a plain module attribute."""
+def refuse_gradient(name: str, *xs) -> None:
+    """Raise when autograd would record a launch of the kernel ``name``,
+    which has no backward: its gradient would be lost without a word.
+    ``xs``: its tensor inputs (None for one not given)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"the {name} kernel has no backward yet: its backward kernel "
+            "comes with the next slice of the port (ROADMAP.md: the SSD and "
+            "RG-LRU backward kernels); train this model on the CPU "
+            "(device='cpu') until then")
+
+
+def count_launch(module: str, count: str = "launches") -> None:
+    """Add one to the ``count`` attribute (``launches`` unless named) of the
+    wrapper module ``module`` (its ``__name__``), under a lock: callers set
+    the count to 0 and read it back as a plain module attribute."""
     mod = sys.modules[module]
     with _count_lock:
-        mod.launches += 1
+        setattr(mod, count, getattr(mod, count) + 1)

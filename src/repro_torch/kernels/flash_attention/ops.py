@@ -1,10 +1,16 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``) and
+of its backward (``csrc/flash_attention_bwd.cu``).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
-``ref.py``.  ``launches`` counts the kernel's launches.  The kernel reads
-strided views (each of q, k, v may be a transpose or a slice of a larger
-cache, as long as the last dim is contiguous), and the output keeps q's
-strides, so the model passes [B, S, H, D] activations without copies.
+``ref.py``, which autograd differentiates.  ``launches`` counts the
+forward kernel's launches, ``backward_launches`` the backward's (one a
+call, which runs its two kernels: dQ with the row statistics, then dK and
+dV).  The kernels read strided views (each of q, k, v may be a transpose
+or a slice of a larger cache, as long as the last dim is contiguous), and
+each output keeps its input's strides, so the model passes [B, S, H, D]
+activations without copies.  On the card, a call that autograd records
+(an input that requires a gradient, with gradients enabled) goes through
+``_Attention``, whose backward is the backward kernel.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from . import ref
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward kernel launches (one a backward call) since set to 0
+backward_launches = 0
 
 #: head dims the kernel is compiled for
 HEAD_DIMS = (32, 64, 128, 256)
@@ -27,14 +35,23 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """True if ``x``'s last dim is contiguous and every row starts on a
+    16-byte boundary (the kernels load rows in 16-byte pieces)."""
+    size = x.element_size()
+    return x.stride(-1) == 1 and not x.data_ptr() % 16 and not any(
+        st * size % 16 for st in x.stride()[:-1])
 
 
 def check_rows(name: str, x: torch.Tensor) -> None:
     """Raise unless ``x``'s last dim is contiguous and every row starts on
     a 16-byte boundary (the kernels load rows in 16-byte pieces)."""
-    size = x.element_size()
-    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
-            st * size % 16 for st in x.stride()[:-1]):
+    if not rows_aligned(x):
         raise ValueError(f"{name} needs a contiguous last dim and 16-byte "
                          f"aligned rows; got strides {x.stride()}")
 
@@ -77,12 +94,69 @@ def _launch(q, k, v, causal, window, softcap):
     return o
 
 
+def _launch_backward(q, k, v, do, causal, window, softcap):
+    """dq, dk, dv of ``_launch(q, k, v, ...)`` at the cotangent ``do``, in
+    the inputs' dtype and strides (q, k and v were checked by the
+    forward)."""
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash attention backward: the gradient "
+                         f"{tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if not rows_aligned(do):
+        do = do.contiguous()
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    # each row's max, its sum of exponentials and Delta, from the dQ
+    # kernel for the dK/dV kernel
+    stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(
+        *(x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)))
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd",
+                         _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                stats.data_ptr(), b, h, kv, s, t, d, strides, d ** -0.5,
+                int(causal), window if window is not None else 0,
+                softcap if softcap is not None else 0.0,
+                int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {rc}")
+    _build.count_launch(__name__, "backward_launches")
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient.  It
+    keeps q, k and v (not the output): the backward recomputes the row
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.options = (causal, window, softcap)
+        return _launch(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*_launch_backward(q, k, v, do, *ctx.options), None, None,
+                None)
+
+
 def attention(q, k, v, *, causal=True, window=None, softcap=None):
     """Attention at scale D ** -0.5.  q [B,H,S,D]; k, v [B,KV,T,D] ->
     [B,H,S,D] in q's dtype, on q's device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  ``causal``: query row i
     sees the key columns j <= i (by index, also when S != T); else every
-    column.  ``window``: only the columns j > i - window."""
+    column.  ``window``: only the columns j > i - window.  Differentiable:
+    on the card through the backward kernel, on the CPU through the plain
+    version."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None; got {window}")
     if softcap is not None and softcap <= 0:
@@ -90,4 +164,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None):
     if q.device.type == "cpu":
         return ref.mha_reference(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, softcap)
     return _launch(q, k, v, causal, window, softcap)

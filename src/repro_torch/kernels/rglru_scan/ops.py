@@ -57,9 +57,12 @@ def _launch(a, b, h0):
 def linear_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t over axis 1 from h0 (zeros when None).  a,
     b [B,S,W] f32; h0 [B,W] f32 -> h [B,S,W] f32, on a's device: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.  The
+    kernel has no backward: on the card, a call that autograd would record
+    raises."""
     if a.device.type == "cpu":
         return ref.linear_scan(a, b, h0)
+    _build.refuse_gradient("RG-LRU scan", a, b, h0)
     return _launch(a, b, h0)
 
 

@@ -84,11 +84,14 @@ def ssd(x, dt, A, B, C, D, *, chunk: int, return_final_state: bool = False):
     applied); A, D [h]; B, C [b,s,n] -> y [b,s,h,p] in x's dtype (and the
     final state [b,h,p,n] f32 with ``return_final_state``), on x's device:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    The chunk is ``min(chunk, s)``, as in the plain version."""
+    The chunk is ``min(chunk, s)``, as in the plain version.  The kernel
+    has no backward: on the card, a call that autograd would record
+    raises."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1; got {chunk}")
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
                                return_final_state=return_final_state)
+    _build.refuse_gradient("SSD scan", x, dt, A, B, C, D)
     y, state = _launch(x, dt, A, B, C, D, min(chunk, x.shape[1]))
     return (y, state) if return_final_state else y

@@ -1,0 +1,97 @@
+"""The training step: ``repro.launch.steps.make_train_step`` without a mesh.
+
+The step differentiates ``loss_fn`` by autograd with respect to the f32
+master parameters (``init_params(..., keep_f32=True)``), which the loss
+casts to the layers' dtypes once a step (``models.cast_params``), and
+hands the gradients to ``adamw_update``.  On the card the attention layers
+run the flash kernel and its backward kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import loss_fn
+from repro_torch.models.base import ModelConfig
+from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
+                                     tree_leaves, tree_paths,
+                                     tree_unflatten)
+
+
+def decays_as_stacked(path, leaf) -> bool:
+    """The reference's weight-decay rule in the port's layout.  The
+    reference decays leaves of two or more dims, and keeps each layer's
+    leaves stacked on a leading layer dim, so it decays every leaf of a
+    layer, its norms and biases too; the port keeps its layers in lists
+    (an index in ``path``), one leaf a layer."""
+    return leaf.ndim >= 2 or any(isinstance(k, int) for k in path)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    num_microbatches: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm`` (0-dim
+    tensors on the device).  The step takes ownership of ``params`` and
+    ``opt_state``, as the reference's jitted step donates them: they are
+    updated in place and returned.  ``num_microbatches > 1`` splits the
+    batch along its first dim, accumulates the gradients in f32, divides
+    them by the count and averages the losses and metrics, as the
+    reference's ``lax.scan`` does.  Weight decay follows the reference's
+    stacked layers (``decays_as_stacked``).  Raises if a parameter leaf
+    received no gradient."""
+    if num_microbatches < 1:
+        raise ValueError(f"num_microbatches must be >= 1; got "
+                         f"{num_microbatches}")
+
+    def grads_of(params, leaves, batch):
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        missing = [path for path, g in zip(tree_paths(params), grads)
+                   if g is None]
+        if missing:
+            raise RuntimeError(f"{cfg.name}: no gradient reached the "
+                               f"parameters {missing}")
+        return loss.detach(), {k: m.detach() for k, m in metrics.items()}, \
+            list(grads)
+
+    def split(x):
+        if x.shape[0] % num_microbatches:
+            raise ValueError(f"a batch of {x.shape[0]} does not split into "
+                             f"{num_microbatches} microbatches")
+        return x.reshape((num_microbatches, -1) + tuple(x.shape[1:]))
+
+    def train_step(params, opt_state: OptState, batch):
+        leaves = tree_leaves(params)
+        if num_microbatches == 1:
+            loss, metrics, grads = grads_of(params, leaves, batch)
+        else:
+            micro = {k: split(x) for k, x in batch.items()}
+            grads, losses, ms = None, [], []
+            for i in range(num_microbatches):
+                l, m, g = grads_of(params, leaves,
+                                   {k: x[i] for k, x in micro.items()})
+                if grads is None:
+                    grads = [x.to(torch.float32) for x in g]
+                else:
+                    for acc, x in zip(grads, g):
+                        acc.add_(x.to(torch.float32))
+                losses.append(l)
+                ms.append(m)
+            n = torch.full((), num_microbatches, dtype=torch.float32,
+                           device=losses[0].device)
+            grads = [acc.div_(n) for acc in grads]
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        with torch.no_grad():
+            params, opt_state, opt_metrics = adamw_update(
+                opt_cfg, params, tree_unflatten(params, grads), opt_state,
+                decays=decays_as_stacked)
+        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step

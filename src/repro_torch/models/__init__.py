@@ -2,5 +2,5 @@
 families."""
 from .base import ModelConfig  # noqa: F401
 from .kvcache import AttnCache, init_cache  # noqa: F401
-from .model import (decode_step, forward, init_params,  # noqa: F401
-                     params_from_jax, prefill)
+from .model import (cast_params, decode_step, forward,  # noqa: F401
+                    init_params, loss_fn, params_from_jax, prefill)

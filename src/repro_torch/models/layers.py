@@ -1,6 +1,6 @@
 """Shared layer primitives: norms, SiLU, tanh GeLU, the SwiGLU, GeGLU and
-ungated GELU MLPs, the causal depthwise conv, embeddings, sinusoidal
-positions and RoPE.
+ungated GELU MLPs, the causal depthwise conv, embeddings, the
+cross-entropy, sinusoidal positions and RoPE.
 
 ``init_*`` builds a parameter sub-tree (a dict of tensors), the apply
 functions take (params, x).  Matrices are stored in the activation dtype:
@@ -136,6 +136,15 @@ def embed(params, tokens, *, scale_by_sqrt_dim: bool = False,
 def unembed(params, x, *, cap: Optional[float] = None):
     """Logits in f32 through the tied embedding table."""
     return softcap((x @ params["table"].to(x.dtype).T).float(), cap)
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """Mean next-token cross-entropy of f32 logits [..., V] over the labels
+    [...] that are not ``ignore_id``; a batch without one divides by 1."""
+    mask = labels != ignore_id
+    gold = torch.gather(logits, -1, torch.where(mask, labels, 0)[..., None])
+    nll = (torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 def sinusoidal_positions(num_pos: int, dim: int, dtype=torch.float32,

@@ -38,7 +38,13 @@ and decoder layers (``norm1``, ``attn``, [``norm_x``, ``xattn``,]
 hybrid's block slots interleaved.
 Matrices, biases and the convs are kept in the activation dtype (cast once
 at load); norm weights, the Mamba-2 per-head scalars, the RG-LRU gate
-parameters and the MoE router stay in f32.
+parameters and the MoE router stay in f32 (``keeps_f32``, the load rule).
+Training keeps every leaf in f32 (``keep_f32=True``: the JAX package's
+``cfg.pdtype`` masters) and applies the load rule once a step
+(``cast_params``), differentiably, so the layers run as they serve and
+gradients reach the masters through the casts.  ``loss_fn`` is the
+reference's: next-token cross-entropy plus ``AUX_WEIGHT`` times the MoE
+load-balance loss that ``forward(..., return_aux=True)`` sums over layers.
 
 The variants with experts outside the moe family, positions without RoPE
 or a GELU MLP outside the encdec family, or other layouts raise
@@ -62,9 +68,9 @@ from .attention import (attention_decode, attention_forward,
                         mla_decode_v2, mla_forward)
 from .base import ModelConfig
 from .kvcache import AttnCache, bounded_by_max_seq, init_cache
-from .layers import (apply_mlp, dense_init, embed, init_embedding, init_mlp,
-                     position_embedding, rms_norm, sinusoidal_positions,
-                     unembed)
+from .layers import (apply_mlp, cross_entropy, dense_init, embed,
+                     init_embedding, init_mlp, position_embedding, rms_norm,
+                     sinusoidal_positions, unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
@@ -92,6 +98,39 @@ _SSM_F32 = ("dt_bias", "A_log", "D", "norm_w")
 _REC_F32 = ("lru_wa", "lru_wx", "lru_ba", "lru_bx", "log_lambda")
 #: the parameters kept in f32, by sub-tree (the MoE router reads x in f32)
 _F32 = {"ssm": _SSM_F32, "rec": _REC_F32, "moe": ("router",)}
+#: the weight of the MoE load-balance loss in ``loss_fn``
+AUX_WEIGHT = 0.01
+
+
+def keeps_f32(path) -> bool:
+    """The load rule, for the leaf at ``path`` (its keys from the root):
+    norm weights (``norm*``, ``*_norm``) and the ``_F32`` leaves of a
+    Mamba-2, RG-LRU or MoE sub-tree stay f32; every other leaf takes the
+    activation dtype."""
+    name = path[-1]
+    if name.startswith("norm") or name.endswith("_norm"):
+        return True
+    return len(path) > 1 and name in _F32.get(path[-2], ())
+
+
+def _map_tree(tree, fn, path=()):
+    """``tree`` (nested dicts and lists) with each leaf x replaced by
+    ``fn(path, x)``."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn, path) for v in tree]
+    return fn(path, tree)
+
+
+def cast_params(cfg: ModelConfig, params):
+    """``params`` under the load rule (``keeps_f32``): a tree of f32
+    masters (``keep_f32=True``) as the layers read it, matrices in the
+    activation dtype.  ``Tensor.to`` is differentiable, so gradients flow
+    back to the masters; a leaf already in its dtype is returned as it
+    is."""
+    return _map_tree(params, lambda path, x: x if keeps_f32(path)
+                     else x.to(cfg.adtype))
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -113,13 +152,16 @@ def check_config(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: not ported yet: {', '.join(unported)}")
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
-    """Seeded random parameters, drawn on ``device`` from one generator."""
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", *,
+                keep_f32: bool = False) -> Dict[str, Any]:
+    """Seeded random parameters, drawn on ``device`` from one generator;
+    with ``keep_f32`` every leaf stays f32 (``cast_params`` of that tree is
+    the tree drawn without it)."""
     check_config(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    adt, d = cfg.adtype, cfg.d_model
+    adt = torch.float32 if keep_f32 else cfg.adtype
+    d = cfg.d_model
 
     def norm():
         return torch.zeros(d, dtype=torch.float32, device=dev)
@@ -163,47 +205,40 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
-def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Dict[str, Any]:
+def params_from_jax(cfg: ModelConfig, tree, device="cuda", *,
+                    keep_f32: bool = False) -> Dict[str, Any]:
     """The JAX package's parameter tree (``repro.models.init_params``, as
     numpy arrays or anything ``np.asarray`` reads) in the port's form: for
     layer order, block i's slots s0, s1, ... in turn, then the trailing
-    slots."""
+    slots; its leaves in f32, cast by ``cast_params`` unless
+    ``keep_f32``."""
     check_config(cfg)
     dev = resolve_device(device)
 
-    def mat(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=cfg.adtype)
-
-    def vec(a):
+    def f32(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    def subtree(sub, i, f32=()):
-        return {n: subtree(a, i) if isinstance(a, dict) else
-                (vec if n in f32 else mat)(a[i]) for n, a in sub.items()}
+    def unstack(sub, i):
+        return {n: unstack(a, i) if isinstance(a, dict) else f32(a[i])
+                for n, a in sub.items()}
 
-    def layer(slot, i):
-        return {name: vec(sub[i]) if name.startswith("norm") else
-                subtree(sub, i, _F32.get(name, ()))
-                for name, sub in slot.items()}
-
-    params = {"embed": {"table": mat(tree["embed"]["table"])},
-              "final_norm": vec(tree["final_norm"])}
+    params = {"embed": {"table": f32(tree["embed"]["table"])},
+              "final_norm": f32(tree["final_norm"])}
     if cfg.family == "encdec":
         for name, n in (("enc_blocks", cfg.enc_layers),
                         ("dec_blocks", cfg.dec_layers)):
-            params[name] = [layer(tree[name], i) for i in range(n)]
-        params["enc_norm"] = vec(tree["enc_norm"])
-        params["frame_proj"] = mat(tree["frame_proj"])
-        return params
-    slots = [(tree["blocks"][f"s{j}"], i) for i in range(cfg.n_blocks)
-             for j in range(len(cfg.block_layout))]
-    slots += [(tree["trailing"][f"s{j}"], 0)
-              for j in range(len(cfg.trailing_layout))]
-    if _has_prefix(cfg):
-        params["vision_proj"] = mat(tree["vision_proj"])
-    params["blocks"] = {"s0": [layer(slot, i) for slot, i in slots]}
-    return params
+            params[name] = [unstack(tree[name], i) for i in range(n)]
+        params["enc_norm"] = f32(tree["enc_norm"])
+        params["frame_proj"] = f32(tree["frame_proj"])
+    else:
+        slots = [(tree["blocks"][f"s{j}"], i) for i in range(cfg.n_blocks)
+                 for j in range(len(cfg.block_layout))]
+        slots += [(tree["trailing"][f"s{j}"], 0)
+                  for j in range(len(cfg.trailing_layout))]
+        if _has_prefix(cfg):
+            params["vision_proj"] = f32(tree["vision_proj"])
+        params["blocks"] = {"s0": [unstack(slot, i) for slot, i in slots]}
+    return params if keep_f32 else cast_params(cfg, params)
 
 
 def _has_prefix(cfg: ModelConfig) -> bool:
@@ -229,15 +264,19 @@ def _post_norm(p, cfg: ModelConfig, name, h):
     return rms_norm(h, p[name], cfg.norm_eps, plus_one=True)
 
 
-def _residuals(p, cfg: ModelConfig, kind, x, o):
+def _residuals(p, cfg: ModelConfig, kind, x, o, aux=None):
     """The residual stream after a layer whose mixer gave ``o``: a Mamba-2
     block adds it; every other layer adds it (post-normed) and then its
-    pre-norm MLP or MoE (post-normed)."""
+    pre-norm MLP or MoE (post-normed).  ``aux``, a list, receives a MoE
+    layer's load-balance loss."""
     if kind == "ssm":
         return x + o
     x = x + _post_norm(p, cfg, "norm1b", o)
     h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
-    if "moe" in p:
+    if "moe" in p and aux is not None:
+        h, a = apply_moe(p["moe"], cfg, h, return_aux=True)
+        aux.append(a)
+    elif "moe" in p:
         h = apply_moe(p["moe"], cfg, h)
     else:
         h = apply_mlp(p["mlp"], h, cfg.mlp_variant)
@@ -267,12 +306,13 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
 
 
 def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
-                   prefix_embeds=None):
+                   prefix_embeds=None, aux=None):
     """The hidden states [B,P+S,d] after every layer (P prefix positions,
     0 without ``prefix_embeds``); with ``cache``, each global attention
     layer's K/V (or MLA's latent rows) land in its rows [0, P+S), each
     local layer's ring keeps the last of them, and each Mamba-2 or RG-LRU
-    layer's state after the prompt replaces its entry."""
+    layer's state after the prompt replaces its entry.  ``aux``, a list,
+    receives each MoE layer's load-balance loss in layer order."""
     check_config(cfg)
     x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
@@ -299,7 +339,7 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
                                   window=_window(cfg, kind),
                                   cache=None if cache is None
                                   else _entry(cache, i))
-        x = _residuals(p, cfg, kind, x, o)
+        x = _residuals(p, cfg, kind, x, o, aux)
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
@@ -374,17 +414,46 @@ def _decoder_step(params, cfg: ModelConfig, token, cache):
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
-def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
+            return_aux: bool = False):
     """Full-sequence logits [B, P+S, V] (f32).  tokens [B, S] int;
     ``prefix_embeds`` [B, P, vision_dim] (vlm) go before the text; an
     encdec model's (its frame embeddings [B, T, vision_dim]) go through
-    the encoder, and the logits are the text's [B, S, V]."""
+    the encoder, and the logits are the text's [B, S, V].  With
+    ``return_aux``, (logits, the MoE layers' load-balance losses summed
+    in layer order from an f32 zero: zero without experts)."""
+    aux = [] if return_aux else None
     if cfg.family == "encdec":
         x = _decoder_prompt(params, cfg, tokens,
                             encode(params, cfg, prefix_embeds))
     else:
-        x = _prompt_layers(params, cfg, tokens, prefix_embeds=prefix_embeds)
-    return unembed(params["embed"], x, cap=cfg.final_softcap)
+        x = _prompt_layers(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                           aux=aux)
+    logits = unembed(params["embed"], x, cap=cfg.final_softcap)
+    if not return_aux:
+        return logits
+    return logits, sum(aux, torch.zeros((), dtype=torch.float32,
+                                        device=logits.device))
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels`` [B, S]
+    and, for the vlm and encdec families, ``prefix_embeds``): the
+    next-token cross-entropy over the labels that are not -1 plus
+    ``AUX_WEIGHT`` times the MoE load-balance loss.  ``params`` are f32
+    masters (``keep_f32=True``), cast here once by ``cast_params``, or a
+    tree already in the load rule's dtypes.  A vlm batch's labels get -1
+    over the prefix rows."""
+    logits, aux = forward(cast_params(cfg, params), cfg, batch["tokens"],
+                          batch.get("prefix_embeds"), return_aux=True)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm prefix: no labels there
+        pad = torch.full((labels.shape[0],
+                          logits.shape[1] - labels.shape[1]), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = cross_entropy(logits, labels)
+    return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,

@@ -1,9 +1,11 @@
-"""AdamW with cosine schedule and global-norm clipping, over a dict or list
-of tensors: the update of ``repro.optim.adamw`` op for op in float32 (the
-schedule and the bias corrections on an f32 step, m and v in f32, decay on
-tensors of two or more dims only), its ``sqrt``, ``pow`` and ``cos``
-correctly rounded.  Divisors are tensors, never Python scalars, which the
-GPU would turn into a multiply by the reciprocal."""
+"""AdamW with cosine schedule and global-norm clipping, over a nested tree
+of tensors (dicts, lists, tuples): the update of ``repro.optim.adamw`` op
+for op in float32 (the schedule and the bias corrections on an f32 step,
+m and v in f32, decay on tensors of two or more dims unless the caller
+says otherwise), leaf by leaf as its ``jax.tree.map`` runs, in place, its
+``sqrt``, ``pow`` and ``cos`` correctly rounded.  Divisors are tensors,
+never Python scalars, which the GPU would turn into a multiply by the
+reciprocal."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,17 +34,53 @@ class OptState(NamedTuple):
     nu: Any
 
 
-def _leaves(tree):
-    return list(tree.values()) if isinstance(tree, dict) else list(tree)
+#: elements of a leaf updated together: the update's temporaries stay
+#: this size, whatever the size of the leaf
+CHUNK = 1 << 24
 
 
-def _like(tree, leaves):
-    """``leaves`` in ``tree``'s structure (a dict's keys, or a list)."""
-    return dict(zip(tree, leaves)) if isinstance(tree, dict) else leaves
+def _walk(tree, path=()):
+    """(path, leaf) of a nested dict / list / tuple tree in the JAX
+    package's order: a dict's keys sorted, a sequence in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _walk(t, path + (i,))
+    else:
+        yield path, tree
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of ``tree``, in the JAX package's order."""
+    return [leaf for _, leaf in _walk(tree)]
+
+
+def tree_paths(tree) -> list:
+    """Each leaf's keys from the root, joined by ``/`` (``blocks/s0/0/
+    attn/wq``), in ``tree_leaves``' order."""
+    return ["/".join(map(str, path)) for path, _ in _walk(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves``' order) in ``like``'s structure."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(like)
 
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """``value`` as an f32 0-dim tensor on ``like``'s device, filled there
+    (``torch.tensor`` would copy it from the host and stall it)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def _rounded(fn, *xs: torch.Tensor) -> torch.Tensor:
@@ -65,60 +103,73 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params) -> OptState:
-    leaves = _leaves(params)
-    zeros = lambda: _like(params, [torch.zeros_like(p, dtype=torch.float32)
-                                   for p in leaves])
+    leaves = tree_leaves(params)
+
+    def zeros():
+        return tree_unflatten(params, [torch.zeros_like(
+            p, dtype=torch.float32) for p in leaves])
     return OptState(step=torch.zeros((), dtype=torch.int32,
                                      device=leaves[0].device),
                     mu=zeros(), nu=zeros())
 
 
-def _flat(leaves) -> torch.Tensor:
-    return torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
-
-
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(_flat(_leaves(tree)).square().sum())
+    """sqrt of the sum over the leaves, in tree order, of each leaf's sum
+    of squares in f32."""
+    return _rounded(torch.sqrt, sum(x.float().square().sum()
+                                    for x in tree_leaves(tree)))
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
-    """(new params, new state, {"lr", "grad_norm"}); the norm is the one
-    before clipping.  Nothing leaves the device; each step of the formula
-    is one multi-tensor launch over all leaves."""
-    p, g = _leaves(params), [x.to(torch.float32) for x in _leaves(grads)]
+def _chunks(*xs):
+    """Matching pieces of same-shaped tensors ``xs``: flat slices of at
+    most ``CHUNK`` elements where all are contiguous, else the whole."""
+    if xs[0].numel() <= CHUNK or not all(x.is_contiguous() for x in xs):
+        return [xs]
+    return zip(*(x.view(-1).split(CHUNK) for x in xs))
+
+
+def decays_matrices(path, leaf) -> bool:
+    """The reference's decay rule on its own trees: matrices only (norms
+    and biases exempt)."""
+    return leaf.ndim >= 2
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
+                 decays=decays_matrices):
+    """(params, new state, {"lr", "grad_norm"}); the norm is the one
+    before clipping.  ``params``, ``grads`` and the moments are trees of
+    one structure (nested dicts, lists, tuples); ``decays(path, leaf)``
+    (the leaf's keys from the root) says which leaves take weight decay.
+    The caller hands over ``params`` and ``state``, as the reference's
+    jitted steps donate them: their tensors are updated in place, leaf by
+    leaf, each in pieces of at most ``CHUNK`` elements, so the update's
+    temporaries stay that small.  Nothing leaves the device."""
+    decay = [decays(path, x) for path, x in _walk(params)]
+    p, g = tree_leaves(params), tree_leaves(grads)
+    mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
     step = state.step + 1
-    gnorm = global_norm(g)
+    gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(_f32(cfg.clip_norm, gnorm) / (gnorm + 1e-9),
                             max=1.0)
-        g = torch._foreach_mul(g, scale)
     lr = cosine_lr(cfg, step)
     stepf = step.to(torch.float32)
     b1c = 1 - _rounded(torch.pow, _f32(cfg.b1, stepf), stepf)
     b2c = 1 - _rounded(torch.pow, _f32(cfg.b2, stepf), stepf)
-    m = torch._foreach_add(torch._foreach_mul(_leaves(state.mu), cfg.b1),
-                           torch._foreach_mul(g, 1 - cfg.b1))
-    v = torch._foreach_add(torch._foreach_mul(_leaves(state.nu), cfg.b2),
-                           torch._foreach_mul(torch._foreach_mul(g, g),
-                                              1 - cfg.b2))
-    vh = torch._foreach_div(v, b2c)
-    root = _rounded(torch.sqrt, _flat(vh)).split([x.numel() for x in vh])
-    delta = torch._foreach_div(
-        torch._foreach_div(m, b1c),
-        torch._foreach_add([r.view_as(x) for r, x in zip(root, vh)],
-                           cfg.eps))
-    p32 = [x.to(torch.float32) for x in p]
-    # decay matrices only (norms/bias exempt)
-    mats = [i for i, x in enumerate(p32) if x.ndim >= 2]
-    delta = list(delta)
-    if mats:
-        for i, d in zip(mats, torch._foreach_add(
-                [delta[i] for i in mats],
-                torch._foreach_mul([p32[i] for i in mats],
-                                   cfg.weight_decay))):
-            delta[i] = d
-    new = torch._foreach_sub(p32, torch._foreach_mul(delta, lr))
-    return (_like(params, [n.to(x.dtype) for n, x in zip(new, p)]),
-            OptState(step=step, mu=_like(params, list(m)),
-                     nu=_like(params, list(v))),
+    for pl, gl, ml, vl, dl in zip(p, g, mu, nu, decay):
+        for pc, gc, m, v in _chunks(pl, gl, ml, vl):
+            gc = gc.to(torch.float32)
+            if scale is not None:
+                gc = gc * scale
+            m.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
+            v.mul_(cfg.b2).add_((gc * gc) * (1 - cfg.b2))
+            delta = (m / b1c) / (_rounded(torch.sqrt, v / b2c) + cfg.eps)
+            p32 = pc.to(torch.float32)
+            if dl:
+                delta = delta + p32 * cfg.weight_decay
+            pc.copy_(p32 - delta * lr)
+    return (tree_unflatten(params, p),
+            OptState(step=step, mu=tree_unflatten(state.mu, mu),
+                     nu=tree_unflatten(state.nu, nu)),
             {"lr": lr, "grad_norm": gnorm})
