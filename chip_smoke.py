@@ -315,9 +315,10 @@ Phases, each printed as it ends; any failure exits non-zero:
     its plain backward computed in f64 on the card (``FLASH_BWD``:
     qwen2.5-3b's training batch in bf16 and f32, llama3-8b's prefill,
     gemma2-9b's windowed softcapped D = 256 layer, whisper-small's encoder
-    and cross-attention, D = 64 at G = 1 with a ragged S): within four
-    times the f32 plain backward's own error (plus bf16's rounding), equal
-    bits in two calls, and the kernel's, the plain backward's and
+    and cross-attention, D = 64 at G = 1 with a ragged S in f32 and bf16,
+    D = 32 in bf16): within four times the f32 plain backward's own error
+    (plus bf16's rounding), equal bits in two calls, and the kernel's (the
+    dQ and dK/dV kernels' device times apart), the plain backward's and
     ``scaled_dot_product_attention``'s backward times beside the bound;
 44. one training step on the card against the CPU, f32 activations, TF32
     off, from the same f32 masters and 2 x 32 tokens: qwen2.5-3b cut to
@@ -478,7 +479,8 @@ NONCAUSAL_FLASH = (((2, 8, 2, 100, 300, 128), {}),
 #: and f32, llama3-8b's prefill shape, gemma2-9b's windowed softcapped
 #: D = 256 layer at 2 x 6144, whisper-small's encoder over its 1500 frames
 #: and its prompt's cross-attention over them (not causal), and D = 64 at
-#: G = 1 with a ragged S
+#: G = 1 with a ragged S (f32 and bf16), and D = 32 (bf16, padded to 64
+#: columns in the tensor-core kernels)
 FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
              ("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "float32", {}),
              ("llama3-8b", (2, 32, 8, 1024, 1024, 128), "bfloat16", {}),
@@ -488,7 +490,9 @@ FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
               {"causal": False}),
              (f"{WHISPER} cross", (8, 12, 12, 128, 1500, 64), "bfloat16",
               {"causal": False}),
-             ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "float32", {}))
+             ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "float32", {}),
+             ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "bfloat16", {}),
+             ("D 32", (4, 16, 4, 512, 512, 32), "bfloat16", {}))
 #: phase 45: launch/train.py at full width and depth, as a user calls it
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "20", "--batch",
               "8", "--seq", "128", "--device", "cuda"]
@@ -1272,8 +1276,9 @@ def flash_backward(dev):
     once, then its backward alone, the graph kept; none under a softcap or
     a window).  Bound: 2.5 times the forward's operations (the visible
     (row, column) pairs) at the inputs' peak, or the bytes of q, k, v, dO
-    read and dq, dk, dv written.  Returns the JSON fields of the first
-    shape, phase 45's."""
+    read and dq, dk, dv written.  Device time (profiler) of the dQ and the
+    dK/dV kernel apart.  Returns the JSON fields of the first shape, phase
+    45's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fl_ops
@@ -1307,6 +1312,9 @@ def flash_backward(dev):
         del runs, want, plain32
         kern = median_ms(lambda: fl_ops._launch_backward(q, k, v, do, *opts),
                          reps=5, inner=2)
+        parts = {}
+        device_ms(lambda: fl_ops._launch_backward(q, k, v, do, *opts),
+                  "flash_bwd", reps=3, per_call=2, parts=parts)
         plain = median_ms(lambda: flash_bwd_plain(q, k, v, do, **kw),
                           reps=3, inner=1)
         lib = None
@@ -1330,7 +1338,10 @@ def flash_backward(dev):
         library = "none" if lib is None else f"{lib:.4f} ms"
         print(f"time flash backward {label} {shape} {dt} {kw}: kernel "
               f"{kern:.4f} ms ({flops / kern / 1e9:.1f} TFLOP/s of the "
-              f"backward's {flops / 1e9:.1f} GFLOP), plain {plain:.4f} ms, "
+              f"backward's {flops / 1e9:.1f} GFLOP; device "
+              + (", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                 or "not measured")
+              + f"), plain {plain:.4f} ms, "
               f"library backward {library}, bound {bnd:.5f} ms ({by}); "
               f"max err against f64: " + ", ".join(notes)
               + "; equal bits in two calls")

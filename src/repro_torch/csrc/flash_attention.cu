@@ -271,63 +271,6 @@ struct WgTile {
   }
 };
 
-// Copies rows [0, R) of a [*, D] bf16 tile (row r at src + r * stride)
-// into a 128-byte-swizzled tile by cp.async, zero-filling rows >= nvalid.
-// A thread copies the same 16-byte pieces of every tile, N of them, RSTEP
-// rows apart, so their offsets are worked out once.
-template <int D, int R, int NT>
-struct TileCopy {
-  static constexpr int CPR = D / 8;        // 16-byte pieces per row
-  static constexpr int RSTEP = NT / CPR;   // rows between a thread's pieces
-  static constexpr int N = R / RSTEP;      // pieces per thread
-  static_assert(N * RSTEP == R, "whole rows of pieces per thread");
-  int row0, col;  // the thread's first row, its piece's first column
-  uint32_t dst[N];  // byte offsets of its pieces in the tile
-  __device__ __forceinline__ TileCopy() {
-    const int piece = threadIdx.x % CPR;
-    row0 = threadIdx.x / CPR;
-    col = piece * 8;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int r = row0 + i * RSTEP;
-      dst[i] = (piece / 8) * (R * 128) + r * 128 + (((piece & 7) ^ (r & 7)) << 4);
-    }
-  }
-  // tile: the tile's shared-memory address
-  __device__ __forceinline__ void operator()(uint32_t tile,
-                                             const __nv_bfloat16* src,
-                                             long long stride,
-                                             int nvalid) const {
-    const __nv_bfloat16* from = src + row0 * stride + col;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const bool ok = row0 + i * RSTEP < nvalid;
-      repro_torch::cp_async16(tile + dst[i], ok ? from : src, ok);
-      from += RSTEP * stride;
-    }
-  }
-};
-
-template <int BK>
-__device__ __forceinline__ void qk_wgmma(float (&s)[BK / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (BK == 64)
-    repro_torch::wgmma_ss_n64(s, da, db, scale_d);
-  else
-    repro_torch::wgmma_ss_n32(s, da, db, scale_d);
-}
-
-template <int DP>
-__device__ __forceinline__ void pv_wgmma(float (&o)[DP / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DP == 64)
-    repro_torch::wgmma_rs_n64(o, a, db);
-  else if constexpr (DP == 128)
-    repro_torch::wgmma_rs_n128(o, a, db);
-  else
-    repro_torch::wgmma_rs_n256(o, a, db);
-}
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WgTile<D>::NT)
     flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
@@ -373,7 +316,7 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
   const int wg_begin = window > 0 ? max(0, wg_row0 - window + 1) : 0;
   const int first = (col_begin / BK) * BK;
   const int ntiles = (col_end - first + BK - 1) / BK;
-  const TileCopy<D, BK, Tile::NT> copy_kv;
+  const repro_torch::TileCopy<D, BK, Tile::NT> copy_kv;
   auto load_kv = [&](int it) {
     const int col0 = first + it * BK;
     copy_kv(k_stage(it & 1), kb + col0 * sk.s, sk.s, t_len - col0);
@@ -387,7 +330,7 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
           make_uint4(0, 0, 0, 0);
     __syncthreads();
   }
-  const TileCopy<D, MQ, Tile::NT> copy_q;
+  const repro_torch::TileCopy<D, MQ, Tile::NT> copy_q;
   for (int w = 0; w < NWG; ++w)  // rows past S: a valid address, zero-filled
     copy_q(base + w * Tile::Q_BYTES,
            q + bb * sq.b + hh * sq.h + min(row0 + w * MQ, s_len - 1) * sq.s,
@@ -425,8 +368,9 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
       repro_torch::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < DP / 16; ++ks) {
-        qk_wgmma<BK>(sc, q_desc + ((ks / 4) * MQ * 128 + (ks % 4) * 32) / 16,
-                     kd + ((ks / 4) * BK * 128 + (ks % 4) * 32) / 16, ks > 0);
+        repro_torch::qk_wgmma<BK>(
+            sc, q_desc + ((ks / 4) * MQ * 128 + (ks % 4) * 32) / 16,
+            kd + ((ks / 4) * BK * 128 + (ks % 4) * 32) / 16, ks > 0);
       }
       repro_torch::wgmma_commit();
       repro_torch::wgmma_wait<0>();
@@ -495,8 +439,8 @@ __global__ void __launch_bounds__(WgTile<D>::NT)
       repro_torch::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        pv_wgmma<DP>(acc, ph[kk], vd + kk * 16 * 128 / 16);
-        pv_wgmma<DP>(acc, pl[kk], vd + kk * 16 * 128 / 16);
+        repro_torch::pv_wgmma<DP>(acc, ph[kk], vd + kk * 16 * 128 / 16);
+        repro_torch::pv_wgmma<DP>(acc, pl[kk], vd + kk * 16 * 128 / 16);
       }
       repro_torch::wgmma_commit();
       repro_torch::wgmma_wait<0>();

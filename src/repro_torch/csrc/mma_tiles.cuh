@@ -3,7 +3,8 @@
 // memory (cp.async with commit and wait groups, zero-filling what lies
 // outside a tensor), ldmatrix loads of 8x8 bf16 tiles, the warp-wide
 // mma.sync m16n8k16 and the warpgroup-wide wgmma m64nNk16, both with bf16
-// operands and f32 accumulators.
+// operands and f32 accumulators; and the attention kernels' copy of a
+// tile into the 128-byte-swizzled layout that wgmma reads.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), 4 registers of 2 bf16:
@@ -309,6 +310,69 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------- tiles of the attention kernels
+
+// Copies rows [0, R) of a [*, D] bf16 tile (row r at src + r * stride)
+// into a 128-byte-swizzled tile by cp.async, zero-filling rows >= nvalid.
+// A thread copies the same 16-byte pieces of every tile, N of them, RSTEP
+// rows apart, so their offsets are worked out once.
+template <int D, int R, int NT>
+struct TileCopy {
+  static constexpr int CPR = D / 8;        // 16-byte pieces per row
+  static constexpr int RSTEP = NT / CPR;   // rows between a thread's pieces
+  static constexpr int N = R / RSTEP;      // pieces per thread
+  static_assert(N * RSTEP == R, "whole rows of pieces per thread");
+  int row0, col;  // the thread's first row, its piece's first column
+  uint32_t dst[N];  // byte offsets of its pieces in the tile
+  __device__ __forceinline__ TileCopy() {
+    const int piece = threadIdx.x % CPR;
+    row0 = threadIdx.x / CPR;
+    col = piece * 8;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = row0 + i * RSTEP;
+      dst[i] = (piece / 8) * (R * 128) + r * 128 + (((piece & 7) ^ (r & 7)) << 4);
+    }
+  }
+  // tile: the tile's shared-memory address
+  __device__ __forceinline__ void operator()(uint32_t tile,
+                                             const __nv_bfloat16* src,
+                                             long long stride,
+                                             int nvalid) const {
+    const __nv_bfloat16* from = src + row0 * stride + col;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool ok = row0 + i * RSTEP < nvalid;
+      cp_async16(tile + dst[i], ok ? from : src, ok);
+      from += RSTEP * stride;
+    }
+  }
+};
+
+// s (+)= A B^T of a 64-row A and a BK-row B, both K-major in shared
+// memory (a score tile: m64nBKk16)
+template <int BK>
+__device__ __forceinline__ void qk_wgmma(float (&s)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 64)
+    wgmma_ss_n64(s, da, db, scale_d);
+  else
+    wgmma_ss_n32(s, da, db, scale_d);
+}
+
+// o += A B, A in registers, B [16, DP] MN-major in shared memory
+// (m64nDPk16)
+template <int DP>
+__device__ __forceinline__ void pv_wgmma(float (&o)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64(o, a, db);
+  else if constexpr (DP == 128)
+    wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n256(o, a, db);
 }
 
 }  // namespace repro_torch

@@ -110,8 +110,10 @@ def _launch_backward(q, k, v, do, causal, window, softcap):
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     # each row's max, its sum of exponentials and Delta, from the dQ
-    # kernel for the dK/dV kernel
-    stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    # kernel for the dK/dV kernel; a head's rows padded to a multiple of
+    # 64, which the bf16 kernels copy a 64-row tile at a time
+    stats = torch.empty(3 * b * h * (-(-s // 64) * 64), dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_longlong * 21)(
         *(x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)))
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd",

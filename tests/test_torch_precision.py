@@ -1,14 +1,19 @@
 """The rounding of the port's bf16 tensor-core kernels, emulated on the
-CPU: ``csrc/flash_attention.cu``'s ``flash_kernel_wgmma``,
+CPU: ``csrc/flash_attention.cu``'s ``flash_kernel_wgmma``, its backward
+``csrc/flash_attention_bwd.cu``'s two ``wgmma`` kernels,
 ``csrc/decode_attention.cu``'s ``decode_kernel_mma`` and
 ``csrc/ssd_scan.cu``'s three bf16 passes, operation by operation in plain
 PyTorch (bf16 operands, products summed in f32 per tile, the f32 operand
-of each product split into bf16 parts: two for the attention kernels' P,
-three for the SSD's folded operands), held to the bars that
-``chip_smoke.py`` and the ``cuda`` tests apply to the kernels themselves:
+of each product split into bf16 parts: two for the forward attention
+kernels' P, three for the backward's P and dS and for the SSD's folded
+operands), held to the bars that ``chip_smoke.py`` and the ``cuda`` tests
+apply to the kernels themselves:
 
 - flash and decode, bf16 output against the plain version in f32 (phase
   12): 1e-4 + 2^-8 |want| per element;
+- the flash backward, bf16 gradients against the plain backward in f64
+  (phase 43, ``tests/test_torch_lm_flash_grad.py``): 4 times the f32
+  plain backward's own largest error + 1e-7 + 2^-8 |want|;
 - SSD, bf16 y against the f32 plain version rounded to bf16 (phase 13):
   one bf16 ulp of |want| plus twice the f32 plain version's own error
   against f64; the final state within the JAX tests' atol 1e-4, rtol 1e-3.
@@ -188,6 +193,126 @@ def test_flash_needs_the_split_of_p():
     shape, kw, block_k = FLASH_CASES[0]
     assert _flash_share(shape, kw, sum(shape), block_k=block_k,
                         split=False) > 1
+
+
+def flash_bwd_emulation(q, k, v, do, *, causal=True, window=None,
+                        softcap=None, p_parts=3, ds_parts=3, rounded=True):
+    """The bf16 backward kernels' arithmetic (``csrc/flash_attention_bwd.cu``,
+    ``flash_bwd_dq_wgmma`` then ``flash_bwd_dkv_wgmma``): S and dP from
+    exact bf16 products summed in f32; scale, softcap and mask in log2
+    units; the dQ kernel's first pass over its key tiles (64 columns, 32
+    at D = 256) carrying each row's max, sum of exp2 and sum of P dP
+    online, then 1 / l and Delta; P = exp2(s - m) / l and dS = P (dP -
+    Delta) ds/dx; dQ summed a key tile at a time, dK and dV a (head of the
+    group, 64-row Q tile) at a time in the kernels' order, P and dS each
+    split into ``p_parts`` and ``ds_parts`` bf16 parts against the exact
+    bf16 K, Q and dO; the gradients rounded to bf16 (``rounded``) or kept
+    in f32."""
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    g, bk = h // kv, 32 if d == 256 else 64
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    qf = q.float().reshape(b, kv, g, s, d)
+    dof = do.float().reshape(b, kv, g, s, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    x = qf @ kf.transpose(-1, -2)
+    dp = dof @ vf.transpose(-1, -2)
+    if softcap is not None:
+        th = torch.tanh(x * scale / softcap)
+        sc, dcap = th * softcap * LOG2E, 1 - th * th
+    else:
+        sc, dcap = x * (scale * LOG2E), 1.0
+    rows, cols = torch.arange(s)[:, None], torch.arange(t)[None, :]
+    ok = cols <= rows if causal else torch.ones(s, t, dtype=torch.bool)
+    if window is not None:
+        ok = ok & (cols > rows - window)
+    sc = torch.where(ok, sc, NEG_INF)
+    m = torch.full((b, kv, g, s), NEG_INF)
+    l, pd = torch.zeros_like(m), torch.zeros_like(m)
+    for c0 in range(0, t, bk):
+        tile = sc[..., c0:c0 + bk]
+        m_new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(tile - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pd = pd * alpha + (p * dp[..., c0:c0 + bk]).sum(-1)
+        m = m_new
+    inv_l = torch.where(l > 0, 1 / l, 0.0)
+    delta = pd * inv_l
+    p = torch.where(ok, torch.exp2(sc - m[..., None]) * inv_l[..., None], 0.0)
+    ds = p * (dp - delta[..., None]) * dcap
+    dq = torch.zeros_like(qf)
+    for c0 in range(0, t, bk):
+        for part in _parts(ds[..., c0:c0 + bk], ds_parts):
+            dq = dq + part @ kf[..., c0:c0 + bk, :]
+    dk, dv = torch.zeros(b, kv, t, d), torch.zeros(b, kv, t, d)
+    for gi in range(g):
+        for r0 in range(0, s, 64):
+            rs = slice(r0, r0 + 64)
+            for part in _parts(p[:, :, gi, rs].transpose(-1, -2), p_parts):
+                dv = dv + part @ dof[:, :, gi, rs]
+            for part in _parts(ds[:, :, gi, rs].transpose(-1, -2), ds_parts):
+                dk = dk + part @ qf[:, :, gi, rs]
+    out = ((dq * scale).reshape(b, h, s, d), dk * scale, dv)
+    return tuple(x.bfloat16() for x in out) if rounded else out
+
+
+def _flash_bwd_shares(shape, kw, seed, pre=False, **emu):
+    """Per gradient (dq, dk, dv), the largest share of the backward
+    kernel's bar (``tests/test_torch_lm_flash_grad.py::kernel_close``,
+    phase 43) an element takes: against the plain backward in f64 from the
+    same bf16 inputs, 4 times the f32 plain backward's own largest error +
+    1e-7 + 2^-8 |want|; ``pre``: the emulation's gradients before their
+    rounding to bf16, against 4 times that error alone."""
+    b, h, kv, s, t, d = shape
+    q, k, v, do = _normal([(b, h, s, d), (b, kv, t, d), (b, kv, t, d),
+                           (b, h, s, d)], seed)
+    got = flash_bwd_emulation(q, k, v, do, **kw, **emu, rounded=not pre)
+    want = flash_ref.mha_backward_reference(
+        *(x.double() for x in (q, k, v, do)), **kw)
+    plain = flash_ref.mha_backward_reference(
+        *(x.float() for x in (q, k, v, do)), **kw)
+    shares = []
+    for g, w, p32 in zip(got, want, plain):
+        e32 = float((p32.double() - w).abs().max())
+        bar = 4 * e32 + (0.0 if pre else 1e-7 + 2 ** -8 * w.abs())
+        shares.append(float(((g.double() - w).abs() / bar).max()))
+    return shares
+
+
+#: the backward at reduced main-path shapes: llama3-8b's D 128 at G 4
+#: (causal), whisper-small's D 64 at G 1 without the mask and S != T,
+#: gemma2-9b's D 256 with a window and the softcap (32-column key tiles),
+#: and D 32 (B, H, KV, S, T, D)
+FLASH_BWD_CASES = [((1, 8, 2, 256, 256, 128), {}),
+                   ((2, 4, 4, 150, 200, 64), {"causal": False}),
+                   ((1, 4, 2, 192, 192, 256), {"window": 96,
+                                               "softcap": 50.0}),
+                   ((2, 4, 2, 160, 160, 32), {})]
+
+
+@pytest.mark.parametrize("shape,kw", FLASH_BWD_CASES)
+def test_flash_bwd_rounding_meets_the_kernel_bar(shape, kw):
+    assert max(_flash_bwd_shares(shape, kw, sum(shape))) <= 1
+
+
+@pytest.mark.parametrize("shape,kw", FLASH_BWD_CASES)
+def test_flash_bwd_three_parts_round_like_f32(shape, kw):
+    """Before the gradients' rounding to bf16, P and dS in three bf16 parts
+    stay within 4 times the f32 plain backward's error; in two (hi + lo,
+    as the forward takes P) they do not, and the bar above would hold them
+    only through its 2^-8 |want| term, by where values fall between bf16
+    neighbours."""
+    seed = sum(shape)
+    assert max(_flash_bwd_shares(shape, kw, seed, pre=True)) <= 1
+    assert max(_flash_bwd_shares(shape, kw, seed, pre=True, p_parts=2,
+                                 ds_parts=2)) > 1
+
+
+def test_flash_bwd_needs_the_split_of_ds():
+    """One bf16 rounding of dS (P still in three parts) misses the bar."""
+    shape, kw = FLASH_BWD_CASES[0]
+    assert max(_flash_bwd_shares(shape, kw, sum(shape), ds_parts=1)) > 1
 
 
 def _softmax_merge(states):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Times one tree's flash-attention kernel at the main path's shapes, so
-that two versions can be compared in turns on one card.
+"""Times one tree's flash-attention kernel, or its backward, at the main
+path's shapes, so that two versions can be compared in turns on one card.
 
-    python3 tools/flash_ab.py SRC LABEL
+    python3 tools/flash_ab.py SRC LABEL [backward]
 
 SRC is the ``src`` directory of a tree of the port (this checkout's, or a
 ``git archive`` of another commit unpacked into a git-ignored directory),
@@ -14,17 +14,22 @@ parent), each in a process of its own:
     for t in parent change change parent; do
         src=src; [ $t = parent ] && src=artifacts/parent/src
         python3 tools/flash_ab.py $src $t
+        python3 tools/flash_ab.py $src $t backward
     done
 
-It builds that tree's ``flash_attention`` library, prints its ptxas
-report (registers per kernel) and, for each shape, one JSON line: the
-call time (CUDA events, the median of back-to-back calls) and the device
-time (profiler).  Shapes without the causal mask need a tree whose
-wrapper takes ``causal``.
+It builds that tree's ``flash_attention`` library (``flash_attention_bwd``
+with ``backward``), prints its ptxas report (registers and spills per
+kernel) and, for each shape, one JSON line: the call time (CUDA events,
+the median of back-to-back calls) and the device time (profiler).  The
+forward runs at ``SHAPES``; shapes without the causal mask need a tree
+whose wrapper takes ``causal``.  The backward runs ``_launch_backward``
+at the bf16 shapes of ``chip_smoke.FLASH_BWD`` (phase 43), its device
+time the sum of its two kernels, each also apart.
 """
 from __future__ import annotations
 
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -33,7 +38,8 @@ sys.path[:0] = [str(Path(sys.argv[1]).resolve()), str(ROOT)]
 
 import torch  # noqa: E402
 
-from chip_smoke import card_line, device_ms, median_ms, randn  # noqa: E402
+from chip_smoke import (FLASH_BWD, card_line, device_ms,  # noqa: E402
+                        median_ms, randn)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 
@@ -53,15 +59,31 @@ SHAPES = [("llama3-8b", (8, 32, 8, 1024, 1024, 128), {}),
            {"causal": False})]
 
 
-def main() -> None:
-    label = sys.argv[2]
-    print(card_line())
-    _build.build(["flash_attention"])
-    log = (_build.BUILD_DIR / "libflash_attention.log").read_text()
-    print(label, "ptxas:", [ln.split(": ", 1)[1] for ln in log.splitlines()
-                            if "registers" in ln])
+def ptxas(name: str, label: str) -> None:
+    """Build ``lib<name>.so`` of the tree and print its ptxas report: each
+    kernel's registers and spilled bytes."""
+    _build.build([name])
+    log = (_build.BUILD_DIR / f"lib{name}.log").read_text()
+    entry = re.compile(r"Compiling entry function '\w*?(flash_\w+?)I(\w+?)EEv")
+    report, kernel, spilled = [], "?", "?"
+    for ln in log.splitlines():
+        found = entry.search(ln)
+        if found:  # the last flash_ name: the first is the file's namespace
+            fn = "flash_" + found.group(1).rsplit("flash_", 1)[1]
+            args = found.group(2).replace("Li", "").replace("ELb", ",")
+            kernel = f"{fn}<{args.replace('E', '')}>"
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if spill:
+            spilled = spill.group(1)
+        if regs:
+            report.append(f"{kernel} {regs.group(1)} regs {spilled} B spill")
+    print(label, "ptxas:", "; ".join(report))
+
+
+def forward(label: str, dev) -> None:
+    ptxas("flash_attention", label)
     takes_causal = "causal" in ops.attention.__kwdefaults__
-    dev = torch.device("cuda")
     for name, (b, h, kv, s, t, d), kw in SHAPES:
         if "causal" in kw and not takes_causal:
             continue
@@ -73,6 +95,36 @@ def main() -> None:
                            "flash_kernel", reps=5)
         print(json.dumps({"tree": label, "shape": name, "call_ms": call,
                           "device_ms": dev_ms}))
+
+
+def backward(label: str, dev) -> None:
+    ptxas("flash_attention_bwd", label)
+    for name, (b, h, kv, s, t, d), dt, kw in FLASH_BWD:
+        if dt != "bfloat16":
+            continue
+        q, k, v, do = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d),
+                             (b, h, s, d)], torch.bfloat16, 43 + s, dev)
+        opts = (kw.get("causal", True), kw.get("window"), kw.get("softcap"))
+        call = median_ms(lambda: ops._launch_backward(q, k, v, do, *opts),
+                         reps=5, inner=2)
+        parts = {}
+        dev_ms = device_ms(lambda: ops._launch_backward(q, k, v, do, *opts),
+                           "flash_bwd", reps=3, per_call=2, parts=parts)
+        print(json.dumps({"tree": label, "shape": name,
+                          "dims": [b, h, kv, s, t, d], "call_ms": call,
+                          "device_ms": dev_ms, "kernels_ms": parts}))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    label = sys.argv[2]
+    print(card_line())
+    dev = torch.device("cuda")
+    if sys.argv[3:] == ["backward"]:
+        backward(label, dev)
+    else:
+        forward(label, dev)
 
 
 if __name__ == "__main__":
