@@ -23,6 +23,7 @@ from _propcheck import given, settings, st
 from repro.detection.canny import canny_count_batch as jax_count_batch
 from repro.kernels.canny_fused import ref as jax_canny
 from repro.kernels.sobel import ref as jax_sobel
+from repro.kernels.sobel.sobel import sobel_grad_pallas
 from repro_torch.detection.canny import canny_count_batch
 from repro_torch.kernels.canny_fused import ops as canny_ops
 from repro_torch.kernels.canny_fused import ref as canny_ref
@@ -38,6 +39,11 @@ REPO = Path(__file__).resolve().parent.parent
 GEOMETRIES = [(1, 32, 32), (3, 64, 64), (1, 96, 64), (2, 40, 56),
               (1, 37, 41), (1, 64, 200), (2, 80, 600), (1, 48, 31),
               (1, 48, 65), (1, 48, 63), (1, 48, 64)]
+#: Sobel: the JAX tests' shapes, then the kernel's ragged edges: widths
+#: that are not a multiple of 4 (its scalar path), heights and widths of 1,
+#: a width past one 32-lane segment (130)
+SOBEL_SHAPES = [(1, 32, 32), (3, 64, 64), (2, 37, 41), (1, 48, 63),
+                (1, 48, 65), (1, 1, 7), (1, 5, 1), (1, 3, 130)]
 
 
 def _rand(shape, seed):
@@ -107,7 +113,7 @@ def test_ragged_batch_rejects_empty_frames():
                                    device="cpu")
 
 
-@pytest.mark.parametrize("shape", [(1, 32, 32), (3, 64, 64), (2, 37, 41)])
+@pytest.mark.parametrize("shape", SOBEL_SHAPES)
 def test_sobel_plain_matches_jax(shape):
     img = _rand(shape, 0)
     m_jax, d_jax = jax_sobel.sobel_grad(jnp.asarray(img))
@@ -117,6 +123,10 @@ def test_sobel_plain_matches_jax(shape):
     np.testing.assert_allclose(mag.numpy(), np.asarray(m_jax), rtol=0,
                                atol=1e-6)
     np.testing.assert_array_equal(direction.numpy(), np.asarray(d_jax))
+    # the Pallas kernel, run as tests/test_kernels.py runs it, at its bar
+    m_pl, d_pl = sobel_grad_pallas(jnp.asarray(img), interpret=True)
+    np.testing.assert_allclose(mag.numpy(), np.asarray(m_pl), atol=1e-5)
+    assert (direction.numpy() == np.asarray(d_pl)).mean() > 0.999
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -192,13 +202,24 @@ def test_canny_kernel_ragged_batch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 32, 32), (3, 64, 64), (2, 37, 41)])
+@pytest.mark.parametrize("shape", SOBEL_SHAPES + [
+    (256, 64, 64), (8, 1080, 1920), (2, 1080, 1917), (64, 64, 64),
+    (64, 64, 63), (16384, 3, 64)])
 def test_sobel_kernel_matches_plain(cuda, shape):
+    """Batches up to 64 x 64 x 64 take 2 columns a lane (too few warps
+    for 4), the gateway's 256 frames and 1080p 4, each with vector loads
+    where the width allows and scalar ones where it does not (odd widths,
+    1917); 3-row frames in a batch large enough for strips of 32 rows have
+    H < R.  Each input runs again from a pointer 4 bytes past 16-byte
+    alignment, which takes the scalar path."""
     x = torch.from_numpy(_rand(shape, 0)).to(cuda)
-    m1, d1 = sobel_ops.sobel_grad(x)
+    unaligned = torch.empty(x.numel() + 1, device=cuda)[1:].view(shape)
+    unaligned.copy_(x)
     m2, d2 = sobel_ref.sobel_grad(x)
-    torch.testing.assert_close(m1, m2, rtol=0, atol=1e-5)
-    assert (d1 == d2).float().mean().item() >= 0.999
+    for img in (x, unaligned):
+        m1, d1 = sobel_ops.sobel_grad(img)
+        torch.testing.assert_close(m1, m2, rtol=0, atol=1e-5)
+        assert (d1 == d2).float().mean().item() >= 0.999
 
 
 @pytest.mark.cuda
