@@ -322,25 +322,44 @@ Phases, each printed as it ends; any failure exits non-zero:
     dQ and dK/dV kernels' device times apart), the plain backward's and
     ``scaled_dot_product_attention``'s backward times beside the bound;
 44. one training step on the card against the CPU, f32 activations, TF32
-    off, from the same f32 masters and 2 x 32 tokens: qwen2.5-3b cut to
-    two layers and whisper-small to 2 + 2, at full width: the loss within
-    1e-5 relative, each gradient leaf within 1e-4 of its largest |value|,
-    the flash kernel's forward and backward launches counted, and
-    ``make_train_step``'s metrics, moments and updated parameters at the
-    same bars;
+    off, from the same f32 masters: qwen2.5-3b cut to two layers and
+    whisper-small to 2 + 2 (2 x 32 tokens), mamba2-370m cut to two layers
+    (2 x 288 tokens: the gradient crosses a chunk boundary into a ragged
+    chunk) and recurrentgemma-2b to its trailing (rec, rec) pair (2 x 32
+    tokens), at full width: the loss within 1e-5 relative, each gradient
+    leaf within 1e-4 of its largest |value|, each kernel's forward and
+    backward launches counted by layer kind (flash a attention layer, SSD
+    an ssm layer, RG-LRU a rec layer), and ``make_train_step``'s metrics,
+    moments and updated parameters at the same bars;
 45. ``launch/train.py`` on qwen2.5-3b at full width and depth (``--full
     --steps 20 --batch 8 --seq 128 --device cuda``, as a user calls it):
     every loss finite, the mean of the last five below the first five's,
     36 flash forward and 36 backward launches a step (the counts at 0
     just before the run and read just after), the step time, tokens/s,
-    the peak device memory and the host syncs of each step.
+    the peak device memory and the host syncs of each step;
+46. the SSD and RG-LRU backward kernels (``csrc/ssd_scan_bwd.cu``,
+    ``rglru_scan_backward`` in ``csrc/rglru_scan.cu``) against their plain
+    backwards computed in f64 on the card (``SSD_BWD``: mamba2-370m's
+    training shape in bf16 and f32, a ragged S with a nonzero final-state
+    gradient, the JAX tests' shapes at chunks 8 and 16, column views at
+    an odd offset; ``LRU_BWD``: recurrentgemma-2b's width with and
+    without h0, a width that is not a multiple of 64) at phase 43's bar,
+    equal bits in two calls, the RG-LRU kernel equal to its f32 plain
+    backward; each kernel's call and device time, the plain backward's
+    time and the bound at the training shape;
+47. ``launch/train.py`` at full width and depth on mamba2-370m (``--steps
+    20 --batch 8 --seq 512``) and then, its memory released,
+    recurrentgemma-2b (``--steps 10 --batch 8 --seq 128``): every loss
+    finite and falling, each kernel's forward and backward launches one
+    per layer of its kind a step, the step time, tokens/s, the peak
+    device memory and the host syncs of each step.
 
 Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
 same policy's decision on the CPU.  It then prints one JSON line with
 every kernel (the LLM kernels' launches summed over the services of
-phases 10, 14, 18, 30, 31, 35, 38, 40 and 42, and the training run of
-phase 45; the flash backward's from phase 45), the card line, and last
-``{"ok": true, "device": {...}}``.
+phases 10, 14, 18, 30, 31, 35, 38, 40 and 42, and the training runs of
+phases 45 and 47; the backward kernels' from phases 45 and 47), the card
+line, and last ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -497,6 +516,35 @@ FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
 #: phase 45: launch/train.py at full width and depth, as a user calls it
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "20", "--batch",
               "8", "--seq", "128", "--device", "cuda"]
+#: phase 47: the same for the two state-space families
+SCAN_TRAIN_ARGV = (["--arch", "mamba2-370m", "--full", "--steps", "20",
+                    "--batch", "8", "--seq", "512", "--device", "cuda"],
+                   ["--arch", "recurrentgemma-2b", "--full", "--steps", "10",
+                    "--batch", "8", "--seq", "128", "--device", "cuda"])
+#: phase 46: the SSD backward kernel, (label, (b, s, h, p, n), chunk, dtype,
+#: options): mamba2-370m's training batch (phase 47: 8 x 512 tokens) in
+#: bf16 and f32 with its A (-linspace(1, 16)), a ragged S with a nonzero
+#: gradient of the final state, the JAX tests' shape and decays at chunks
+#: 8 and 16, and x, B and C as column views at an odd element offset
+SSD_BWD = (("mamba2-370m", (8, 512, 32, 64, 128), 256, "bfloat16", {}),
+           ("mamba2-370m", (8, 512, 32, 64, 128), 256, "float32", {}),
+           ("ragged, d_state", (2, 300, 4, 64, 128), 256, "float32",
+            {"d_state": True}),
+           ("ragged, d_state", (2, 300, 4, 64, 128), 256, "bfloat16",
+            {"d_state": True}),
+           ("JAX tests", (2, 64, 4, 16, 8), 8, "float32", {"jax": True}),
+           ("JAX tests", (2, 64, 4, 16, 8), 16, "float32", {"jax": True}),
+           ("JAX tests", (2, 64, 4, 16, 8), 16, "bfloat16", {"jax": True}),
+           ("odd offset", (2, 130, 4, 64, 128), 64, "bfloat16",
+            {"offset": 1}),
+           ("odd offset", (2, 130, 4, 64, 128), 64, "float32",
+            {"offset": 1}))
+#: phase 46: the RG-LRU backward kernel, (shape, h0): recurrentgemma-2b's
+#: training batch (phase 47: 8 x 128 tokens) and 8 x 256, with and without
+#: h0, and W = 1000
+LRU_BWD = (((8, 128, 2560), False), ((8, 256, 2560), False),
+           ((8, 256, 2560), True), ((3, 77, 1000), True),
+           ((3, 77, 1000), False))
 
 #: f32 operations per pixel, counted from the plain versions: blur 2 x (5
 #: mul + 4 add); Sobel 2 x (2 mul + 4 add/sub), magnitude 2 mul + 1 add +
@@ -1363,14 +1411,200 @@ def flash_backward(dev):
     return row
 
 
+def scan_bwd_close(name, got, want, plain, dtype,
+                   parts=("dx", "ddt", "dA", "dB", "dC", "dD")):
+    """Each of ``got`` (named ``parts``) within four times the f32 plain
+    backward's (``plain``) own largest error against ``want`` (f64), plus
+    1e-7, plus 2^-8 of each value for bf16; returns the largest error and
+    a note of each."""
+    import torch
+    rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    worst, notes = 0.0, []
+    for part, g, w, p in zip(parts, got, want, plain):
+        e32 = float((p.double() - w).abs().max())
+        err = (g.double() - w).abs()
+        if not bool((err <= 4 * e32 + 1e-7 + rel * w.abs()).all()):
+            fail(f"phase 46: {name} {part} off by up to {float(err.max())} "
+                 f"(the f32 plain backward's own error {e32})")
+        worst = max(worst, float(err.max()))
+        notes.append(f"{part} {float(err.max()):.3g} (plain f32 {e32:.3g})")
+    return worst, ", ".join(notes)
+
+
+def ssd_bwd_bound(shape, chunk, dtype, with_state):
+    """(ms, "bytes" or "operations") of the SSD backward at ``shape``: x
+    and dy [b, s, h, p] read and dx written, B and C [b, s, n] read and dB
+    and dC written, in ``dtype``; dt read and ddt written, A and D read
+    and dA and dD written, in f32 (and d_state read); the operations this
+    input needs: per (batch, chunk) C_i . B_j over the causal pairs, per head
+    dy_i . xd_j, dC, dB and dxd over them; per row and head the chunk's
+    own state and state gradient, the entering state's term after the
+    first chunk, the state terms before the last chunk (or every chunk
+    with d_state).  Peak: the inputs' type's."""
+    b, s, h, p, n = shape
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * (3 * b * s * h * p + 4 * b * s * n) \
+        + 4 * 2 * b * s * h + 4 * 4 * h + (4 * b * h * p * n
+                                           if with_state else 0)
+    q = min(chunk, s)
+    rows = [min(q, s - c0) for c0 in range(0, s, q)]
+    tri = sum(r * (r + 1) // 2 for r in rows)
+    later = s - rows[0]
+    earlier = s if with_state else s - rows[-1]
+    flops = 2 * b * (tri * (n + h * (2 * p + 2 * n))
+                     + h * p * n * (2 * s + later + 2 * earlier))
+    peak = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def scan_backward(dev):
+    """Phase 46: the SSD backward kernel at ``SSD_BWD``'s shapes and the
+    RG-LRU backward kernel at ``LRU_BWD``'s against their plain backwards
+    on the card.  Bar: phase 43's, the plain backward computed in f64 from
+    the same inputs; the kernel within four times the f32 plain backward's
+    own largest error against it (plus 1e-7), and for bf16 also each
+    output's rounding to bf16 (2^-8 of it); two calls give equal bits; the
+    RG-LRU kernel equals its f32 plain backward bit for bit.  Times at the
+    training shapes of phase 47 (CUDA events): the kernel's call, its
+    device time (profiler; the SSD's six kernels apart), the plain
+    backward's; the bound; library: none.  Returns the JSON fields of
+    each kernel at phase 47's shape."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    t0 = time.perf_counter()
+    rows = {}
+    for label, shape, chunk, dt, kw in SSD_BWD:
+        dtype = getattr(torch, dt)
+        x, dtv, A, B, C, D = ssd_inputs(shape, 46 + sum(shape), dev, dtype,
+                                        not kw.get("jax"),
+                                        kw.get("offset", 0))
+        gen = torch.Generator(device=dev).manual_seed(sum(shape))
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        ds = (torch.randn(shape[0], shape[2], shape[3], shape[4],
+                          generator=gen, device=dev)
+              if kw.get("d_state") else None)
+        q = min(chunk, shape[1])
+        args = (x, dtv, A, B, C, D)
+        runs = [ssd_ops._launch_backward(*args, dy, ds, q) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(*runs)):
+            fail(f"phase 46: two SSD backward calls at {shape} {dt} differ")
+        want, plain32 = (ssd_ref.ssd_backward_reference(
+            *(t.to(f) for t in args + (dy,)), chunk=chunk,
+            d_state=None if ds is None else ds.to(f))
+            for f in (torch.float64, torch.float32))
+        err, notes = scan_bwd_close(f"SSD {label} {shape} {dt}", runs[0],
+                                    want, plain32, dtype)
+        del runs, want, plain32
+        line = (f"ssd backward {label} {shape} chunk {chunk} {dt}"
+                f"{' with d_state' if ds is not None else ''}: max err "
+                f"against f64: {notes}; equal bits in two calls")
+        if label == "mamba2-370m":
+            def kernel():
+                return ssd_ops._launch_backward(*args, dy, ds, q)
+            kern = median_ms(kernel, reps=10, inner=3)
+            parts = {}
+            dev_ms = device_ms(kernel, "ssd_bwd", reps=3, per_call=6,
+                               parts=parts)
+            plain = median_ms(lambda: ssd_ref.ssd_backward_reference(
+                *args, dy, chunk=chunk), reps=3, inner=1)
+            bnd, by, nbytes, flops = ssd_bwd_bound(shape, chunk, dt, False)
+            line += (f"; kernel {kern:.4f} ms (device "
+                     + (f"{dev_ms:.4f} ms: " + ", ".join(
+                         f"{k} {v:.4f}" for k, v in parts.items())
+                        if dev_ms else "not measured")
+                     + f"; {flops / kern / 1e9:.2f} TFLOP/s of "
+                     f"{flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, bound "
+                     f"{bnd:.5f} ms ({by}: {nbytes / 1e6:.1f} MB; "
+                     f"{flops / 1e9:.2f} GFLOP at the {dt} peak), "
+                     f"{bnd / (dev_ms or kern):.1%} of the bound; library: "
+                     f"none (no PyTorch call computes the SSD scan's "
+                     f"gradient)")
+            rows.setdefault("ssd_scan_bwd", (kern, plain, bnd, by, err))
+        print(line)
+        del x, dtv, A, B, C, D, dy, ds, args
+        torch.cuda.empty_cache()
+
+    import numpy as np
+    for shape, with_h0 in LRU_BWD:
+        a, b = lru_gate_inputs(shape, 46 + sum(shape), dev)
+        rng = np.random.default_rng(sum(shape))
+        dh = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        h0 = (torch.from_numpy(rng.standard_normal(
+            (shape[0], shape[2]), np.float32)).to(dev) if with_h0 else None)
+        h = lru_ops.linear_scan(a, b, h0)
+        runs = [lru_ops._launch_backward(a, h, dh, h0) for _ in range(2)]
+        torch.cuda.synchronize()
+        runs = [[t for t in r if t is not None] for r in runs]
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            fail(f"phase 46: two RG-LRU backward calls at {shape} differ")
+        plain32 = [t for t in lru_ref.linear_scan_backward_reference(
+            a, h, dh, h0) if t is not None]
+        if not all(torch.equal(x, y) for x, y in zip(runs[0], plain32)):
+            fail(f"phase 46: the RG-LRU backward kernel at {shape} h0="
+                 f"{with_h0} differs from its f32 plain backward")
+        h64 = lru_ref.linear_scan(a.double(), b.double(),
+                                  None if h0 is None else h0.double())
+        want = [t for t in lru_ref.linear_scan_backward_reference(
+            a.double(), h64, dh.double(),
+            None if h0 is None else h0.double()) if t is not None]
+        err, notes = scan_bwd_close(f"RG-LRU {shape}", runs[0], want,
+                                    plain32, torch.float32,
+                                    ("da", "db", "dh0"))
+        line = (f"rglru backward {shape} h0={with_h0}: equal to the f32 plain "
+                f"backward bit for bit and in two calls; max err against "
+                f"f64: {notes}")
+        if shape == (8, 128, 2560) and not with_h0:
+            def kernel():
+                return lru_ops._launch_backward(a, h, dh, None)
+            kern = median_ms(kernel, reps=10, inner=5)
+            dev_ms = device_ms(kernel, "rglru_bwd_kernel", reps=5)
+            plain = median_ms(lambda: lru_ref.linear_scan_backward_reference(
+                a, h, dh), reps=3, inner=1)
+            # a, h and dh read and da and db written in f32; one add and
+            # two multiplies a step on the CUDA cores
+            nbytes = 20 * a.numel()
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 3 * a.numel() / F32_FLOP_PER_S * 1e3
+            bnd, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                       else (t_ops, "operations"))
+            line += (f"; kernel {kern:.4f} ms (device "
+                     + (f"{dev_ms:.4f} ms" if dev_ms else "not measured")
+                     + f"), plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}: "
+                     f"{nbytes / 1e6:.1f} MB; {t_ops:.5f} ms at the f32 "
+                     f"peak), {bnd / (dev_ms or kern):.1%} of the bound; "
+                     f"library: none (no PyTorch call computes the "
+                     f"recurrence's gradient)")
+            rows["rglru_scan_bwd"] = (kern, plain, bnd, by, err)
+        print(line)
+    print(f"phase 46 on {card_line()}")
+    phase("46 scan backward kernels", t0)
+    return rows
+
+
+def leaf_error(a, w):
+    """(max |a - w|, the largest |w| or 1), in f64 on ``a``'s device: the
+    card's, where a 655 M-element leaf takes a second and not the CPU's
+    ten."""
+    import torch
+    w = w.to(a.device, torch.float64)
+    return (float((a.double() - w).abs().max()),
+            float(w.abs().max()) or 1.0)
+
+
 def leaves_close(label, got, want, bar=1e-4):
     """Each leaf of ``got`` (a list) within ``bar`` of the largest |value|
     of its leaf in ``want`` ((paths, leaves)); returns the worst ratio."""
     worst = 0.0
     for path, a, w in zip(want[0], got, want[1]):
-        w = w.double()
-        err = float((a.cpu().double() - w).abs().max())
-        scale = float(w.abs().max()) or 1.0
+        err, scale = leaf_error(a, w)
         worst = max(worst, err / scale)
         if err > bar * scale:
             fail(f"phase 44: {label} {path} differs by {err} (bar {bar} of "
@@ -1393,30 +1627,110 @@ def first_step_spread(m, opt, bar=1e-4):
     return torch.maximum(u(g + gamma) - u(g), u(g) - u(g - gamma)).float()
 
 
-def train_step_cuda_vs_cpu(arch, num_layers, name) -> None:
+#: the leaves whose gradient runs through the SSD's d a_cum (a Mamba-2
+#: layer's decay A_log and its dt_bias, through A da): a difference of
+#: row and column sums that nearly cancel, so that an f32 run of it (the
+#: CPU's plain autograd too) lands up to about 1e-4 of the leaf's largest
+#: |value| from the exact gradient, and two f32 runs as far apart
+DECAY_LEAVES = ("ssm/A_log", "ssm/dt_bias")
+
+
+def decay_reference(cfg, master, batch, grads, opt):
+    """The reference of ``DECAY_LEAVES`` in phase 44: {leaf index: (the
+    f64 gradient (the model and the plain versions in f64 on the CPU, from
+    the same f32 masters), the first moment and the parameter after
+    ``adamw_update``'s first step from the CPU's gradients with these
+    leaves' taken from it)}; {} where ``master`` has no such leaf.  Prints
+    each leaf's ratios to its largest |value|: the card's gradient against
+    the f64 one and the CPU's, and the CPU's own against the f64 one."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.steps import decays_as_stacked
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import (adamw_update, init_opt_state,
+                                         tree_leaves, tree_paths,
+                                         tree_unflatten)
+    paths = tree_paths(master)
+    idx = [i for i, path in enumerate(paths) if path.endswith(DECAY_LEAVES)]
+    if not idx:
+        return {}
+    cfg64 = dataclasses.replace(cfg, activ_dtype="float64",
+                                param_dtype="float64")
+    leaves = [x.double().requires_grad_() for x in tree_leaves(master)]
+    loss, _ = loss_fn(tree_unflatten(master, leaves), cfg64, batch)
+    g64 = torch.autograd.grad(loss, leaves)
+    ref = list(grads["cpu"])
+    for i in idx:
+        ref[i] = g64[i].float()
+        card, own = (leaf_error(grads[d][i], g64[i]) for d in ("cuda", "cpu"))
+        err, scale = leaf_error(grads["cuda"][i], grads["cpu"][i])
+        print(f"  {cfg.name} gradient {paths[i]}, of its largest |value|: "
+              f"card against f64 {card[0] / card[1]:.3g}, against cpu "
+              f"{err / scale:.3g}; cpu against f64 {own[0] / own[1]:.3g}")
+    copy = tree_unflatten(master, [x.clone() for x in tree_leaves(master)])
+    p, state, _ = adamw_update(opt, copy, tree_unflatten(copy, ref),
+                               init_opt_state(copy),
+                               decays=decays_as_stacked)
+    mu, p = tree_leaves(state.mu), tree_leaves(p)
+    return {i: (g64[i], mu[i], p[i]) for i in idx}
+
+
+def kernel_counts(mods):
+    """{name: (forward, backward launches)} of the wrapper modules
+    ``mods`` ({name: module})."""
+    return {k: (m.launches, m.backward_launches) for k, m in mods.items()}
+
+
+def zero_counts(mods) -> None:
+    for m in mods.values():
+        m.launches = m.backward_launches = 0
+
+
+def trained_kernels(cfg):
+    """{name: wrapper module} of the kernels with a backward, and {name:
+    the layers of ``cfg`` that launch each once a forward}: flash an
+    attention layer (an encdec model's encoder, self- and
+    cross-attention), SSD an ssm layer, RG-LRU a rec layer."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    kinds = launch_kinds(cfg)
+    mods = {"flash_attention": fl_ops, "ssd_scan": ssd_ops,
+            "rglru_scan": lru_ops}
+    per = {"flash_attention": sum(k in ("attn", "local", "enc", "cross")
+                                  for k in kinds),
+           "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+    return mods, per
+
+
+def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
     """Phase 44: one training step of ``arch`` cut to ``num_layers``
     layers (an encdec model's halves encoder and half decoder layers) at
-    full width, f32 activations, TF32 off, on the card (the flash kernel
-    and its backward) and on the CPU (the plain versions), from the same
-    f32 masters, a batch of 2 x 32 tokens (and the family's frames): the
-    loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+    full width, f32 activations, TF32 off, on the card (the kernels and
+    their backwards) and on the CPU (the plain versions), from the same
+    f32 masters, a batch of 2 x ``seq`` tokens (and the family's frames):
+    the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
     largest |value|; then ``make_train_step`` on both: the metrics within
-    1e-5 relative, the moments at the gradient bar, and the updated
+    1e-5 relative, the first moments within 1e-4, and the updated
     parameters within 1e-4 of each leaf's largest |value| plus the
     gradient bar carried through Adam's first step (``first_step_spread``:
     the step moves a parameter by about lr times its gradient's sign, so
-    a gradient near zero or near eps moves it by up to 2 lr)."""
+    a gradient near zero or near eps moves it by up to 2 lr).  The card is
+    held to the CPU's run, except in ``DECAY_LEAVES``: there the CPU's f32
+    gradient is itself ~1e-4 from the exact one, and the card is held at
+    the same bars to the f64 gradient and to the step taken from it
+    (``decay_reference``)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import modality_inputs
-    from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
                                          tree_leaves, tree_paths)
     t0 = time.perf_counter()
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
     cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
                               activ_dtype="float32")
     if cfg.family == "encdec":
@@ -1425,93 +1739,121 @@ def train_step_cuda_vs_cpu(arch, num_layers, name) -> None:
     masters = {"cpu": init_params(cfg, seed=13, device="cpu",
                                   keep_f32=True)}
     masters["cuda"] = to_device(masters["cpu"], "cuda")
+    t_setup = time.perf_counter() - t0
     rng = np.random.default_rng(44)
     batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (2, 32))),
+        0, cfg.vocab_size, (2, seq))),
              "labels": torch.from_numpy(rng.integers(
-                 0, cfg.vocab_size, (2, 32)))}
+                 0, cfg.vocab_size, (2, seq)))}
     batch.update(modality_inputs(cfg, 2, rng, device="cpu"))
-    losses, grads, launches = {}, {}, {}
+    mods, per = trained_kernels(cfg)
+    losses, grads, launches, secs = {}, {}, {}, {}
     for dev, p in masters.items():
+        t1 = time.perf_counter()
         leaves = tree_leaves(p)
         for x in leaves:
             x.requires_grad_(True)
-        fl_ops.launches = fl_ops.backward_launches = 0
+        zero_counts(mods)
         loss, _ = loss_fn(p, cfg, to_device(batch, dev))
         grads[dev] = torch.autograd.grad(loss, leaves)
-        launches[dev] = (fl_ops.launches, fl_ops.backward_launches)
+        launches[dev] = kernel_counts(mods)
         losses[dev] = float(loss.detach())
         for x in leaves:
             x.requires_grad_(False)
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t1
     paths = tree_paths(masters["cpu"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     if rel > 1e-5:
         fail(f"phase 44: {arch} loss {losses['cuda']} on the card, "
              f"{losses['cpu']} on the cpu")
-    worst = leaves_close(f"{arch} gradient", grads["cuda"],
-                         (paths, grads["cpu"]))
-    n_attn = (cfg.enc_layers + 2 * cfg.dec_layers
-              if cfg.family == "encdec" else num_layers)
-    if launches["cuda"] != (n_attn, n_attn) or launches["cpu"] != (0, 0):
-        fail(f"phase 44: {arch} launched flash forward / backward "
-             f"{launches}, not {n_attn} each on the card")
-    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    exact = decay_reference(cfg, masters["cpu"], batch, grads, opt)
+    want_g = [exact[i][0] if i in exact else g
+              for i, g in enumerate(grads["cpu"])]
+    worst = leaves_close(f"{arch} gradient", grads["cuda"], (paths, want_g))
+    want = {k: (n, n) for k, n in per.items()}
+    if launches["cuda"] != want or any(
+            c != (0, 0) for c in launches["cpu"].values()):
+        fail(f"phase 44: {arch} launched (forward, backward) "
+             f"{launches}, not {want} on the card and none on the cpu")
     out = {}
     for dev, p in masters.items():
+        t1 = time.perf_counter()
         out[dev] = make_train_step(cfg, opt)(p, init_opt_state(p),
                                              to_device(batch, dev))
+        torch.cuda.synchronize()
+        secs[dev] += time.perf_counter() - t1
     for k in out["cpu"][2]:
         a, w = float(out["cuda"][2][k]), float(out["cpu"][2][k])
         if abs(a - w) > 1e-5 * abs(w):
             fail(f"phase 44: {arch} step metric {k} {a} on the card, {w} "
                  f"on the cpu")
-    mu = tree_leaves(out["cpu"][1].mu)
+    mu = [exact[i][1] if i in exact else m
+          for i, m in enumerate(tree_leaves(out["cpu"][1].mu))]
     worst_mu = leaves_close(f"{arch} first moment",
                             tree_leaves(out["cuda"][1].mu), (paths, mu))
+    want_p = [exact[i][2] if i in exact else w
+              for i, w in enumerate(tree_leaves(out["cpu"][0]))]
     lr, loose = float(out["cpu"][2]["lr"]), 0
-    for path, a, w, m in zip(paths, tree_leaves(out["cuda"][0]),
-                             tree_leaves(out["cpu"][0]), mu):
-        err = (a.cpu() - w).abs()
+    for path, a, w, m in zip(paths, tree_leaves(out["cuda"][0]), want_p,
+                             mu):
+        # on the card: the same IEEE operations, in a second, not minutes
+        w = w.to(a.device)
+        err = (a - w).abs()
         bar = 1e-4 * float(w.abs().max())
-        moved = lr * first_step_spread(m, opt)
+        moved = lr * first_step_spread(m.to(a.device), opt)
         loose += int((err > bar).sum())
         if not bool((err <= bar + moved).all()):
             fail(f"phase 44: {arch} updated {path} differs by "
                  f"{float(err.max())} (bar {bar} + the gradient bar "
                  f"carried through the step)")
-    print(f"{arch}, {num_layers} layers, f32, 2 x 32 tokens: loss "
+    print(f"{arch}, {num_layers} layers, f32, 2 x {seq} tokens: loss "
           f"{losses['cuda']:.6f} on the card, {losses['cpu']:.6f} on the "
           f"cpu (rel {rel:.2e}, tolerance 1e-5); gradients within "
-          f"{worst:.2e} of each leaf's largest |value| (tolerance 1e-4), "
-          f"first moments {worst_mu:.2e}; flash forward / backward "
-          f"launches {launches['cuda']}; one step's metrics within 1e-5, "
-          f"parameters within the bar ({loose} elements past 1e-4 of "
-          f"their leaf's largest |value|, each within the gradient bar "
-          f"carried through the step)")
+          f"{worst:.2e} of each leaf's largest |value| (tolerance 1e-4"
+          + (f"; {len(exact)} decay leaves against f64" if exact else "")
+          + "), "
+          f"first moments {worst_mu:.2e}; (forward, backward) launches "
+          f"{ {k: c for k, c in launches['cuda'].items() if any(c)} }; one "
+          f"step's metrics within 1e-5, parameters within the bar ({loose} "
+          f"elements past 1e-4 of their leaf's largest |value|, each "
+          f"within the gradient bar carried through the step); gradient "
+          f"and step {secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s "
+          f"on the cpu, the f32 masters' init and copy {t_setup:.1f} s, the "
+          f"comparisons the rest of the phase's "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
     del masters, grads, out
     torch.cuda.empty_cache()
     phase(name, t0)
 
 
-def train_lm_full(dev):
-    """Phase 45: ``launch/train.py`` through its ``main`` at
-    ``TRAIN_ARGV``: qwen2.5-3b at full width and depth, f32 masters, bf16
-    layers, 20 steps of 8 x 128 tokens on the card.  Every step's loss
-    finite, the mean of the last 5 below that of the first 5; the flash
-    kernel's forward and backward launches, counted from 0 around the
-    run, one each per layer a step; each step's host syncs (torch's sync
-    debug mode, inside the train step).  Returns the launches."""
+def train_main(argv, where):
+    """``launch/train.py`` through its ``main`` at ``argv`` on the card
+    (full width and depth: f32 masters, bf16 layers).  Every step's loss
+    finite, the mean of the last 5 below that of the first 5; each kernel's
+    forward and backward launches (``trained_kernels``), counted from 0
+    around the run, one each per layer of its kind a step; each step's host
+    syncs (torch's sync debug mode, inside the train step).  An earlier
+    phase's models are freed first, so that the run's peak memory is its
+    own.  ``where`` names the phase in failures.  Returns {kernel:
+    (forward, backward launches)}."""
     import collections
     import contextlib
+    import gc
     import io
     import math
     import re
     import warnings
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.launch import train
-    t0 = time.perf_counter()
+    arch = argv[argv.index("--arch") + 1]
+    steps = int(argv[argv.index("--steps") + 1])
+    mods, per = trained_kernels(get_config(arch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{arch}: device memory before the run "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     losses, syncs = [], collections.Counter()
     make = train.make_train_step
 
@@ -1534,37 +1876,65 @@ def train_lm_full(dev):
 
     train.make_train_step = recorded
     buf = io.StringIO()
-    fl_ops.launches = fl_ops.backward_launches = 0
+    zero_counts(mods)
     try:
         with contextlib.redirect_stdout(buf):
-            rc = train.main(TRAIN_ARGV)
+            rc = train.main(argv)
     finally:
         train.make_train_step = make
-    launches = (fl_ops.launches, fl_ops.backward_launches)
+    launches = kernel_counts(mods)
     out = buf.getvalue()
     print(out.rstrip())
-    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
     vals = [float(x) for x in losses]
-    n_layers = get_config("qwen2.5-3b").num_layers
     if rc != 0 or len(vals) != steps or not all(map(math.isfinite, vals)):
-        fail(f"phase 45: train.main returned {rc} with losses {vals}")
+        fail(f"{where}: train.main returned {rc} with losses {vals}")
     first, last = sum(vals[:5]) / 5, sum(vals[-5:]) / 5
     if not last < first:
-        fail(f"phase 45: the loss did not fall: {vals}")
-    if launches != (n_layers * steps, n_layers * steps):
-        fail(f"phase 45: flash forward / backward launches {launches}, not "
-             f"{n_layers} a step each")
+        fail(f"{where}: {arch}'s loss did not fall: {vals}")
+    want = {k: (n * steps, n * steps) for k, n in per.items()}
+    if launches != want:
+        fail(f"{where}: {arch} launched (forward, backward) {launches}, "
+             f"not {want}: one each per layer of the kernel's kind a step")
     peak = re.search(r"peak device memory: ([\d.]+) GiB", out)
-    print(f"train.py qwen2.5-3b full: losses {[round(x, 4) for x in vals]}; "
-          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
-          f"flash forward / backward launches {launches[0]} / "
-          f"{launches[1]} ({launches[0] // steps} / {launches[1] // steps} "
-          f"a step); host syncs in the train step "
-          f"{sum(syncs.values()) / steps:.1f} a step, by line "
+    rate = re.search(r"step time: ([\d.]+) ms .*?; (\d+) tokens/s", out)
+    print(f"train.py {arch} full, {steps} steps: losses "
+          f"{[round(x, 4) for x in vals]}; mean of the first 5 {first:.4f}, "
+          f"of the last 5 {last:.4f}; (forward, backward) launches "
+          f"{ {k: c for k, c in launches.items() if any(c)} } (one each "
+          f"per layer of its kind a step); step time "
+          f"{rate.group(1) if rate else '?'} ms, "
+          f"{rate.group(2) if rate else '?'} tokens/s; host syncs in the "
+          f"train step {sum(syncs.values()) / steps:.1f} a step, by line "
           f"{dict(syncs)}; peak {peak.group(1) if peak else '?'} GiB on "
           f"{card_line()}")
-    phase("45 train.py, qwen2.5-3b at full width", t0)
     return launches
+
+
+def train_lm_full(dev):
+    """Phase 45: ``train_main`` at ``TRAIN_ARGV``: qwen2.5-3b at full
+    width and depth, 20 steps of 8 x 128 tokens, its flash kernel's
+    forward and backward.  Returns the flash launches."""
+    t0 = time.perf_counter()
+    launches = train_main(TRAIN_ARGV, "phase 45")
+    phase("45 train.py, qwen2.5-3b at full width", t0)
+    return launches["flash_attention"]
+
+
+def train_scans_full(dev):
+    """Phase 47: ``train_main`` at each of ``SCAN_TRAIN_ARGV``, mamba2-370m
+    (the SSD kernel and its backward) and then, the first run's memory
+    released, recurrentgemma-2b (the RG-LRU kernel and its backward, and
+    the flash kernel's in its local layers).  Returns the launches summed
+    over both runs."""
+    t0 = time.perf_counter()
+    total = {}
+    for argv in SCAN_TRAIN_ARGV:
+        for k, (f, b) in train_main(argv, "phase 47").items():
+            f0, b0 = total.get(k, (0, 0))
+            total[k] = (f0 + f, b0 + b)
+    phase("47 train.py, mamba2-370m and recurrentgemma-2b at full width",
+          t0)
+    return total
 
 
 def moe_layer_check(dev) -> None:
@@ -2076,13 +2446,13 @@ def attention_timing(dev):
     return rows
 
 
-def ssd_inputs(shape, seed, dev, dtype, mamba_decays=True):
+def ssd_inputs(shape, seed, dev, dtype, mamba_decays=True, offset=0):
     """x, dt, A, B, C, D of the SSD scan at ``shape`` (b, s, h, p, n).  x,
-    B and C are column views of one [b, s, h*p + 2n] tensor in ``dtype``,
-    as the Mamba-2 block passes its conv output; dt = softplus(normal) in
-    f32; A = -linspace(1, 16, h), mamba2-370m's A_log init (a_cum then
-    reaches thousands within a 256-row chunk), or -exp(normal) as in the
-    JAX tests; D normal."""
+    B and C are column views of one [b, s, offset + h*p + 2n] tensor in
+    ``dtype`` from column ``offset``, as the Mamba-2 block passes its conv
+    output; dt = softplus(normal) in f32; A = -linspace(1, 16, h),
+    mamba2-370m's A_log init (a_cum then reaches thousands within a
+    256-row chunk), or -exp(normal) as in the JAX tests; D normal."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2092,7 +2462,7 @@ def ssd_inputs(shape, seed, dev, dtype, mamba_decays=True):
     def normal(*size):
         return torch.from_numpy(rng.standard_normal(size, np.float32)).to(dev)
 
-    xbc = normal(b, s, h * p + 2 * n).to(dtype)
+    xbc = normal(b, s, offset + h * p + 2 * n).to(dtype)[..., offset:]
     dt = F.softplus(normal(b, s, h))
     A = (-torch.linspace(1.0, 16.0, h, device=dev) if mamba_decays
          else -torch.exp(normal(h)))
@@ -4234,8 +4604,20 @@ def main() -> None:
                            "vs cpu")
     train_step_cuda_vs_cpu(WHISPER, 4, f"44 {WHISPER} train step cuda vs "
                            "cpu")
+    train_step_cuda_vs_cpu("mamba2-370m", 2, "44 mamba2-370m train step "
+                           "cuda vs cpu", seq=288)
+    train_step_cuda_vs_cpu("recurrentgemma-2b", 2, "44 recurrentgemma-2b "
+                           "train step cuda vs cpu")
     fwd_launches, bwd_launches = train_lm_full(dev)
     served_launches["flash_attention"] += fwd_launches
+
+    # 46-47 ------------------------- the state-space families' training
+    scan_rows = scan_backward(dev)
+    scan_launches = train_scans_full(dev)
+    trained_bwd = {"flash_attention": bwd_launches}
+    for k, (f, b) in scan_launches.items():
+        served_launches[k] += f
+        trained_bwd[k] = trained_bwd.get(k, 0) + b
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -4272,8 +4654,8 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:102",
-        "launches": bwd_launches, "max_abs_err": err, "ms": kern,
-        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "launches": trained_bwd["flash_attention"], "max_abs_err": err,
+        "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": lib})
     kern, plain, bnd, by = ssd_row
     kernels.append({
@@ -4291,6 +4673,17 @@ def main() -> None:
         "launches": served_launches["rglru_scan"], "max_abs_err": lru_err,
         "ms": kern, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
+    for name, source, line in (
+            ("ssd_scan", "ssd_scan_bwd.cu", "ssd_scan/ssd_scan.py:78"),
+            ("rglru_scan", "rglru_scan.cu", "rglru_scan/rglru_scan.py:44")):
+        kern, plain, bnd, by, err = scan_rows[f"{name}_bwd"]
+        kernels.append({
+            "name": f"{name}_bwd", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": trained_bwd[name], "max_abs_err": err, "ms": kern,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
     print(f"all phases: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("sobel", "canny_fused", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssd_scan", "rglru_scan")
+           "decode_attention", "ssd_scan", "ssd_scan_bwd", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -118,20 +118,6 @@ def function(name: str, symbol: str, argtypes: Sequence) -> object:
         fn.restype = ctypes.c_int
         _functions[key] = fn
     return fn
-
-
-def refuse_gradient(name: str, *xs) -> None:
-    """Raise when autograd would record a launch of the kernel ``name``,
-    which has no backward: its gradient would be lost without a word.
-    ``xs``: its tensor inputs (None for one not given)."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in xs):
-        raise RuntimeError(
-            f"the {name} kernel has no backward yet: its backward kernel "
-            "comes with the next slice of the port (ROADMAP.md: the SSD and "
-            "RG-LRU backward kernels); train this model on the CPU "
-            "(device='cpu') until then")
 
 
 def count_launch(module: str, count: str = "launches") -> None:

@@ -1,13 +1,18 @@
-"""Wrapper of the SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the SSD chunked-scan kernel (``csrc/ssd_scan.cu``) and of
+its backward (``csrc/ssd_scan_bwd.cu``).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
-``ref.py``.  ``launches`` counts the wrapper's launches: one a call, which
-in bf16 runs the kernel's three passes (chunk states, carry, outputs).
-The kernel reads strided views (x, B and C may be column slices of the
-Mamba-2 block's conv output, as long as their last dim is contiguous, at
-any element offset), works through the caller's chunk with chunk-wide
-cumulative decays, pads a ragged S with dt = 0 as the plain version does,
-and always writes the final state.
+``ref.py``, which autograd differentiates.  ``launches`` counts the
+forward's launches: one a call, which in bf16 runs the kernel's three
+passes (chunk states, carry, outputs); ``backward_launches`` the
+backward's (one a call, which runs its six kernels).  The kernels read
+strided views (x, B and C may be column slices of the Mamba-2 block's conv
+output, as long as their last dim is contiguous, at any element offset),
+work through the caller's chunk with chunk-wide cumulative decays, pad a
+ragged S with dt = 0 as the plain version does, and the forward always
+writes the final state.  On the card, a call that autograd records (an
+input that requires a gradient, with gradients enabled) goes through
+``_SSD``, whose backward is the backward kernel.
 """
 from __future__ import annotations
 
@@ -21,12 +26,23 @@ from . import ref
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward kernel launches (one a backward call) since set to 0
+backward_launches = 0
 
 #: the largest head dim P and state dim N the kernel takes
 MAX_HEADDIM, MAX_STATE = 64, 128
 
 _ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+
+
+def _strides(x, dt, B, C):
+    """The element strides of x's, dt's (batch, seq, head) dims and B's
+    and C's (batch, seq) dims, as the kernels take them."""
+    return (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
 
 
 def _launch(x, dt, A, B, C, D, q):
@@ -65,18 +81,79 @@ def _launch(x, dt, A, B, C, D, q):
     bf16 = x.dtype == torch.bfloat16
     work = torch.empty(b * h * -(-s // q) * (q + 3 * p * n) + 24 if bf16
                        else 0, dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_longlong * 10)(
-        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     fn = _build.function("ssd_scan", "ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
-                work.data_ptr(), b, s, h, p, n, q, strides, int(bf16),
-                torch.cuda.current_stream().cuda_stream)
+                work.data_ptr(), b, s, h, p, n, q, _strides(x, dt, B, C),
+                int(bf16), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan launch failed: CUDA error {rc}")
     _build.count_launch(__name__)
     return y, state
+
+
+def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):
+    """(dx, ddt, dA, dB, dC, dD) of ``_launch(x, dt, A, B, C, D, q)`` at the
+    cotangents ``dy`` of y and ``d_state`` of the final state (None: zero),
+    each in its input's dtype (the inputs were checked by the forward)."""
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"SSD backward: the gradient {tuple(dy.shape)} on "
+                         f"{dy.device} does not match x {tuple(x.shape)} on "
+                         f"{x.device}")
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    dy = dy.to(x.dtype).contiguous()
+    if d_state is not None:
+        d_state = d_state.float().contiguous()
+    dtf = dt.float()
+    A32 = A.float().contiguous()
+    D32 = D.float().contiguous()
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    dB, dC = (torch.empty((b, s, n), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    dA, dD = (torch.empty(h, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    nc = -(-s // q)
+    work = torch.empty(b * h * (nc * (2 * p * n + 10) + 8 * nc * q)
+                       + 2 * h * b * nc * q * n, dtype=torch.float32,
+                       device=x.device)
+    fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), dtf.data_ptr(), A32.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D32.data_ptr(), dy.data_ptr(),
+                None if d_state is None else d_state.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), dD.data_ptr(), work.data_ptr(), b, s, h, p, n,
+                q, _strides(x, dtf, B, C), int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"SSD scan backward launch failed: CUDA error "
+                           f"{rc}")
+    _build.count_launch(__name__, "backward_launches")
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dD.to(D.dtype))
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient.  It
+    keeps the inputs (not the states): the backward recomputes them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, q):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.q = q
+        return _launch(x, dt, A, B, C, D, q)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, B, C, D = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*_launch_backward(x, dt, A, B, C, D, dy, d_state, ctx.q),
+                None)
 
 
 def ssd(x, dt, A, B, C, D, *, chunk: int, return_final_state: bool = False):
@@ -84,14 +161,18 @@ def ssd(x, dt, A, B, C, D, *, chunk: int, return_final_state: bool = False):
     applied); A, D [h]; B, C [b,s,n] -> y [b,s,h,p] in x's dtype (and the
     final state [b,h,p,n] f32 with ``return_final_state``), on x's device:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    The chunk is ``min(chunk, s)``, as in the plain version.  The kernel
-    has no backward: on the card, a call that autograd would record
-    raises."""
+    The chunk is ``min(chunk, s)``, as in the plain version.
+    Differentiable: on the card through the backward kernel, on the CPU
+    through the plain version."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1; got {chunk}")
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
                                return_final_state=return_final_state)
-    _build.refuse_gradient("SSD scan", x, dt, A, B, C, D)
-    y, state = _launch(x, dt, A, B, C, D, min(chunk, x.shape[1]))
+    q = min(chunk, x.shape[1])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C, D)):
+        y, state = _SSD.apply(x, dt, A, B, C, D, q)
+    else:
+        y, state = _launch(x, dt, A, B, C, D, q)
     return (y, state) if return_final_state else y

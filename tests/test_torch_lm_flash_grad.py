@@ -151,23 +151,3 @@ def test_backward_kernel_reads_the_models_strided_views(cuda):
     kernel_close("strided", [g.transpose(1, 2) for g in got], t(q), t(k),
                  t(v), do.view(b, s, h, d).transpose(1, 2))
 
-
-@pytest.mark.cuda
-def test_scan_kernels_refuse_a_gradient_on_the_card(cuda):
-    """The SSD and RG-LRU kernels have no backward yet: on the card, a call
-    that autograd would record raises; without a gradient it runs."""
-    from repro_torch.kernels.rglru_scan import ops as lru_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    x = torch.randn(1, 16, 2, 8, device=cuda, requires_grad=True)
-    dt = torch.rand(1, 16, 2, device=cuda)
-    a, dd = -torch.ones(2, device=cuda), torch.ones(2, device=cuda)
-    bc = torch.randn(1, 16, 4, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        ssd_ops.ssd(x, dt, a, bc, bc, dd, chunk=8)
-    with torch.no_grad():
-        ssd_ops.ssd(x, dt, a, bc, bc, dd, chunk=8)
-    la = torch.rand(1, 16, 8, device=cuda, requires_grad=True)
-    lb = torch.randn(1, 16, 8, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        lru_ops.linear_scan(la, lb)
-    lru_ops.linear_scan(la.detach(), lb)
