@@ -72,6 +72,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_tiles.cuh"
+#include "ssd_tiles.cuh"
 
 namespace {
 
@@ -88,12 +89,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
 
-struct Strides {
-  long long xb, xs, xh;  // x [b, s, h, p], the last dim contiguous
-  long long db, ds, dh;  // dt [b, s, h]
-  long long bb, bs;      // B [b, s, n], the last dim contiguous
-  long long cb, cs;      // C [b, s, n], the last dim contiguous
-};
+using repro_torch::Strides;
 
 size_t smem_bytes(int q) {
   return sizeof(float) *
@@ -346,12 +342,15 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using repro_torch::align32;
+using repro_torch::copy_tile;
 using repro_torch::cp_async_commit;
 using repro_torch::cp_async_wait;
 using repro_torch::ldmatrix_x4;
 using repro_torch::ldmatrix_x4_trans;
 using repro_torch::mma_bf16;
 using repro_torch::split3_bf16;
+using repro_torch::vec_of;
 
 constexpr int MT = 64;          // rows of a tile
 constexpr int WT = 128;         // threads: 4 warps of 16 rows
@@ -377,48 +376,12 @@ struct Work {
   bf16* enter;
 };
 
-__host__ __device__ inline float* align32(float* p) {
-  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(p) + 31) &
-                                  ~static_cast<uintptr_t>(31));
-}
-
 size_t states_smem(int q) {
   return sizeof(bf16) * (2 * MT * LDP + 2 * MT * LDN) +
          sizeof(float) * (2 * q + MT);
 }
 size_t out_smem(int q) {
   return sizeof(bf16) * (MT * LDN + 2 * STAGE) + sizeof(float) * 2 * HG * q;
-}
-
-// rows [0, nrows) x columns [0, width) of a bf16 matrix (row r at src +
-// r * stride, ncols columns) into dst[r * ld + c], vec elements a copy;
-// rows >= nvalid and columns >= ncols become 0
-__device__ __forceinline__ void copy_tile(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int nrows,
-                                          int nvalid, int width, int ncols,
-                                          int vec) {
-  auto piece = [&](int r, int col) {
-    const bool ok = r < nvalid && col < ncols;
-    const bf16* from = src + (ok ? r * stride + col : 0);
-    bf16* to = dst + r * ld + col;
-    if (vec == 8)
-      repro_torch::cp_async16(to, from, ok);
-    else if (vec == 4)
-      repro_torch::cp_async8(to, from, ok);
-    else if (vec == 2)
-      repro_torch::cp_async4(to, from, ok);
-    else
-      *to = ok ? *from : __float2bfloat16_rn(0.f);
-  };
-  const int per_row = width / vec;
-  if (WT % per_row == 0) {  // a thread keeps its column: no division a piece
-    const int col = threadIdx.x % per_row * vec;
-    for (int r = threadIdx.x / per_row; r < nrows; r += WT / per_row)
-      piece(r, col);
-  } else {
-    for (int c = threadIdx.x; c < nrows * per_row; c += WT)
-      piece(c / per_row, c % per_row * vec);
-  }
 }
 
 __global__ void __launch_bounds__(WT)
@@ -444,10 +407,10 @@ __global__ void __launch_bounds__(WT)
   const int ntiles = (nv + MT - 1) / MT;
   auto load = [&](int jt) {
     const int j0 = jt * MT;
-    copy_tile(Xr + (jt & 1) * MT * LDP, LDP, xb + j0 * st.xs, st.xs, MT,
-              nv - j0, wp, p, vec.x);
-    copy_tile(Br + (jt & 1) * MT * LDN, LDN, bbase + j0 * st.bs, st.bs, MT,
-              nv - j0, wn, n, vec.b);
+    copy_tile<WT>(Xr + (jt & 1) * MT * LDP, LDP, xb + j0 * st.xs, st.xs,
+                  MT, nv - j0, wp, p, vec.x);
+    copy_tile<WT>(Br + (jt & 1) * MT * LDN, LDN, bbase + j0 * st.bs, st.bs,
+                  MT, nv - j0, wn, n, vec.b);
   };
   load(0);
   cp_async_commit();
@@ -597,8 +560,8 @@ __global__ void __launch_bounds__(WT)
   const int wi = i0 + warp * 16;  // the warp's first row
   const int wp = (p + 15) & ~15, wn = (n + 15) & ~15;
 
-  copy_tile(Cs, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs, MT, nv - i0,
-            wn, n, vec.c);
+  copy_tile<WT>(Cs, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs, MT,
+                nv - i0, wn, n, vec.c);
   cp_async_commit();
   for (int e = tid; e < HG * q; e += WT) {
     const int hj = e / q, i = e % q;
@@ -636,9 +599,9 @@ __global__ void __launch_bounds__(WT)
       const long long bhc =
           (static_cast<long long>(bb) * heads + h0 + hj) * nchunks + ch;
       for (int part = 0; part < NPART; ++part)
-        copy_tile(ring + part * PMAX * LDN, LDN,
-                  work.enter + (NPART * bhc + part) * p * n, n, wp, p, wn, n,
-                  vec.s);
+        copy_tile<WT>(ring + part * PMAX * LDN, LDN,
+                      work.enter + (NPART * bhc + part) * p * n, n, wp, p,
+                      wn, n, vec.s);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -681,11 +644,12 @@ __global__ void __launch_bounds__(WT)
   auto load = [&](int jt) {
     bf16* stage = ring + (jt & 1) * STAGE;
     const int j0 = jt * MT;
-    copy_tile(stage, LDN, bg + j0 * st.bs, st.bs, MT, nv - j0, wn, n, vec.b);
+    copy_tile<WT>(stage, LDN, bg + j0 * st.bs, st.bs, MT, nv - j0, wn, n,
+                  vec.b);
     for (int hj = 0; hj < nh; ++hj)
-      copy_tile(stage + MT * LDN + hj * MT * LDP, LDP,
-                xg + hj * st.xh + j0 * st.xs, st.xs, MT, nv - j0, wp, p,
-                vec.x);
+      copy_tile<WT>(stage + MT * LDN + hj * MT * LDP, LDP,
+                    xg + hj * st.xh + j0 * st.xs, st.xs, MT, nv - j0, wp, p,
+                    vec.x);
   };
   load(0);
   cp_async_commit();
@@ -808,19 +772,6 @@ __global__ void __launch_bounds__(WT)
       y0[r * ystride + c] = Ys[r * LDY + c];
     }
   }
-}
-
-// the widest copy (8, 4, 2 or 1 elements) that every row start (base plus
-// any multiple of the strides) and the row's ncols allow
-int vec_of(const void* base, const long long* strides, int nstrides,
-           int ncols) {
-  for (int v = 8; v > 1; v /= 2) {
-    bool ok = reinterpret_cast<uintptr_t>(base) % (2 * v) == 0 &&
-              ncols % v == 0;
-    for (int i = 0; i < nstrides; ++i) ok = ok && strides[i] % v == 0;
-    if (ok) return v;
-  }
-  return 1;
 }
 
 int launch(const void* x, const float* dt, const float* A, const void* B,

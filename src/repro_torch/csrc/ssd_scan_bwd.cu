@@ -21,15 +21,23 @@
 // with exp(a_last) <G_c, S_c>, to a_last.  da is the reverse cumulative
 // sum of d a_cum in the chunk, ddt = x . dxd + A da, dx = dt dxd + D dy.
 //
-// Six launches on the CUDA cores in f32 (--fmad=false, fmaf where a
-// product is meant to be fused; the sums of d a_cum in f64), no atomics:
-// two calls give equal bits.  d a_cum nearly cancels: each T_ij is added
-// at i and taken at j, and over a chunk whose a_cum reaches thousands the
-// row and column sums dwarf their difference.  Both kernels form each
-// T_ij with the same bits and add it up in f64 (a product of two floats
-// is exact there), so the pairs inside any suffix of the chunk cancel
-// exactly in the reverse sum (summed in f32, their rounding alone moves
-// an f32 model's A_log gradient ~1e-4 of its largest value).
+// No atomics: two calls give equal bits.  d a_cum nearly cancels: each
+// T_ij is added at i and taken at j, and over a chunk whose a_cum reaches
+// thousands the row and column sums dwarf their difference.  Each T_ij
+// enters both sums with the same bits and is added up in f64 (a product
+// of two floats is exact there), so the pairs inside any suffix of the
+// chunk cancel exactly in the reverse sum (summed in f32, their rounding
+// alone moves an f32 model's A_log gradient ~1e-4 of its largest value).
+//
+// Bound on the H100: at mamba2-370m's training shape (8, 512, 32, 64,
+// 128), chunk 256, the work is 20.6 GFLOP (the causal pairs' dot products
+// and sums, the state products) against 56 MB read and written in bf16:
+// the operations, 0.021 ms at the bf16 tensor-core peak (the bytes take
+// 0.017 ms); in f32 the operations, 0.31 ms at the CUDA cores' peak.
+//
+// f32 (the parity runs against the CPU): six launches on the CUDA cores
+// (--fmad=false, fmaf where a product is meant to be fused), each T_ij
+// formed with the same bits by the rows' and the columns' kernels:
 //   ssd_bwd_states (head, chunk, batch): a_cum of the chunk (one thread, in
 //       order, as the forward), the chunk's own state sum_j w_j xd_j B_j^T
 //       and its own state gradient sum_i exp(a_cum_i) dy_i C_i^T;
@@ -55,18 +63,54 @@
 // (a ragged last chunk) read as dt = 0, x = B = C = dy = 0.  x, B and C
 // are read at the forward's strides (column views of the conv output at
 // any element offset, last dim contiguous); dy, dx, dB and dC are
-// contiguous.
+// contiguous.  The per-head dB and dC go through the caller's workspace.
 //
-// Bound on the H100: at mamba2-370m's training shape (8, 512, 32, 64,
-// 128), chunk 256, the work is 20.6 GFLOP (the causal pairs' dot products
-// and sums, the state products) against 56 MB read and written in bf16:
-// the operations, 0.021 ms at the bf16 tensor-core peak (the bytes take
-// 0.017 ms); in f32 the operations, 0.31 ms at the CUDA cores' peak.  This
-// first design runs every product on the CUDA cores in f32, and puts the
-// per-head dB and dC (67 MB each at that shape) through an f32 workspace
-// the caller gives; the tensor cores are later work.
+// bf16 (training): six launches, every product on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 accumulators), 64-row tiles
+// brought in by cp.async at the forward's copy widths, P and N
+// zero-padded to 16.  x, B, C and dy are exact bf16 operands; every f32
+// operand (x w dt and dy exp(a_cum) in the states, M = L o (P dt), L o
+// C B^T, S_c, G_c) is split into three bf16 parts against the exact
+// side, as in the forward (tests/test_torch_precision.py emulates it):
+//   ssd_bwd_tc_states (head, chunk, batch): a_cum in the forward's order
+//       and bits, then the chunk's own state (c < nc - 1) and own state
+//       gradient (c > 0), the forward's ssd_kernel_states for each;
+//   ssd_bwd_tc_carry (p n / 1024, head, batch): S_c and G_c over the
+//       chunks, 4 elements a thread, each nonzero one out in three bf16
+//       parts, <G_c, S_c> from the parts (they hold S_c exactly);
+//   ssd_bwd_tc_cols (column tile x group of 2 heads, chunk, batch): per
+//       row tile i >= j, C B^T once for the group, then per head P = x_j
+//       dy_i^T, M^T = L o (P dt_j), T = M^T o C B^T in f64 (its column
+//       sums in registers, its row sums over the tile to a workspace: T is
+//       formed once, here), dxd += (L o C B^T)^T dy_i; M^T summed over the
+//       group's heads goes out in three parts; then gb = G_c B_j, dx, x .
+//       dxd, dy . x.  The column tile that walks the most row tiles starts
+//       first;
+//   ssd_bwd_tc_sums (tile x side x group of 8 heads, chunk, batch): dC_t =
+//       sum_j M_tj B_j and dB_t = sum_i M^T_ti C_i from the groups' M^T
+//       (B and C are shared by all heads: one product a group, not one a
+//       head), each head's exp(a_cum_t) dy_t S_c and w_t dt_t x_t G_c
+//       summed into them in registers in order; ranked so that the blocks
+//       with the most products start first;
+//   ssd_bwd_tc_final (chunk, batch x head): d a_cum from the row sums over
+//       the column tiles in order and the rest, then as ssd_bwd_final;
+//   ssd_bwd_reduce: dB and dC summed over the groups of 8 heads in order.
+// Against the f32 design's cost: its products ran as fmaf loops (6.6
+// TFLOP/s); it formed C B^T once a head (64 times a (batch, chunk) where
+// once does) and dy xd^T and T in both tile kernels; its per-head dB and
+// dC (67 MB each) went through the workspace; its 8-warp column blocks
+// (134.7 KB of shared memory) ran one to an SM, the longest last; its
+// states ran on the CUDA cores and its carry waited on dependent loads.
+// Here B and C enter one product a group of heads (M summed over the
+// group first), dy x^T and T are formed once, dB and dC go through the
+// workspace once per 8 heads, every block fits two to an SM, and the
+// carry moves each element once.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_tiles.cuh"
+#include "ssd_tiles.cuh"
 
 namespace {
 
@@ -80,20 +124,12 @@ constexpr int CB = 8;          // carry blocks per (batch, head)
 constexpr int CT = PMAX * NMAX / (CB * NT);  // state elements a carry thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 
-struct Strides {
-  long long xb, xs, xh;  // x [b, s, h, p], the last dim contiguous
-  long long db, ds, dh;  // dt [b, s, h]
-  long long bb, bs;      // B [b, s, n], the last dim contiguous
-  long long cb, cs;      // C [b, s, n], the last dim contiguous
-};
+using repro_torch::Strides;
 
 struct Dims {
   int b, s, h, p, n, q, nc;
@@ -725,13 +761,17 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// dB and dC [b, s, n] summed over the heads in order; block 0 also sums
-// dA and dD over (batch, chunk) in order
+// dB and dC [b, s, n] summed over their nparts parts ([nparts, b, sp, n]:
+// the heads, or groups of heads) in order; block 0 also sums dA and dD
+// over (batch, chunk) in order
 template <typename T>
 __global__ void __launch_bounds__(NT)
     ssd_bwd_reduce(T* __restrict__ dB, T* __restrict__ dC,
-                   float* __restrict__ dA, float* __restrict__ dD, Work w,
-                   Dims d) {
+                   float* __restrict__ dA, float* __restrict__ dD,
+                   const float* __restrict__ dBp,
+                   const float* __restrict__ dCp,
+                   const float* __restrict__ dAp,
+                   const float* __restrict__ dDp, int nparts, Dims d) {
   const long long total = static_cast<long long>(d.b) * d.s * d.n;
   const long long e = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
   if (e < total) {
@@ -740,9 +780,9 @@ __global__ void __launch_bounds__(NT)
     const long long from = bb * d.sp() * d.n + rem;
     const long long head = static_cast<long long>(d.b) * d.sp() * d.n;
     float sb = 0.f, sc = 0.f;
-    for (int hh = 0; hh < d.h; ++hh) {
-      sb += w.dBp[hh * head + from];
-      sc += w.dCp[hh * head + from];
+    for (int k = 0; k < nparts; ++k) {
+      sb += dBp[k * head + from];
+      sc += dCp[k * head + from];
     }
     put(dB + e, sb);
     put(dC + e, sc);
@@ -754,8 +794,8 @@ __global__ void __launch_bounds__(NT)
         for (int c = 0; c < d.nc; ++c) {
           const long long at = (static_cast<long long>(bb) * d.h + hh) *
                                d.nc + c;
-          sa += w.dAp[at];
-          sd += w.dDp[at];
+          sa += dAp[at];
+          sd += dDp[at];
         }
       dA[hh] = sa;
       dD[hh] = sd;
@@ -832,10 +872,1032 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   if ((err = cudaGetLastError())) return static_cast<int>(err);
   const long long total = static_cast<long long>(d.b) * d.s * d.n;
   ssd_bwd_reduce<T><<<static_cast<unsigned>((total + NT - 1) / NT), NT, 0,
-                stream>>>(static_cast<T*>(dB), static_cast<T*>(dC), dA, dD,
-                          w, d);
+                      stream>>>(static_cast<T*>(dB), static_cast<T*>(dC), dA,
+                                dD, w.dBp, w.dCp, w.dAp, w.dDp, d.h, d);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------------ bf16: the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using repro_torch::align32;
+using repro_torch::copy_tile;
+using repro_torch::cp_async_commit;
+using repro_torch::cp_async_wait;
+using repro_torch::ldmatrix_x4;
+using repro_torch::ldmatrix_x4_trans;
+using repro_torch::mma_bf16;
+using repro_torch::split3_bf16;
+using repro_torch::vec_of;
+
+constexpr int MT = 64;          // rows of a tile
+constexpr int WT = 128;         // threads: 4 warps of 16 rows
+constexpr int LDP = PMAX + 8;   // padded row of the [*, P] bf16 tiles
+constexpr int LDN = NMAX + 8;   // padded row of the [*, N] bf16 tiles
+constexpr int LDM = MT + 8;     // padded row of a [MT, MT] tile of M
+constexpr int HG = 2;           // heads of a ssd_bwd_tc_cols block
+constexpr int HC = 8;           // heads of a ssd_bwd_tc_sums block
+constexpr int NPART = 3;        // bf16 parts of a split f32 operand
+constexpr int CT = 4;           // state elements per carry thread
+constexpr int CW = 256;         // carry threads
+constexpr int STAGE = MT * LDN + HG * MT * LDP;  // C and HG dy tiles
+constexpr int USTAGE = NPART * MT * LDM + MT * LDN;  // M's parts, B or C
+static_assert(HG * MT == WT && HC % HG == 0, "a thread a row of a group");
+
+// elements per copy of a row of x, dy, B, C and of the split states
+struct Vec {
+  int x, y, b, c, s;
+};
+
+// sizes that follow from the dims
+struct Shape {
+  int ntq;     // 64-row tiles of a chunk
+  int npairs;  // tile pairs (i, j), j <= i, of a chunk
+  int ngroups; // groups of HG heads
+  int nhc;     // groups of HC heads
+  int cbc;     // carry blocks per (batch, head)
+};
+
+Shape shape_of(const Dims& d) {
+  Shape sh;
+  sh.ntq = (d.q + MT - 1) / MT;
+  sh.npairs = sh.ntq * (sh.ntq + 1) / 2;
+  sh.ngroups = (d.h + HG - 1) / HG;
+  sh.nhc = (d.h + HC - 1) / HC;
+  sh.cbc = (d.p * d.n + CW * CT - 1) / (CW * CT);
+  return sh;
+}
+
+// the workspace, each region 32-byte aligned
+struct Work {
+  double* rowp;  // [b, h, nc, ntq, q] row sums of T over each column tile
+  double* dcol;  // [b, h, sp] column sums of T
+  float* acum;   // [b, h, sp] a_cum, chunk by chunk
+  float* Sown;   // [b, h, nc, p n] each chunk's own state (c < nc - 1)
+  float* Gown;   // [b, h, nc, p n] each chunk's own state gradient (c > 0)
+  bf16* Sp;      // [b, h, nc, NPART, p n] S_c in bf16 parts (c > 0)
+  bf16* Gp;      // [b, h, nc, NPART, p n] G_c in bf16 parts (where nonzero)
+  float* gs;     // [b, h, nc, cbc] <G_c, S_c> in cbc parts
+  float* doff;   // [b, h, sp] exp(a_cum_i) u_i . C_i (c > 0)
+  float* sterm;  // [b, h, sp] w_j xd_j . (G_c B_j)
+  float* xdxd;   // [b, h, sp] x_j . dxd_j
+  float* dyx;    // [b, h, sp] dy_j . x_j
+  bf16* Mp;      // [b, nc, ngroups, npairs, NPART, MT, MT] a group's M^T
+  float* dBp;    // [nhc, b, sp, n] dB of each group of HC heads
+  float* dCp;    // [nhc, b, sp, n] dC of each group of HC heads
+  float* dAp;    // [b, h, nc] dA of each chunk
+  float* dDp;    // [b, h, nc] dD of each chunk
+};
+
+// the workspace's regions carved in order from ws; returns the end
+float* carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
+  const long long bh = static_cast<long long>(d.b) * d.h, sp = d.sp();
+  const long long pn = static_cast<long long>(d.p) * d.n;
+  auto take = [&](long long floats) {
+    float* at = align32(ws);
+    ws = at + floats;
+    return at;
+  };
+  w->rowp = reinterpret_cast<double*>(
+      take(2 * bh * d.nc * sh.ntq * d.q));
+  w->dcol = reinterpret_cast<double*>(take(2 * bh * sp));
+  w->acum = take(bh * sp);
+  w->Sown = take(bh * d.nc * pn);
+  w->Gown = take(bh * d.nc * pn);
+  w->Sp = reinterpret_cast<bf16*>(take(bh * d.nc * NPART * pn / 2 + 1));
+  w->Gp = reinterpret_cast<bf16*>(take(bh * d.nc * NPART * pn / 2 + 1));
+  w->gs = take(bh * d.nc * sh.cbc);
+  w->doff = take(bh * sp);
+  w->sterm = take(bh * sp);
+  w->xdxd = take(bh * sp);
+  w->dyx = take(bh * sp);
+  w->Mp = reinterpret_cast<bf16*>(take(
+      static_cast<long long>(d.b) * d.nc * sh.ngroups * sh.npairs * NPART *
+      MT * MT / 2));
+  w->dBp = take(static_cast<long long>(sh.nhc) * d.b * sp * d.n);
+  w->dCp = take(static_cast<long long>(sh.nhc) * d.b * sp * d.n);
+  w->dAp = take(bh * d.nc);
+  w->dDp = take(bh * d.nc);
+  return ws;
+}
+
+size_t states_smem(int q) {
+  return sizeof(bf16) * (2 * MT * LDP + 2 * MT * LDN) +
+         sizeof(float) * (2 * static_cast<size_t>(q) + MT);
+}
+
+// a_cum of chunk c (one thread, in order, the forward's bits), then on the
+// tensor cores the chunk's own state sum_j (x_j w_j dt_j)^T B_j (c < nc -
+// 1) and its own state gradient sum_i (dy_i exp(a_cum_i))^T C_i (c > 0):
+// the forward's ssd_kernel_states, x or dy scaled in registers between
+// its transposed ldmatrix and its split into three bf16 parts
+__global__ void __launch_bounds__(WT)
+    ssd_bwd_tc_states(const bf16* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const bf16* __restrict__ Bm,
+                      const bf16* __restrict__ Cm,
+                      const bf16* __restrict__ dy, Work w, Dims d,
+                      Strides st, Vec vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Er = reinterpret_cast<bf16*>(smem_raw);  // [2][MT][LDP] x or dy
+  bf16* Nr = Er + 2 * MT * LDP;                  // [2][MT][LDN] B or C
+  float* dts = reinterpret_cast<float*>(Nr + 2 * MT * LDN);  // [q]
+  float* ac = dts + d.q;                                     // [q]
+  float* wts = ac + d.q;  // [MT] each row's scale in a tile
+
+  const int hh = blockIdx.x, c = blockIdx.y, bb = blockIdx.z;
+  const int c0 = c * d.q, nv = min(d.q, d.s - c0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wp = (d.p + 15) & ~15, wn = (d.n + 15) & ~15;
+  const int ntiles = (nv + MT - 1) / MT;
+  const long long bh = static_cast<long long>(bb) * d.h + hh;
+
+  const float a_h = A[hh];
+  const float* dtb = dt + bb * st.db + hh * st.dh + c0 * st.ds;
+  for (int i = tid; i < d.q; i += WT) dts[i] = i < nv ? dtb[i * st.ds] : 0.f;
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    for (int i = 0; i < d.q; ++i) {
+      run += a_h * dts[i];
+      ac[i] = run;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < d.q; i += WT) w.acum[bh * d.sp() + c0 + i] = ac[i];
+  const float a_last = ac[d.q - 1];
+
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 0 ? c == d.nc - 1 : c == 0) continue;  // never read
+    const bf16* eb =
+        pass == 0 ? x + bb * st.xb + hh * st.xh + c0 * st.xs
+                  : dy + (static_cast<long long>(bb) * d.s + c0) * d.h * d.p +
+                        static_cast<long long>(hh) * d.p;
+    const long long es =
+        pass == 0 ? st.xs : static_cast<long long>(d.h) * d.p;
+    const bf16* nbase = pass == 0 ? Bm + bb * st.bb + c0 * st.bs
+                                  : Cm + bb * st.cb + c0 * st.cs;
+    const long long ns = pass == 0 ? st.bs : st.cs;
+    const int ev = pass == 0 ? vec.x : vec.y, nvv = pass == 0 ? vec.b : vec.c;
+    auto load = [&](int jt) {
+      const int j0 = jt * MT;
+      copy_tile<WT>(Er + (jt & 1) * MT * LDP, LDP, eb + j0 * es, es, MT,
+                    nv - j0, wp, d.p, ev);
+      copy_tile<WT>(Nr + (jt & 1) * MT * LDN, LDN, nbase + j0 * ns, ns, MT,
+                    nv - j0, wn, d.n, nvv);
+    };
+    load(0);
+    cp_async_commit();
+    float acc[NMAX / 8][4];
+#pragma unroll
+    for (int j = 0; j < NMAX / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int jt = 0; jt < ntiles; ++jt) {
+      if (jt + 1 < ntiles) load(jt + 1);
+      cp_async_commit();
+      const int j0 = jt * MT;
+      if (tid < MT) {
+        const int j = j0 + tid;
+        wts[tid] = j >= nv ? 0.f
+                   : pass == 0 ? expf(a_last - ac[j]) * dts[j]
+                               : expf(ac[j]);
+      }
+      cp_async_wait<1>();
+      __syncthreads();
+      const bf16* er = Er + (jt & 1) * MT * LDP;
+      const bf16* nr = Nr + (jt & 1) * MT * LDN;
+      if (warp * 16 < d.p) {
+#pragma unroll
+        for (int kk = 0; kk < MT / 16; ++kk) {
+          uint32_t a[4], ah[4], am[4], al[4];
+          ldmatrix_x4_trans(a, er + (kk * 16 + (lane / 16) * 8 + lane % 8) *
+                                        LDP +
+                                   warp * 16 + ((lane / 8) & 1) * 8);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = kk * 16 + 2 * t4 + (e / 2) * 8;
+            const __nv_bfloat162 v =
+                *reinterpret_cast<const __nv_bfloat162*>(&a[e]);
+            split3_bf16(__low2float(v) * wts[j],
+                        __high2float(v) * wts[j + 1], ah[e], am[e], al[e]);
+          }
+#pragma unroll
+          for (int nb = 0; nb < NMAX / 16; ++nb) {
+            if (nb * 16 >= wn) break;
+            uint32_t b[4];
+            ldmatrix_x4_trans(
+                b, nr + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDN +
+                       nb * 16 + (lane / 16) * 8);
+            mma_bf16(acc[2 * nb], ah, b[0], b[1]);
+            mma_bf16(acc[2 * nb + 1], ah, b[2], b[3]);
+            mma_bf16(acc[2 * nb], am, b[0], b[1]);
+            mma_bf16(acc[2 * nb + 1], am, b[2], b[3]);
+            mma_bf16(acc[2 * nb], al, b[0], b[1]);
+            mma_bf16(acc[2 * nb + 1], al, b[2], b[3]);
+          }
+        }
+      }
+      __syncthreads();  // this stage and wts are rewritten next
+    }
+    float* out = (pass == 0 ? w.Sown : w.Gown) +
+                 (bh * d.nc + c) * static_cast<long long>(d.p) * d.n;
+#pragma unroll
+    for (int j = 0; j < NMAX / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + g + 8 * (e / 2);
+        const int col = j * 8 + 2 * t4 + (e & 1);
+        if (row < d.p && col < d.n) out[row * d.n + col] = acc[j][e];
+      }
+  }
+}
+
+// the sum over the 4 lanes of one g (xor 1, 2), in a fixed order
+template <typename F>
+__device__ __forceinline__ F quad_sum(F v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// v as NPART bf16 parts at dst, dst + stride, ...
+__device__ __forceinline__ void put_parts(bf16* dst, long long stride,
+                                          float v) {
+#pragma unroll
+  for (int part = 0; part < NPART; ++part) {
+    const bf16 b = __float2bfloat16_rn(v);
+    dst[part * stride] = b;
+    v -= __bfloat162float(b);
+  }
+}
+
+// the sum of v over the CW threads, warps in order, to every thread; red
+// holds CW / 32 values
+__device__ float carry_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int k = 0; k < CW / 32; ++k) total += red[k];
+  __syncthreads();
+  return total;
+}
+
+// S_c = exp(a_last,c-1) S_c-1 + own_c-1 from S_0 = 0 and, in reverse,
+// G_c-1 = own_c + exp(a_last,c) G_c from d_state (or 0), CT elements a
+// thread, CW apart; S_c (c > 0) and each nonzero G_c go out in NPART bf16
+// parts; <G_c, S_c> from the parts, which hold S_c exactly
+__global__ void __launch_bounds__(CW)
+    ssd_bwd_tc_carry(const float* __restrict__ d_state, Work w, Dims d) {
+  __shared__ float red[CW / 32];
+  const long long pn = static_cast<long long>(d.p) * d.n;
+  const long long bh = static_cast<long long>(blockIdx.z) * d.h + blockIdx.y;
+  const int e0 = blockIdx.x * CW * CT + threadIdx.x;
+  const float* a_last = w.acum + bh * d.sp() + d.q - 1;
+  float run[CT];
+#pragma unroll
+  for (int k = 0; k < CT; ++k) run[k] = 0.f;
+  for (int c = 0; c + 1 < d.nc; ++c) {
+    const float* own = w.Sown + (bh * d.nc + c) * pn;
+    bf16* out = w.Sp + (bh * d.nc + c + 1) * NPART * pn;
+    const float dec = expf(a_last[static_cast<long long>(c) * d.q]);
+#pragma unroll
+    for (int k = 0; k < CT; ++k) {
+      const int e = e0 + k * CW;
+      if (e < pn) {
+        run[k] = run[k] * dec + own[e];
+        put_parts(out + e, pn, run[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CT; ++k) {
+    const int e = e0 + k * CW;
+    run[k] = d_state && e < pn ? d_state[bh * pn + e] : 0.f;
+  }
+  for (int c = d.nc - 1; c >= 0; --c) {
+    const bool nonzero = c < d.nc - 1 || d_state;
+    float dot = 0.f;
+    if (nonzero) {
+      bf16* out = w.Gp + (bh * d.nc + c) * NPART * pn;
+      const bf16* S = w.Sp + (bh * d.nc + c) * NPART * pn;
+#pragma unroll
+      for (int k = 0; k < CT; ++k) {
+        const int e = e0 + k * CW;
+        if (e < pn) {
+          put_parts(out + e, pn, run[k]);
+          if (c > 0) {
+            const float s = (__bfloat162float(S[e]) +
+                             __bfloat162float(S[pn + e])) +
+                            __bfloat162float(S[2 * pn + e]);
+            dot = fmaf(run[k], s, dot);
+          }
+        }
+      }
+    }
+    if (nonzero && c > 0) dot = carry_sum(dot, red);
+    if (threadIdx.x == 0) w.gs[(bh * d.nc + c) * gridDim.x + blockIdx.x] = dot;
+    if (c > 0) {
+      const float* own = w.Gown + (bh * d.nc + c) * pn;
+      const float dec = expf(a_last[static_cast<long long>(c) * d.q]);
+#pragma unroll
+      for (int k = 0; k < CT; ++k) {
+        const int e = e0 + k * CW;
+        if (e < pn) run[k] = own[e] + dec * run[k];
+      }
+    }
+  }
+}
+
+size_t cols_smem() {
+  return sizeof(bf16) * (MT * LDN + HG * MT * LDP + 2 * STAGE) +
+         sizeof(float) * 6 * HG * MT + sizeof(double) * 4 * HG * MT;
+}
+
+// the 16 values v[nb][e] of columns 8 nb + 2 t4 + e summed over the 8
+// lanes of one t4 (xor 4, 8, 16), halving the values each step; lane (g,
+// t4) is left with columns 8 g + 2 t4 + e in v[0][e]
+__device__ __forceinline__ void sum_over_rows(double (&v)[8][2], int g) {
+#pragma unroll
+  for (int step = 0; step < 3; ++step) {
+    const int half = 4 >> step;          // values kept: nb < half
+    const bool upper = (g >> (2 - step)) & 1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= half) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const double mine = upper ? v[k + half][e] : v[k][e];
+        const double give = upper ? v[k][e] : v[k + half][e];
+        v[k][e] = mine + __shfl_xor_sync(0xffffffffu, give, 16 >> step);
+      }
+    }
+  }
+}
+
+// one 64-row tile j of chunk c for a group of HG heads, walking the row
+// tiles i >= j: C B^T once for the group; per head P = x_j dy_i^T (exact
+// bf16 products), M^T = L o (P dt_j), T = M^T o (C B^T) in f64 (its
+// column sums in registers, its row sums over the tile to rowp: each T
+// tile formed once), dxd_j += (L o C B^T)^T dy_i with L o C B^T in three
+// bf16 parts; the sum of M^T over the group's heads goes out in three
+// parts for ssd_bwd_tc_sums; then G_c's terms, dx_j, x_j . dxd_j, dy_j .
+// x_j.  Warp w owns rows 16 w .. 16 w + 15 of the tile
+__global__ void __launch_bounds__(WT, 2)
+    ssd_bwd_tc_cols(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                    const float* __restrict__ D, const bf16* __restrict__ dy,
+                    bf16* __restrict__ dxo, Work w, Dims d, Strides st,
+                    Vec vec, int with_ds) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Bj = reinterpret_cast<bf16*>(smem_raw);  // [MT][LDN] B of tile j
+  bf16* Xj = Bj + MT * LDN;                      // [HG][MT][LDP] x of tile j
+  bf16* ring = Xj + HG * MT * LDP;  // 2 stages of C [MT][LDN], dy [HG][MT][LDP]
+  // after the walk the ring holds a head's G_c: [NPART][PMAX][LDN]
+  float* acj = reinterpret_cast<float*>(ring + 2 * STAGE);  // [HG][MT]
+  float* dtj = acj + HG * MT;                               // [HG][MT]
+  float* aci = dtj + HG * MT;  // [2][HG][MT] a_cum of each stage's rows
+  double* red = reinterpret_cast<double*>(aci + 2 * HG * MT);  // [4][HG][MT]
+
+  const Shape sh = shape_of(d);
+  const int group = blockIdx.x / sh.ntq, jt = blockIdx.x % sh.ntq;
+  const int h0 = group * HG, nh = min(HG, d.h - h0);
+  const int c = blockIdx.y, bb = blockIdx.z;
+  const int c0 = c * d.q, nv = min(d.q, d.s - c0), j0 = jt * MT;
+  if (j0 >= nv) return;
+  const int ntile = (nv + MT - 1) / MT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wp = (d.p + 15) & ~15, wn = (d.n + 15) & ~15;
+  const long long hp = static_cast<long long>(d.h) * d.p;
+  const bf16* dyc = dy + (static_cast<long long>(bb) * d.s + c0) * hp;
+
+  copy_tile<WT>(Bj, LDN, Bm + bb * st.bb + (c0 + j0) * st.bs, st.bs, MT,
+                nv - j0, wn, d.n, vec.b);
+  for (int hj = 0; hj < nh; ++hj)
+    copy_tile<WT>(Xj + hj * MT * LDP, LDP,
+                  x + bb * st.xb + (h0 + hj) * st.xh + (c0 + j0) * st.xs,
+                  st.xs, MT, nv - j0, wp, d.p, vec.x);
+  // row r of a tile's head hj: thread hj MT + r loads its a_cum and dt
+  const int hl = tid / MT, rl = tid % MT;
+  const long long bhl = static_cast<long long>(bb) * d.h + h0 + hl;
+  auto load = [&](int it) {
+    bf16* stage = ring + ((it - jt) & 1) * STAGE;
+    const int i0 = it * MT;
+    copy_tile<WT>(stage, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs,
+                  MT, nv - i0, wn, d.n, vec.c);
+    for (int hj = 0; hj < nh; ++hj)
+      copy_tile<WT>(stage + MT * LDN + hj * MT * LDP, LDP,
+                    dyc + i0 * hp + (h0 + hj) * d.p, hp, MT, nv - i0, wp,
+                    d.p, vec.y);
+    aci[((it - jt) & 1) * HG * MT + tid] =
+        hl < nh && i0 + rl < nv ? w.acum[bhl * d.sp() + c0 + i0 + rl] : 0.f;
+  };
+  acj[tid] = hl < nh && j0 + rl < nv ? w.acum[bhl * d.sp() + c0 + j0 + rl]
+                                     : 0.f;
+  dtj[tid] = hl < nh && j0 + rl < nv
+                 ? dt[bb * st.db + (c0 + j0 + rl) * st.ds + (h0 + hl) * st.dh]
+                 : 0.f;
+  load(jt);
+  cp_async_commit();
+
+  float dxd[HG][PMAX / 8][4];
+  double csum[HG][2];
+#pragma unroll
+  for (int hj = 0; hj < HG; ++hj) {
+    csum[hj][0] = csum[hj][1] = 0.0;
+#pragma unroll
+    for (int k = 0; k < PMAX / 8; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxd[hj][k][e] = 0.f;
+  }
+  const int jw = warp * 16;  // the warp's first row in the tile
+
+  for (int it = jt; it < ntile; ++it) {
+    if (it + 1 < ntile) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ci = ring + ((it - jt) & 1) * STAGE;
+    const bf16* Yi = Ci + MT * LDN;
+    const float* ai = aci + ((it - jt) & 1) * HG * MT;
+    const int i0 = it * MT;
+    // on the diagonal the 16-column blocks left of the warp's rows are 0
+    const int kb0 = it == jt ? warp : 0;
+
+    float cb[MT / 8][4];  // C B^T at [j][i]
+#pragma unroll
+    for (int k = 0; k < MT / 8; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cb[k][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NMAX / 16; ++kk) {
+      if (kk * 16 >= wn) break;
+      uint32_t af[4];
+      ldmatrix_x4(af, Bj + (jw + lane % 16) * LDN + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int ib = 0; ib < MT / 16; ++ib) {
+        if (ib < kb0) continue;
+        uint32_t b[4];
+        ldmatrix_x4(b, Ci + (ib * 16 + (lane / 16) * 8 + lane % 8) * LDN +
+                           kk * 16 + ((lane / 8) & 1) * 8);
+        mma_bf16(cb[2 * ib], af, b[0], b[1]);
+        mma_bf16(cb[2 * ib + 1], af, b[2], b[3]);
+      }
+    }
+
+    float msum[MT / 8][4];  // M^T summed over the group's heads
+#pragma unroll
+    for (int k = 0; k < MT / 8; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) msum[k][e] = 0.f;
+#pragma unroll
+    for (int hj = 0; hj < HG; ++hj) {
+      if (hj >= nh) break;
+      const bf16* Xh = Xj + hj * MT * LDP;
+      const bf16* Yh = Yi + hj * MT * LDP;
+      float pm[MT / 8][4];  // P^T = x_j dy_i^T, then L o C B^T
+#pragma unroll
+      for (int k = 0; k < MT / 8; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pm[k][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < PMAX / 16; ++kk) {
+        if (kk * 16 >= wp) break;
+        uint32_t af[4];
+        ldmatrix_x4(af, Xh + (jw + lane % 16) * LDP + kk * 16 +
+                            (lane / 16) * 8);
+#pragma unroll
+        for (int ib = 0; ib < MT / 16; ++ib) {
+          if (ib < kb0) continue;
+          uint32_t b[4];
+          ldmatrix_x4(b, Yh + (ib * 16 + (lane / 16) * 8 + lane % 8) * LDP +
+                             kk * 16 + ((lane / 8) & 1) * 8);
+          mma_bf16(pm[2 * ib], af, b[0], b[1]);
+          mma_bf16(pm[2 * ib + 1], af, b[2], b[3]);
+        }
+      }
+      // M^T = L (P dt_j) and T = M^T (C B^T) on and below the diagonal
+      // (i >= j; select, never inf x 0), L o C B^T in place of P
+      double rows[MT / 8][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int jl = jw + g + 8 * r;
+        const float aj = acj[hj * MT + jl], dj = dtj[hj * MT + jl];
+#pragma unroll
+        for (int k = 0; k < MT / 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int il = k * 8 + 2 * t4 + e;
+            const bool ok = i0 + il < nv && j0 + jl <= i0 + il;
+            const float l = ok ? expf(ai[hj * MT + il] - aj) : 0.f;
+            const float m = l * (pm[k][2 * r + e] * dj);
+            const float cbv = cb[k][2 * r + e];
+            const double t = static_cast<double>(m) * cbv;
+            csum[hj][r] += t;
+            rows[k][e] = r == 0 ? t : rows[k][e] + t;
+            msum[k][2 * r + e] += m;
+            pm[k][2 * r + e] = l * cbv;
+          }
+      }
+      sum_over_rows(rows, g);
+      red[(warp * HG + hj) * MT + 8 * g + 2 * t4] = rows[0][0];
+      red[(warp * HG + hj) * MT + 8 * g + 2 * t4 + 1] = rows[0][1];
+      // dxd_j += (L o C B^T)^T dy_i, the A operand from the fragments
+#pragma unroll
+      for (int kk = 0; kk < MT / 16; ++kk) {
+        if (kk < kb0) continue;
+        uint32_t ap[NPART][4];
+        split3_bf16(pm[2 * kk][0], pm[2 * kk][1], ap[0][0], ap[1][0],
+                    ap[2][0]);
+        split3_bf16(pm[2 * kk][2], pm[2 * kk][3], ap[0][1], ap[1][1],
+                    ap[2][1]);
+        split3_bf16(pm[2 * kk + 1][0], pm[2 * kk + 1][1], ap[0][2],
+                    ap[1][2], ap[2][2]);
+        split3_bf16(pm[2 * kk + 1][2], pm[2 * kk + 1][3], ap[0][3],
+                    ap[1][3], ap[2][3]);
+#pragma unroll
+        for (int pb = 0; pb < PMAX / 16; ++pb) {
+          if (pb * 16 >= wp) break;
+          uint32_t b[4];
+          ldmatrix_x4_trans(
+              b, Yh + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDP +
+                     pb * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int part = 0; part < NPART; ++part) {
+            mma_bf16(dxd[hj][2 * pb], ap[part], b[0], b[1]);
+            mma_bf16(dxd[hj][2 * pb + 1], ap[part], b[2], b[3]);
+          }
+        }
+      }
+    }
+    // the group's M^T in three bf16 parts, [j][i]
+    {
+      const int pair = it * (it + 1) / 2 + jt;
+      bf16* Mt = w.Mp + ((((static_cast<long long>(bb) * d.nc + c) *
+                               sh.ngroups + group) * sh.npairs + pair) *
+                         NPART) * MT * MT;
+#pragma unroll
+      for (int k = 0; k < MT / 8; ++k)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t part[NPART];
+          split3_bf16(msum[k][2 * r], msum[k][2 * r + 1], part[0], part[1],
+                      part[2]);
+          const int at = (jw + g + 8 * r) * MT + k * 8 + 2 * t4;
+#pragma unroll
+          for (int pp = 0; pp < NPART; ++pp)
+            *reinterpret_cast<uint32_t*>(Mt + pp * MT * MT + at) = part[pp];
+        }
+    }
+    __syncthreads();  // red written
+    if (hl < nh && i0 + rl < nv) {
+      const double* rv = red + hl * MT + rl;
+      const double sum = ((rv[0] + rv[HG * MT]) + rv[2 * HG * MT]) +
+                         rv[3 * HG * MT];
+      w.rowp[((bhl * d.nc + c) * sh.ntq + jt) * d.q + i0 + rl] = sum;
+    }
+    __syncthreads();  // this stage and red are rewritten next
+  }
+
+  // G_c's terms where G_c is nonzero: gb_j = G_c B_j (G_c in three bf16
+  // parts, one head at a time in the ring); dxd_j += w_j gb_j and sterm_j
+  // = w_j xd_j . gb_j
+  const long long pn = static_cast<long long>(d.p) * d.n;
+  float sterm[HG][2];
+#pragma unroll
+  for (int hj = 0; hj < HG; ++hj) sterm[hj][0] = sterm[hj][1] = 0.f;
+  if (c < d.nc - 1 || with_ds) {
+#pragma unroll
+    for (int hj = 0; hj < HG; ++hj) {
+      if (hj >= nh) break;
+      const long long bhc =
+          (static_cast<long long>(bb) * d.h + h0 + hj) * d.nc + c;
+      for (int part = 0; part < NPART; ++part)
+        copy_tile<WT>(ring + part * PMAX * LDN, LDN,
+                      w.Gp + (bhc * NPART + part) * pn, d.n, wp, d.p, wn,
+                      d.n, vec.s);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float gb[PMAX / 8][4];
+#pragma unroll
+      for (int k = 0; k < PMAX / 8; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gb[k][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NMAX / 16; ++kk) {
+        if (kk * 16 >= wn) break;
+        uint32_t af[4];
+        ldmatrix_x4(af, Bj + (jw + lane % 16) * LDN + kk * 16 +
+                            (lane / 16) * 8);
+#pragma unroll
+        for (int pb = 0; pb < PMAX / 16; ++pb) {
+          if (pb * 16 >= wp) break;
+          const int at = (pb * 16 + (lane / 16) * 8 + lane % 8) * LDN +
+                         kk * 16 + ((lane / 8) & 1) * 8;
+#pragma unroll
+          for (int part = 0; part < NPART; ++part) {
+            uint32_t b[4];
+            ldmatrix_x4(b, ring + part * PMAX * LDN + at);
+            mma_bf16(gb[2 * pb], af, b[0], b[1]);
+            mma_bf16(gb[2 * pb + 1], af, b[2], b[3]);
+          }
+        }
+      }
+      const float a_last = w.acum[(bhc / d.nc) * d.sp() + c0 + d.q - 1];
+      const bf16* Xh = Xj + hj * MT * LDP;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int jl = jw + g + 8 * r;
+        const float wj =
+            j0 + jl < nv ? expf(a_last - acj[hj * MT + jl]) : 0.f;
+        const float dj = dtj[hj * MT + jl];
+        float ss = 0.f;
+#pragma unroll
+        for (int k = 0; k < PMAX / 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pp = k * 8 + 2 * t4 + e;
+            float& v = dxd[hj][k][2 * r + e];
+            v = fmaf(wj, gb[k][2 * r + e], v);
+            if (pp < d.p)
+              ss = fmaf(__bfloat162float(Xh[jl * LDP + pp]) * dj,
+                        gb[k][2 * r + e], ss);
+          }
+        sterm[hj][r] = wj * quad_sum(ss);
+      }
+      __syncthreads();  // the ring holds the next head's G_c next
+    }
+  }
+
+  // dx = dt dxd + D dy; x . dxd, dy . x, the column sums of T, sterm
+#pragma unroll
+  for (int hj = 0; hj < HG; ++hj) {
+    if (hj >= nh) break;
+    const int hh = h0 + hj;
+    const long long bh = static_cast<long long>(bb) * d.h + hh;
+    const float d_h = D[hh];
+    const bf16* Xh = Xj + hj * MT * LDP;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int jl = jw + g + 8 * r, j = j0 + jl;
+      const bool ok = j < nv;
+      const float dj = dtj[hj * MT + jl];
+      const bf16* dyrow = dyc + (ok ? j : 0) * hp + hh * d.p;
+      bf16* dxrow = dxo + (static_cast<long long>(bb) * d.s + c0 + j) * hp +
+                    hh * d.p;
+      float xs = 0.f, yx = 0.f;
+#pragma unroll
+      for (int k = 0; k < PMAX / 8; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pp = k * 8 + 2 * t4 + e;
+          if (ok && pp < d.p) {
+            const float v = dxd[hj][k][2 * r + e];
+            const float xv = __bfloat162float(Xh[jl * LDP + pp]);
+            const float yv = __bfloat162float(dyrow[pp]);
+            xs = fmaf(xv, v, xs);
+            yx = fmaf(yv, xv, yx);
+            dxrow[pp] = __float2bfloat16_rn(dj * v + d_h * yv);
+          }
+        }
+      const double cs = quad_sum(csum[hj][r]);
+      xs = quad_sum(xs);
+      yx = quad_sum(yx);
+      if (ok && t4 == 0) {
+        const long long at = bh * d.sp() + c0 + j;
+        w.dcol[at] = cs;
+        w.sterm[at] = sterm[hj][r];
+        w.xdxd[at] = xs;
+        w.dyx[at] = yx;
+      }
+    }
+  }
+}
+
+size_t sums_smem() { return sizeof(bf16) * (MT * LDN + 2 * USTAGE); }
+
+// the products with the sum of M^T over heads, for one 64-row tile t of
+// chunk c and a group of HC heads: side 0, dC_t = sum_j M_tj B_j over the
+// column tiles j <= t, then each head's exp(a_cum_t) dy_t S_c (c > 0) and
+// its part of d a_cum_t, exp(a_cum_t) u_t . C_t; side 1, dB_t = sum_i
+// M^T_ti C_i over the row tiles i >= t, then each head's w_t dt_t x_t G_c
+// (where G_c is nonzero).  M^T in three bf16 parts (written by
+// ssd_bwd_tc_cols), S_c and G_c in three parts, against exact bf16 B, C,
+// dy and x; the heads summed in registers in order, the group's sum to
+// dBp or dCp.  Ranked so that the blocks with the most products start
+// first
+__global__ void __launch_bounds__(WT, 2)
+    ssd_bwd_tc_sums(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                    const bf16* __restrict__ dy, Work w, Dims d, Strides st,
+                    Vec vec, int with_ds) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ct = reinterpret_cast<bf16*>(smem_raw);  // [MT][LDN] C of tile t
+  bf16* ring = Ct + MT * LDN;  // 2 stages of M^T [NPART][MT][LDM], B or C
+  // then a head's dy or x [MT][LDP] and S_c or G_c [NPART][PMAX][LDN]
+
+  const Shape sh = shape_of(d);
+  const int per = 2 * sh.ntq;
+  const int hc = blockIdx.x / per, rank = blockIdx.x % per;
+  const int side = rank & 1;  // ranks 2k, 2k + 1 make ntq - k products
+  const int t = side ? rank / 2 : sh.ntq - 1 - rank / 2;
+  const int hh0 = hc * HC, nhh = min(HC, d.h - hh0);
+  const int gfirst = hh0 / HG, ngrp = (hh0 + nhh - 1) / HG - gfirst + 1;
+  const int c = blockIdx.y, bb = blockIdx.z;
+  const int c0 = c * d.q, nv = min(d.q, d.s - c0), t0 = t * MT;
+  if (t0 >= nv) return;
+  const int ntile = (nv + MT - 1) / MT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wp = (d.p + 15) & ~15, wn = (d.n + 15) & ~15;
+  const int jw = warp * 16;
+  const long long hp = static_cast<long long>(d.h) * d.p;
+  const long long pn = static_cast<long long>(d.p) * d.n;
+  const int nother = side ? ntile - t : t + 1, ofirst = side ? t : 0;
+  const int nunits = ngrp * nother;
+
+  if (side == 0)
+    copy_tile<WT>(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
+                  nv - t0, wn, d.n, vec.c);
+  auto load = [&](int u) {
+    const int grp = gfirst + u / nother, o = ofirst + u % nother;
+    const int pair = side ? o * (o + 1) / 2 + t : t * (t + 1) / 2 + o;
+    bf16* stage = ring + (u & 1) * USTAGE;
+    const bf16* Mt = w.Mp + ((((static_cast<long long>(bb) * d.nc + c) *
+                                   sh.ngroups + grp) * sh.npairs + pair) *
+                             NPART) * MT * MT;
+    for (int part = 0; part < NPART; ++part)
+      copy_tile<WT>(stage + part * MT * LDM, LDM, Mt + part * MT * MT, MT,
+                    MT, MT, MT, MT, 8);
+    const int o0 = o * MT;
+    if (side)
+      copy_tile<WT>(stage + NPART * MT * LDM, LDN,
+                    Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT, nv - o0,
+                    wn, d.n, vec.c);
+    else
+      copy_tile<WT>(stage + NPART * MT * LDM, LDN,
+                    Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT, nv - o0,
+                    wn, d.n, vec.b);
+  };
+  load(0);
+  cp_async_commit();
+
+  float acc[NMAX / 8][4];
+#pragma unroll
+  for (int k = 0; k < NMAX / 8; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[k][e] = 0.f;
+  for (int u = 0; u < nunits; ++u) {
+    if (u + 1 < nunits) load(u + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Mpart = ring + (u & 1) * USTAGE;
+    const bf16* Nt = Mpart + NPART * MT * LDM;
+    const bool diag = ofirst + u % nother == t;
+#pragma unroll
+    for (int kk = 0; kk < MT / 16; ++kk) {
+      // on the diagonal tile, M is 0 where the column passes the row
+      if (diag && (side ? kk < warp : kk > warp)) continue;
+      uint32_t a[NPART][4];
+#pragma unroll
+      for (int part = 0; part < NPART; ++part) {
+        if (side)
+          ldmatrix_x4(a[part], Mpart + part * MT * LDM +
+                                   (jw + lane % 16) * LDM + kk * 16 +
+                                   (lane / 16) * 8);
+        else
+          ldmatrix_x4_trans(a[part],
+                            Mpart + part * MT * LDM +
+                                (kk * 16 + (lane / 16) * 8 + lane % 8) * LDM +
+                                jw + ((lane / 8) & 1) * 8);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NMAX / 16; ++nb) {
+        if (nb * 16 >= wn) break;
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Nt +
+                                 (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) *
+                                     LDN +
+                                 nb * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int part = 0; part < NPART; ++part) {
+          mma_bf16(acc[2 * nb], a[part], b[0], b[1]);
+          mma_bf16(acc[2 * nb + 1], a[part], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is reloaded two units on
+  }
+
+  // each head's state term: side 0 u = dy_t S_c (S_c is 0 in chunk 0),
+  // side 1 v = x_t G_c (G_c is 0 in the last chunk without d_state)
+  if (side == 0 ? c > 0 : c < d.nc - 1 || with_ds) {
+    bf16* E = ring;           // [MT][LDP] dy or x of the tile
+    bf16* Z = E + MT * LDP;   // [NPART][PMAX][LDN] S_c or G_c
+    for (int hk = 0; hk < nhh; ++hk) {
+      const int hh = hh0 + hk;
+      const long long bh = static_cast<long long>(bb) * d.h + hh;
+      if (side)
+        copy_tile<WT>(E, LDP, x + bb * st.xb + hh * st.xh + (c0 + t0) * st.xs,
+                      st.xs, MT, nv - t0, wp, d.p, vec.x);
+      else
+        copy_tile<WT>(E, LDP,
+                      dy + (static_cast<long long>(bb) * d.s + c0 + t0) * hp +
+                          hh * d.p,
+                      hp, MT, nv - t0, wp, d.p, vec.y);
+      const bf16* zs = (side ? w.Gp : w.Sp) + (bh * d.nc + c) * NPART * pn;
+      for (int part = 0; part < NPART; ++part)
+        copy_tile<WT>(Z + part * PMAX * LDN, LDN, zs + part * pn, d.n, wp,
+                      d.p, wn, d.n, vec.s);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float u[NMAX / 8][4];
+#pragma unroll
+      for (int k = 0; k < NMAX / 8; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[k][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < PMAX / 16; ++kk) {
+        if (kk * 16 >= wp) break;
+        uint32_t a[4];
+        ldmatrix_x4(a, E + (jw + lane % 16) * LDP + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int nb = 0; nb < NMAX / 16; ++nb) {
+          if (nb * 16 >= wn) break;
+          const int at = (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDN +
+                         nb * 16 + (lane / 16) * 8;
+#pragma unroll
+          for (int part = 0; part < NPART; ++part) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, Z + part * PMAX * LDN + at);
+            mma_bf16(u[2 * nb], a, b[0], b[1]);
+            mma_bf16(u[2 * nb + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      const float* ac = w.acum + bh * d.sp() + c0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int il = jw + g + 8 * r, i = t0 + il;
+        const bool ok = i < nv;
+        const float sc =
+            !ok ? 0.f
+            : side ? expf(ac[d.q - 1] - ac[i]) *
+                         dt[bb * st.db + (c0 + i) * st.ds + hh * st.dh]
+                   : expf(ac[i]);
+        float os = 0.f;
+#pragma unroll
+        for (int k = 0; k < NMAX / 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = u[k][2 * r + e];
+            acc[k][2 * r + e] = fmaf(sc, v, acc[k][2 * r + e]);
+            const int nn = k * 8 + 2 * t4 + e;
+            if (side == 0 && nn < d.n)
+              os = fmaf(v, __bfloat162float(Ct[il * LDN + nn]), os);
+          }
+        if (side == 0) {
+          os = quad_sum(os);
+          if (ok && t4 == 0) w.doff[bh * d.sp() + c0 + i] = sc * os;
+        }
+      }
+      __syncthreads();  // the ring holds the next head's tiles next
+    }
+  }
+
+  float* out = (side ? w.dBp : w.dCp) +
+               ((static_cast<long long>(hc) * d.b + bb) * d.sp() + c0 + t0) *
+                   d.n;
+#pragma unroll
+  for (int k = 0; k < NMAX / 8; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = jw + g + 8 * (e / 2), col = k * 8 + 2 * t4 + (e & 1);
+      if (t0 + row < nv && col < d.n) out[row * d.n + col] = acc[k][e];
+    }
+}
+
+// d a_cum of chunk c: the row sums of T over the column tiles in order,
+// plus the off-diagonal term (c > 0), minus the column sums and the state
+// terms; its reverse sum, ddt and the chunk's parts of dA and dD, as
+// ssd_bwd_final, in f64 and rounded to f32 once
+__global__ void __launch_bounds__(NT)
+    ssd_bwd_tc_final(const float* __restrict__ dt,
+                     const float* __restrict__ A, float* __restrict__ ddt,
+                     Work w, Dims d, Strides st) {
+  extern __shared__ double smd[];
+  double* da = smd;             // [q] d a_cum, then da
+  double* red = da + d.q;       // [NT] the tree sums
+  const Shape sh = shape_of(d);
+  const int c = blockIdx.x;
+  const int bb = blockIdx.y / d.h, hh = blockIdx.y % d.h;
+  const int c0 = c * d.q, nv = min(d.q, d.s - c0), tid = threadIdx.x;
+  const long long bh = static_cast<long long>(bb) * d.h + hh;
+  const long long at = bh * d.sp() + c0;
+  const double* rowp = w.rowp + (bh * d.nc + c) * sh.ntq * d.q;
+  const float* dtb = dt + bb * st.db + hh * st.dh;
+  double part = 0.0;
+  for (int i = tid; i < nv; i += NT) {
+    double rows = 0.0;
+    for (int jt = 0; jt <= i / MT; ++jt) rows += rowp[jt * d.q + i];
+    const double sv = w.sterm[at + i];
+    part += sv;
+    da[i] = rows + (c > 0 ? w.doff[at + i] : 0.f) - w.dcol[at + i] - sv;
+  }
+  const double sum_st = block_sum(part, red);
+  if (tid == 0) {
+    double gs = 0.0;
+    for (int k = 0; k < sh.cbc; ++k) gs += w.gs[(bh * d.nc + c) * sh.cbc + k];
+    const double a_last = w.acum[at + d.q - 1];
+    da[nv - 1] += sum_st + exp(a_last) * gs;
+    double run = 0.0;
+    for (int i = nv - 1; i >= 0; --i) {
+      run += da[i];
+      da[i] = run;
+    }
+  }
+  __syncthreads();
+  const double a_h = A[hh];
+  double pa = 0.0, pd = 0.0;
+  for (int i = tid; i < nv; i += NT) {
+    ddt[(static_cast<long long>(bb) * d.s + c0 + i) * d.h + hh] =
+        static_cast<float>(w.xdxd[at + i] + a_h * da[i]);
+    pa += dtb[(c0 + i) * st.ds] * da[i];
+    pd += w.dyx[at + i];
+  }
+  const double dA = block_sum(pa, red);
+  const double dD = block_sum(pd, red);
+  if (tid == 0) {
+    w.dAp[bh * d.nc + c] = static_cast<float>(dA);
+    w.dDp[bh * d.nc + c] = static_cast<float>(dD);
+  }
+}
+
+int launch(const void* x, const float* dt, const float* A, const void* B,
+           const void* C, const float* D, const void* dy,
+           const float* d_state, void* dx, float* ddt, float* dA, void* dB,
+           void* dC, float* dD, float* ws, const Dims& d,
+           const long long* s10, cudaStream_t stream) {
+  static size_t ok_states = 0, ok_cols = 0, ok_sums = 0, ok_final = 0;
+  const size_t sm_states = states_smem(d.q), sm_cols = cols_smem();
+  const size_t sm_sums = sums_smem();
+  const size_t sm_final = sizeof(double) * (static_cast<size_t>(d.q) + NT);
+  cudaError_t err;
+  if ((err = allow_smem(ssd_bwd_tc_states, sm_states, &ok_states)) ||
+      (err = allow_smem(ssd_bwd_tc_cols, sm_cols, &ok_cols)) ||
+      (err = allow_smem(ssd_bwd_tc_sums, sm_sums, &ok_sums)) ||
+      (err = allow_smem(ssd_bwd_tc_final, sm_final, &ok_final)))
+    return static_cast<int>(err);
+  const Shape sh = shape_of(d);
+  Work w;
+  carve(ws, d, sh, &w);
+  const Strides st{s10[0], s10[1], s10[2], s10[3], s10[4],
+                   s10[5], s10[6], s10[7], s10[8], s10[9]};
+  const long long dys[2] = {static_cast<long long>(d.h) * d.p, d.p};
+  const long long row = d.n;
+  const Vec vec{vec_of(x, s10, 3, d.p), vec_of(dy, dys, 2, d.p),
+                vec_of(B, s10 + 6, 2, d.n), vec_of(C, s10 + 8, 2, d.n),
+                vec_of(w.Sp, &row, 1, d.n)};
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* Bt = static_cast<const bf16*>(B);
+  const bf16* Ct = static_cast<const bf16*>(C);
+  const bf16* dyt = static_cast<const bf16*>(dy);
+  const int with_ds = d_state != nullptr;
+  const unsigned bh = static_cast<unsigned>(d.b) * d.h;
+  ssd_bwd_tc_states<<<dim3(d.h, d.nc, d.b), WT, sm_states, stream>>>(
+      xt, dt, A, Bt, Ct, dyt, w, d, st, vec);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_carry<<<dim3(sh.cbc, d.h, d.b), CW, 0, stream>>>(d_state, w,
+                                                              d);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_cols<<<dim3(sh.ntq * sh.ngroups, d.nc, d.b), WT, sm_cols,
+                    stream>>>(xt, dt, Bt, Ct, D, dyt, static_cast<bf16*>(dx),
+                              w, d, st, vec, with_ds);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_sums<<<dim3(2 * sh.ntq * sh.nhc, d.nc, d.b), WT, sm_sums,
+                    stream>>>(xt, dt, Bt, Ct, dyt, w, d, st, vec, with_ds);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_final<<<dim3(d.nc, bh), NT, sm_final, stream>>>(dt, A, ddt, w,
+                                                             d, st);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  const long long total = static_cast<long long>(d.b) * d.s * d.n;
+  ssd_bwd_reduce<bf16><<<static_cast<unsigned>((total + NT - 1) / NT), NT,
+                         0, stream>>>(static_cast<bf16*>(dB),
+                                      static_cast<bf16*>(dC), dA, dD, w.dBp,
+                                      w.dCp, w.dAp, w.dDp, sh.nhc, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -846,8 +1908,12 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 // contiguous in x's type; d_state [b, h, p, n] f32 contiguous, or null
 // (zeros).  Writes dx [b, s, h, p], dB and dC [b, s, n] (contiguous, x's
 // type), ddt [b, s, h], dA and dD [h] (contiguous, f32).  p <= 64, n <=
-// 128, 1 <= q.  `work`, 8-byte aligned, holds b h (nc (2 p n + 10) + 8 nc
-// q) + 2 h b nc q n floats, nc = ceil(s / q).  Launches on `stream` and returns
+// 128, 1 <= q.  `work`, 8-byte aligned, holds in f32 b h (nc (2 p n + 10)
+// + 8 nc q) + 2 h b nc q n floats; in bf16, with t = ceil(q / 64), sp = nc
+// q and m = ceil(h / 2) t (t + 1) / 2, 2 b h nc t q + 3 b h sp + 2 b h nc
+// p n + 2 (3 b h nc p n / 2 + 1) + b h nc ceil(p n / 1024) + 4 b h sp + b
+// nc m 3 64 64 / 2 + 2 ceil(h / 8) b sp n + 2 b h nc + 136 floats (nc =
+// ceil(s / q); ops.py's _backward_work).  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,
                             const void* B, const void* C, const float* D,
@@ -863,8 +1929,8 @@ extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,
   if (d.nc > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(x, dt, A, B, C, D, dy, d_state, dx, ddt, dA,
-                                 dB, dC, dD, work, d, st, cs);
+    return tc::launch(x, dt, A, B, C, D, dy, d_state, dx, ddt, dA, dB, dC,
+                      dD, work, d, st, cs);
   return launch<float>(x, dt, A, B, C, D, dy, d_state, dx, ddt, dA, dB, dC,
                        dD, work, d, st, cs);
 }

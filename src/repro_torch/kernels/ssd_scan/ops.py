@@ -93,6 +93,30 @@ def _launch(x, dt, A, B, C, D, q):
     return y, state
 
 
+def _backward_work(b, s, h, p, n, q, bf16):
+    """Floats of the backward's workspace, region by region as
+    ``csrc/ssd_scan_bwd.cu`` carves it.  f32: the f64 row and column sums
+    of T, a_cum, the states and their gradients, <G, S> in 8 parts, four
+    per-row sums, dB and dC of each head, dA and dD of each chunk.  bf16
+    (``tc::carve``, each of its 17 regions 32-byte aligned): the f64 row
+    sums of T per 64-row column tile and column sums, a_cum, the chunks'
+    own states and state gradients, both carried in three bf16 parts,
+    <G, S> in parts of 1024 elements, four per-row sums, the sum of M^T
+    over each group of 2 heads in three bf16 parts per tile pair, dB and
+    dC of each group of 8 heads, dA and dD of each chunk."""
+    nc = -(-s // q)
+    bh, sp, pn = b * h, nc * q, p * n
+    if not bf16:
+        return bh * (nc * (2 * pn + 10) + 8 * nc * q) + 2 * h * b * nc * q * n
+    tiles = -(-q // 64)
+    pairs = tiles * (tiles + 1) // 2
+    return (2 * bh * nc * tiles * q + 2 * bh * sp + bh * sp
+            + 2 * bh * nc * pn + 2 * (bh * nc * 3 * pn // 2 + 1)
+            + bh * nc * -(-pn // 1024) + 4 * bh * sp
+            + b * nc * -(-h // 2) * pairs * 3 * 64 * 64 // 2
+            + 2 * -(-h // 8) * b * sp * n + 2 * bh * nc + 8 * 17)
+
+
 def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):
     """(dx, ddt, dA, dB, dC, dD) of ``_launch(x, dt, A, B, C, D, q)`` at the
     cotangents ``dy`` of y and ``d_state`` of the final state (None: zero),
@@ -115,10 +139,9 @@ def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
     dA, dD = (torch.empty(h, dtype=torch.float32, device=x.device)
               for _ in range(2))
-    nc = -(-s // q)
-    work = torch.empty(b * h * (nc * (2 * p * n + 10) + 8 * nc * q)
-                       + 2 * h * b * nc * q * n, dtype=torch.float32,
-                       device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    work = torch.empty(_backward_work(b, s, h, p, n, q, bf16),
+                       dtype=torch.float32, device=x.device)
     fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dtf.data_ptr(), A32.data_ptr(), B.data_ptr(),
@@ -126,7 +149,7 @@ def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):
                 None if d_state is None else d_state.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
                 dC.data_ptr(), dD.data_ptr(), work.data_ptr(), b, s, h, p, n,
-                q, _strides(x, dtf, B, C), int(x.dtype == torch.bfloat16),
+                q, _strides(x, dtf, B, C), int(bf16),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan backward launch failed: CUDA error "
