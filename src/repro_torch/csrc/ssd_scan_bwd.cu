@@ -83,15 +83,15 @@
 //       dy_i^T, M^T = L o (P dt_j), T = M^T o C B^T in f64 (its column
 //       sums in registers, its row sums over the tile to a workspace: T is
 //       formed once, here), dxd += (L o C B^T)^T dy_i; M^T summed over the
-//       group's heads goes out in three parts; then gb = G_c B_j, dx, x .
+//       group's heads goes out in f32; then gb = G_c B_j, dx, x .
 //       dxd, dy . x.  The column tile that walks the most row tiles starts
 //       first;
 //   ssd_bwd_tc_sums (tile x side x group of 8 heads, chunk, batch): dC_t =
-//       sum_j M_tj B_j and dB_t = sum_i M^T_ti C_i from the groups' M^T
-//       (B and C are shared by all heads: one product a group, not one a
-//       head), each head's exp(a_cum_t) dy_t S_c and w_t dt_t x_t G_c
-//       summed into them in registers in order; ranked so that the blocks
-//       with the most products start first;
+//       sum_j M_tj B_j and dB_t = sum_i M^T_ti C_i, M summed over the 8
+//       heads first (B and C are shared by all heads: one product a tile
+//       pair, not one a head), each head's exp(a_cum_t) dy_t S_c and w_t
+//       dt_t x_t G_c summed into them in registers in order; ranked so that
+//       the blocks with the most products start first;
 //   ssd_bwd_tc_final (chunk, batch x head): d a_cum from the row sums over
 //       the column tiles in order and the rest, then as ssd_bwd_final;
 //   ssd_bwd_reduce: dB and dC summed over the groups of 8 heads in order.
@@ -896,14 +896,17 @@ constexpr int MT = 64;          // rows of a tile
 constexpr int WT = 128;         // threads: 4 warps of 16 rows
 constexpr int LDP = PMAX + 8;   // padded row of the [*, P] bf16 tiles
 constexpr int LDN = NMAX + 8;   // padded row of the [*, N] bf16 tiles
-constexpr int LDM = MT + 8;     // padded row of a [MT, MT] tile of M
+constexpr int LDM = MT + 4;     // padded row of a [MT, MT] f32 tile of M
 constexpr int HG = 2;           // heads of a ssd_bwd_tc_cols block
 constexpr int HC = 8;           // heads of a ssd_bwd_tc_sums block
 constexpr int NPART = 3;        // bf16 parts of a split f32 operand
-constexpr int CT = 4;           // state elements per carry thread
+constexpr int CE = 4;           // state elements per carry thread
 constexpr int CW = 256;         // carry threads
 constexpr int STAGE = MT * LDN + HG * MT * LDP;  // C and HG dy tiles
-constexpr int USTAGE = NPART * MT * LDM + MT * LDN;  // M's parts, B or C
+// bytes of a ssd_bwd_tc_sums stage: an f32 tile of M^T, a tile of B or C
+constexpr int USTAGE = sizeof(float) * MT * LDM + sizeof(bf16) * MT * LDN;
+static_assert(2 * USTAGE >= sizeof(bf16) * (MT * LDP + NPART * PMAX * LDN),
+              "a head's dy or x and S_c or G_c fit the ring");
 static_assert(HG * MT == WT && HC % HG == 0, "a thread a row of a group");
 
 // elements per copy of a row of x, dy, B, C and of the split states
@@ -920,13 +923,13 @@ struct Shape {
   int cbc;     // carry blocks per (batch, head)
 };
 
-Shape shape_of(const Dims& d) {
+__host__ __device__ Shape shape_of(const Dims& d) {
   Shape sh;
   sh.ntq = (d.q + MT - 1) / MT;
   sh.npairs = sh.ntq * (sh.ntq + 1) / 2;
   sh.ngroups = (d.h + HG - 1) / HG;
   sh.nhc = (d.h + HC - 1) / HC;
-  sh.cbc = (d.p * d.n + CW * CT - 1) / (CW * CT);
+  sh.cbc = (d.p * d.n + CW * CE - 1) / (CW * CE);
   return sh;
 }
 
@@ -944,15 +947,15 @@ struct Work {
   float* sterm;  // [b, h, sp] w_j xd_j . (G_c B_j)
   float* xdxd;   // [b, h, sp] x_j . dxd_j
   float* dyx;    // [b, h, sp] dy_j . x_j
-  bf16* Mp;      // [b, nc, ngroups, npairs, NPART, MT, MT] a group's M^T
+  float* Mp;     // [b, nc, ngroups, npairs, MT, MT] a group's M^T
   float* dBp;    // [nhc, b, sp, n] dB of each group of HC heads
   float* dCp;    // [nhc, b, sp, n] dC of each group of HC heads
   float* dAp;    // [b, h, nc] dA of each chunk
   float* dDp;    // [b, h, nc] dD of each chunk
 };
 
-// the workspace's regions carved in order from ws; returns the end
-float* carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
+// the workspace's regions, carved in order from ws
+void carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
   const long long bh = static_cast<long long>(d.b) * d.h, sp = d.sp();
   const long long pn = static_cast<long long>(d.p) * d.n;
   auto take = [&](long long floats) {
@@ -973,14 +976,12 @@ float* carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
   w->sterm = take(bh * sp);
   w->xdxd = take(bh * sp);
   w->dyx = take(bh * sp);
-  w->Mp = reinterpret_cast<bf16*>(take(
-      static_cast<long long>(d.b) * d.nc * sh.ngroups * sh.npairs * NPART *
-      MT * MT / 2));
+  w->Mp = take(static_cast<long long>(d.b) * d.nc * sh.ngroups * sh.npairs *
+               MT * MT);
   w->dBp = take(static_cast<long long>(sh.nhc) * d.b * sp * d.n);
   w->dCp = take(static_cast<long long>(sh.nhc) * d.b * sp * d.n);
   w->dAp = take(bh * d.nc);
   w->dDp = take(bh * d.nc);
-  return ws;
 }
 
 size_t states_smem(int q) {
@@ -1149,7 +1150,7 @@ __device__ float carry_sum(float v, float* red) {
 }
 
 // S_c = exp(a_last,c-1) S_c-1 + own_c-1 from S_0 = 0 and, in reverse,
-// G_c-1 = own_c + exp(a_last,c) G_c from d_state (or 0), CT elements a
+// G_c-1 = own_c + exp(a_last,c) G_c from d_state (or 0), CE elements a
 // thread, CW apart; S_c (c > 0) and each nonzero G_c go out in NPART bf16
 // parts; <G_c, S_c> from the parts, which hold S_c exactly
 __global__ void __launch_bounds__(CW)
@@ -1157,17 +1158,17 @@ __global__ void __launch_bounds__(CW)
   __shared__ float red[CW / 32];
   const long long pn = static_cast<long long>(d.p) * d.n;
   const long long bh = static_cast<long long>(blockIdx.z) * d.h + blockIdx.y;
-  const int e0 = blockIdx.x * CW * CT + threadIdx.x;
+  const int e0 = blockIdx.x * CW * CE + threadIdx.x;
   const float* a_last = w.acum + bh * d.sp() + d.q - 1;
-  float run[CT];
+  float run[CE];
 #pragma unroll
-  for (int k = 0; k < CT; ++k) run[k] = 0.f;
+  for (int k = 0; k < CE; ++k) run[k] = 0.f;
   for (int c = 0; c + 1 < d.nc; ++c) {
     const float* own = w.Sown + (bh * d.nc + c) * pn;
     bf16* out = w.Sp + (bh * d.nc + c + 1) * NPART * pn;
     const float dec = expf(a_last[static_cast<long long>(c) * d.q]);
 #pragma unroll
-    for (int k = 0; k < CT; ++k) {
+    for (int k = 0; k < CE; ++k) {
       const int e = e0 + k * CW;
       if (e < pn) {
         run[k] = run[k] * dec + own[e];
@@ -1176,7 +1177,7 @@ __global__ void __launch_bounds__(CW)
     }
   }
 #pragma unroll
-  for (int k = 0; k < CT; ++k) {
+  for (int k = 0; k < CE; ++k) {
     const int e = e0 + k * CW;
     run[k] = d_state && e < pn ? d_state[bh * pn + e] : 0.f;
   }
@@ -1187,7 +1188,7 @@ __global__ void __launch_bounds__(CW)
       bf16* out = w.Gp + (bh * d.nc + c) * NPART * pn;
       const bf16* S = w.Sp + (bh * d.nc + c) * NPART * pn;
 #pragma unroll
-      for (int k = 0; k < CT; ++k) {
+      for (int k = 0; k < CE; ++k) {
         const int e = e0 + k * CW;
         if (e < pn) {
           put_parts(out + e, pn, run[k]);
@@ -1206,7 +1207,7 @@ __global__ void __launch_bounds__(CW)
       const float* own = w.Gown + (bh * d.nc + c) * pn;
       const float dec = expf(a_last[static_cast<long long>(c) * d.q]);
 #pragma unroll
-      for (int k = 0; k < CT; ++k) {
+      for (int k = 0; k < CE; ++k) {
         const int e = e0 + k * CW;
         if (e < pn) run[k] = own[e] + dec * run[k];
       }
@@ -1219,34 +1220,13 @@ size_t cols_smem() {
          sizeof(float) * 6 * HG * MT + sizeof(double) * 4 * HG * MT;
 }
 
-// the 16 values v[nb][e] of columns 8 nb + 2 t4 + e summed over the 8
-// lanes of one t4 (xor 4, 8, 16), halving the values each step; lane (g,
-// t4) is left with columns 8 g + 2 t4 + e in v[0][e]
-__device__ __forceinline__ void sum_over_rows(double (&v)[8][2], int g) {
-#pragma unroll
-  for (int step = 0; step < 3; ++step) {
-    const int half = 4 >> step;          // values kept: nb < half
-    const bool upper = (g >> (2 - step)) & 1;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k >= half) break;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const double mine = upper ? v[k + half][e] : v[k][e];
-        const double give = upper ? v[k][e] : v[k + half][e];
-        v[k][e] = mine + __shfl_xor_sync(0xffffffffu, give, 16 >> step);
-      }
-    }
-  }
-}
-
 // one 64-row tile j of chunk c for a group of HG heads, walking the row
-// tiles i >= j: C B^T once for the group; per head P = x_j dy_i^T (exact
-// bf16 products), M^T = L o (P dt_j), T = M^T o (C B^T) in f64 (its
-// column sums in registers, its row sums over the tile to rowp: each T
-// tile formed once), dxd_j += (L o C B^T)^T dy_i with L o C B^T in three
-// bf16 parts; the sum of M^T over the group's heads goes out in three
-// parts for ssd_bwd_tc_sums; then G_c's terms, dx_j, x_j . dxd_j, dy_j .
+// tiles i >= j in 16-column slabs: C B^T once for the group; per head P =
+// x_j dy_i^T (exact bf16 products), M^T = L o (P dt_j), T = M^T o (C B^T)
+// in f64 (its column sums in registers, its row sums over the tile to
+// rowp: each T tile formed once), dxd_j += (L o C B^T)^T dy_i with L o C
+// B^T in three bf16 parts; the sum of M^T over the group's heads goes out
+// in f32 for ssd_bwd_tc_sums; then G_c's terms, dx_j, x_j . dxd_j, dy_j .
 // x_j.  Warp w owns rows 16 w .. 16 w + 15 of the tile
 __global__ void __launch_bounds__(WT, 2)
     ssd_bwd_tc_cols(const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -1317,116 +1297,133 @@ __global__ void __launch_bounds__(WT, 2)
       for (int e = 0; e < 4; ++e) dxd[hj][k][e] = 0.f;
   }
   const int jw = warp * 16;  // the warp's first row in the tile
+  uint32_t xa[HG][PMAX / 16][4];  // x_j's A fragments, fixed over the walk
 
   for (int it = jt; it < ntile; ++it) {
     if (it + 1 < ntile) load(it + 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if (it == jt) {
+#pragma unroll
+      for (int hj = 0; hj < HG; ++hj)
+#pragma unroll
+        for (int kk = 0; kk < PMAX / 16; ++kk)
+          if (kk * 16 < wp)
+            ldmatrix_x4(xa[hj][kk], Xj + hj * MT * LDP +
+                                        (jw + lane % 16) * LDP + kk * 16 +
+                                        (lane / 16) * 8);
+    }
     const bf16* Ci = ring + ((it - jt) & 1) * STAGE;
     const bf16* Yi = Ci + MT * LDN;
     const float* ai = aci + ((it - jt) & 1) * HG * MT;
     const int i0 = it * MT;
-    // on the diagonal the 16-column blocks left of the warp's rows are 0
-    const int kb0 = it == jt ? warp : 0;
-
-    float cb[MT / 8][4];  // C B^T at [j][i]
+    float* Mt = w.Mp + (((static_cast<long long>(bb) * d.nc + c) *
+                             sh.ngroups + group) * sh.npairs +
+                        it * (it + 1) / 2 + jt) * MT * MT;
+    // 16-column slabs ib of the tile pair; on the diagonal the slabs left
+    // of the warp's rows are 0
+#pragma unroll 1
+    for (int ib = 0; ib < MT / 16; ++ib) {
+      if (it == jt && ib < warp) {
 #pragma unroll
-    for (int k = 0; k < MT / 8; ++k)
+        for (int hj = 0; hj < HG; ++hj)
+          if (g % 2 == 0)
+            red[(warp * HG + hj) * MT + ib * 16 + (g / 4) * 8 + 2 * t4 +
+                (g / 2) % 2] = 0.0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) cb[k][e] = 0.f;
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int kk = 0; kk < NMAX / 16; ++kk) {
-      if (kk * 16 >= wn) break;
-      uint32_t af[4];
-      ldmatrix_x4(af, Bj + (jw + lane % 16) * LDN + kk * 16 + (lane / 16) * 8);
+          for (int h2 = 0; h2 < 2; ++h2)
+            *reinterpret_cast<float2*>(Mt + (jw + g + 8 * r) * MT + ib * 16 +
+                                       h2 * 8 + 2 * t4) =
+                make_float2(0.f, 0.f);
+        continue;
+      }
+      float cb[2][4] = {};  // C B^T at [j][i]
 #pragma unroll
-      for (int ib = 0; ib < MT / 16; ++ib) {
-        if (ib < kb0) continue;
-        uint32_t b[4];
+      for (int kk = 0; kk < NMAX / 16; ++kk) {
+        if (kk * 16 >= wn) break;
+        uint32_t af[4], b[4];
+        ldmatrix_x4(af, Bj + (jw + lane % 16) * LDN + kk * 16 +
+                            (lane / 16) * 8);
         ldmatrix_x4(b, Ci + (ib * 16 + (lane / 16) * 8 + lane % 8) * LDN +
                            kk * 16 + ((lane / 8) & 1) * 8);
-        mma_bf16(cb[2 * ib], af, b[0], b[1]);
-        mma_bf16(cb[2 * ib + 1], af, b[2], b[3]);
+        mma_bf16(cb[0], af, b[0], b[1]);
+        mma_bf16(cb[1], af, b[2], b[3]);
       }
-    }
-
-    float msum[MT / 8][4];  // M^T summed over the group's heads
+      float ms[2][4] = {};  // M^T summed over the group's heads
 #pragma unroll
-    for (int k = 0; k < MT / 8; ++k)
+      for (int hj = 0; hj < HG; ++hj) {
+        if (hj >= nh) break;
+        const bf16* Yh = Yi + hj * MT * LDP;
+        float pm[2][4] = {};  // P^T = x_j dy_i^T, then L o C B^T
 #pragma unroll
-      for (int e = 0; e < 4; ++e) msum[k][e] = 0.f;
-#pragma unroll
-    for (int hj = 0; hj < HG; ++hj) {
-      if (hj >= nh) break;
-      const bf16* Xh = Xj + hj * MT * LDP;
-      const bf16* Yh = Yi + hj * MT * LDP;
-      float pm[MT / 8][4];  // P^T = x_j dy_i^T, then L o C B^T
-#pragma unroll
-      for (int k = 0; k < MT / 8; ++k)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pm[k][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < PMAX / 16; ++kk) {
-        if (kk * 16 >= wp) break;
-        uint32_t af[4];
-        ldmatrix_x4(af, Xh + (jw + lane % 16) * LDP + kk * 16 +
-                            (lane / 16) * 8);
-#pragma unroll
-        for (int ib = 0; ib < MT / 16; ++ib) {
-          if (ib < kb0) continue;
+        for (int kk = 0; kk < PMAX / 16; ++kk) {
+          if (kk * 16 >= wp) break;
           uint32_t b[4];
           ldmatrix_x4(b, Yh + (ib * 16 + (lane / 16) * 8 + lane % 8) * LDP +
                              kk * 16 + ((lane / 8) & 1) * 8);
-          mma_bf16(pm[2 * ib], af, b[0], b[1]);
-          mma_bf16(pm[2 * ib + 1], af, b[2], b[3]);
+          mma_bf16(pm[0], xa[hj][kk], b[0], b[1]);
+          mma_bf16(pm[1], xa[hj][kk], b[2], b[3]);
         }
-      }
-      // M^T = L (P dt_j) and T = M^T (C B^T) on and below the diagonal
-      // (i >= j; select, never inf x 0), L o C B^T in place of P
-      double rows[MT / 8][2];
+        // M^T = L (P dt_j), T = M^T (C B^T) on and below the diagonal
+        // (i >= j; select, never inf x 0); L o C B^T in place of P.  rs:
+        // T over the thread's two rows, column 8 h2 + 2 t4 + e at 2 h2 + e
+        double rs[4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int jl = jw + g + 8 * r;
-        const float aj = acj[hj * MT + jl], dj = dtj[hj * MT + jl];
+        for (int r = 0; r < 2; ++r) {
+          const int jl = jw + g + 8 * r;
+          const float aj = acj[hj * MT + jl], dj = dtj[hj * MT + jl];
 #pragma unroll
-        for (int k = 0; k < MT / 8; ++k)
+          for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int il = k * 8 + 2 * t4 + e;
-            const bool ok = i0 + il < nv && j0 + jl <= i0 + il;
-            const float l = ok ? expf(ai[hj * MT + il] - aj) : 0.f;
-            const float m = l * (pm[k][2 * r + e] * dj);
-            const float cbv = cb[k][2 * r + e];
-            const double t = static_cast<double>(m) * cbv;
-            csum[hj][r] += t;
-            rows[k][e] = r == 0 ? t : rows[k][e] + t;
-            msum[k][2 * r + e] += m;
-            pm[k][2 * r + e] = l * cbv;
-          }
-      }
-      sum_over_rows(rows, g);
-      red[(warp * HG + hj) * MT + 8 * g + 2 * t4] = rows[0][0];
-      red[(warp * HG + hj) * MT + 8 * g + 2 * t4 + 1] = rows[0][1];
-      // dxd_j += (L o C B^T)^T dy_i, the A operand from the fragments
+            for (int e = 0; e < 2; ++e) {
+              const int il = ib * 16 + h2 * 8 + 2 * t4 + e;
+              const bool ok = i0 + il < nv && j0 + jl <= i0 + il;
+              const float l = ok ? expf(ai[hj * MT + il] - aj) : 0.f;
+              const float m = l * (pm[h2][2 * r + e] * dj);
+              const float cbv = cb[h2][2 * r + e];
+              const double t = static_cast<double>(m) * cbv;
+              csum[hj][r] += t;
+              rs[2 * h2 + e] = r == 0 ? t : rs[2 * h2 + e] + t;
+              ms[h2][2 * r + e] += m;
+              pm[h2][2 * r + e] = l * cbv;
+            }
+        }
+        // rs over the 8 lanes of this t4: xor 16 keeps two of four, xor 8
+        // one, xor 4 adds; lanes of even g hold column 8 (g / 4) + 2 t4 +
+        // (g / 2) % 2
 #pragma unroll
-      for (int kk = 0; kk < MT / 16; ++kk) {
-        if (kk < kb0) continue;
+        for (int k = 0; k < 2; ++k) {
+          const bool up = g & 4;
+          const double mine = up ? rs[k + 2] : rs[k];
+          const double give = up ? rs[k] : rs[k + 2];
+          rs[k] = mine + __shfl_xor_sync(0xffffffffu, give, 16);
+        }
+        {
+          const bool up = g & 2;
+          const double mine = up ? rs[1] : rs[0];
+          const double give = up ? rs[0] : rs[1];
+          rs[0] = mine + __shfl_xor_sync(0xffffffffu, give, 8);
+        }
+        const double other = __shfl_xor_sync(0xffffffffu, rs[0], 4);
+        if (g % 2 == 0)
+          red[(warp * HG + hj) * MT + ib * 16 + (g / 4) * 8 + 2 * t4 +
+              (g / 2) % 2] = rs[0] + other;
+        // dxd_j += (L o C B^T)^T dy_i: the slab is one k-step, its A
+        // operand the fragments in three bf16 parts
         uint32_t ap[NPART][4];
-        split3_bf16(pm[2 * kk][0], pm[2 * kk][1], ap[0][0], ap[1][0],
-                    ap[2][0]);
-        split3_bf16(pm[2 * kk][2], pm[2 * kk][3], ap[0][1], ap[1][1],
-                    ap[2][1]);
-        split3_bf16(pm[2 * kk + 1][0], pm[2 * kk + 1][1], ap[0][2],
-                    ap[1][2], ap[2][2]);
-        split3_bf16(pm[2 * kk + 1][2], pm[2 * kk + 1][3], ap[0][3],
-                    ap[1][3], ap[2][3]);
+        split3_bf16(pm[0][0], pm[0][1], ap[0][0], ap[1][0], ap[2][0]);
+        split3_bf16(pm[0][2], pm[0][3], ap[0][1], ap[1][1], ap[2][1]);
+        split3_bf16(pm[1][0], pm[1][1], ap[0][2], ap[1][2], ap[2][2]);
+        split3_bf16(pm[1][2], pm[1][3], ap[0][3], ap[1][3], ap[2][3]);
 #pragma unroll
         for (int pb = 0; pb < PMAX / 16; ++pb) {
           if (pb * 16 >= wp) break;
           uint32_t b[4];
           ldmatrix_x4_trans(
-              b, Yh + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDP +
+              b, Yh + (ib * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDP +
                      pb * 16 + (lane / 16) * 8);
 #pragma unroll
           for (int part = 0; part < NPART; ++part) {
@@ -1435,25 +1432,14 @@ __global__ void __launch_bounds__(WT, 2)
           }
         }
       }
-    }
-    // the group's M^T in three bf16 parts, [j][i]
-    {
-      const int pair = it * (it + 1) / 2 + jt;
-      bf16* Mt = w.Mp + ((((static_cast<long long>(bb) * d.nc + c) *
-                               sh.ngroups + group) * sh.npairs + pair) *
-                         NPART) * MT * MT;
+      // the group's M^T, [j][i] in f32
 #pragma unroll
-      for (int k = 0; k < MT / 8; ++k)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          uint32_t part[NPART];
-          split3_bf16(msum[k][2 * r], msum[k][2 * r + 1], part[0], part[1],
-                      part[2]);
-          const int at = (jw + g + 8 * r) * MT + k * 8 + 2 * t4;
-#pragma unroll
-          for (int pp = 0; pp < NPART; ++pp)
-            *reinterpret_cast<uint32_t*>(Mt + pp * MT * MT + at) = part[pp];
-        }
+        for (int h2 = 0; h2 < 2; ++h2)
+          *reinterpret_cast<float2*>(Mt + (jw + g + 8 * r) * MT + ib * 16 +
+                                     h2 * 8 + 2 * t4) =
+              make_float2(ms[h2][2 * r], ms[h2][2 * r + 1]);
     }
     __syncthreads();  // red written
     if (hl < nh && i0 + rl < nv) {
@@ -1581,18 +1567,19 @@ __global__ void __launch_bounds__(WT, 2)
   }
 }
 
-size_t sums_smem() { return sizeof(bf16) * (MT * LDN + 2 * USTAGE); }
+size_t sums_smem() { return sizeof(bf16) * MT * LDN + 2 * USTAGE; }
 
 // the products with the sum of M^T over heads, for one 64-row tile t of
-// chunk c and a group of HC heads: side 0, dC_t = sum_j M_tj B_j over the
-// column tiles j <= t, then each head's exp(a_cum_t) dy_t S_c (c > 0) and
-// its part of d a_cum_t, exp(a_cum_t) u_t . C_t; side 1, dB_t = sum_i
-// M^T_ti C_i over the row tiles i >= t, then each head's w_t dt_t x_t G_c
-// (where G_c is nonzero).  M^T in three bf16 parts (written by
-// ssd_bwd_tc_cols), S_c and G_c in three parts, against exact bf16 B, C,
-// dy and x; the heads summed in registers in order, the group's sum to
-// dBp or dCp.  Ranked so that the blocks with the most products start
-// first
+// chunk c and a group of HC heads, its groups' M^T added in f32 first (in
+// order; B and C are shared by all heads): side 0, dC_t = sum_j M_tj B_j
+// over the column tiles j <= t, then each head's exp(a_cum_t) dy_t S_c (c
+// > 0) and its part of d a_cum_t, exp(a_cum_t) u_t . C_t; side 1, dB_t =
+// sum_i M^T_ti C_i over the row tiles i >= t, then each head's w_t dt_t
+// x_t G_c (where G_c is nonzero).  M^T in f32 (written by
+// ssd_bwd_tc_cols) split into three bf16 parts as its A fragments are
+// formed, S_c and G_c in three parts, against exact bf16 B, C, dy and x;
+// the heads summed in registers in order, the group's sum to dBp or dCp.
+// Ranked so that the blocks with the most products start first
 __global__ void __launch_bounds__(WT, 2)
     ssd_bwd_tc_sums(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -1600,8 +1587,10 @@ __global__ void __launch_bounds__(WT, 2)
                     Vec vec, int with_ds) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ct = reinterpret_cast<bf16*>(smem_raw);  // [MT][LDN] C of tile t
-  bf16* ring = Ct + MT * LDN;  // 2 stages of M^T [NPART][MT][LDM], B or C
-  // then a head's dy or x [MT][LDP] and S_c or G_c [NPART][PMAX][LDN]
+  // 2 stages of M^T [MT][LDM] (f32) and B or C [MT][LDN] (bf16), USTAGE
+  // bytes each; then a head's dy or x [MT][LDP] and S_c or G_c
+  // [NPART][PMAX][LDN]
+  unsigned char* ring = smem_raw + sizeof(bf16) * MT * LDN;
 
   const Shape sh = shape_of(d);
   const int per = 2 * sh.ntq;
@@ -1621,30 +1610,33 @@ __global__ void __launch_bounds__(WT, 2)
   const long long hp = static_cast<long long>(d.h) * d.p;
   const long long pn = static_cast<long long>(d.p) * d.n;
   const int nother = side ? ntile - t : t + 1, ofirst = side ? t : 0;
+  // unit u: the other tile ofirst + u / ngrp, the group gfirst + u % ngrp;
+  // a tile's last unit also brings its B or C
   const int nunits = ngrp * nother;
 
   if (side == 0)
     copy_tile<WT>(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
                   nv - t0, wn, d.n, vec.c);
   auto load = [&](int u) {
-    const int grp = gfirst + u / nother, o = ofirst + u % nother;
+    const int o = ofirst + u / ngrp, grp = gfirst + u % ngrp;
     const int pair = side ? o * (o + 1) / 2 + t : t * (t + 1) / 2 + o;
-    bf16* stage = ring + (u & 1) * USTAGE;
-    const bf16* Mt = w.Mp + ((((static_cast<long long>(bb) * d.nc + c) *
+    float* Mf = reinterpret_cast<float*>(ring + (u & 1) * USTAGE);
+    const float* Mt = w.Mp + (((static_cast<long long>(bb) * d.nc + c) *
                                    sh.ngroups + grp) * sh.npairs + pair) *
-                             NPART) * MT * MT;
-    for (int part = 0; part < NPART; ++part)
-      copy_tile<WT>(stage + part * MT * LDM, LDM, Mt + part * MT * MT, MT,
-                    MT, MT, MT, MT, 8);
+                                 MT * MT;
+    for (int e = tid; e < MT * MT / 4; e += WT) {
+      const int r = e / (MT / 4), c4 = e % (MT / 4) * 4;
+      repro_torch::cp_async16(Mf + r * LDM + c4, Mt + r * MT + c4, true);
+    }
+    if (u % ngrp != ngrp - 1) return;
+    bf16* Nt = reinterpret_cast<bf16*>(Mf + MT * LDM);
     const int o0 = o * MT;
     if (side)
-      copy_tile<WT>(stage + NPART * MT * LDM, LDN,
-                    Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT, nv - o0,
-                    wn, d.n, vec.c);
+      copy_tile<WT>(Nt, LDN, Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT,
+                    nv - o0, wn, d.n, vec.c);
     else
-      copy_tile<WT>(stage + NPART * MT * LDM, LDN,
-                    Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT, nv - o0,
-                    wn, d.n, vec.b);
+      copy_tile<WT>(Nt, LDN, Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT,
+                    nv - o0, wn, d.n, vec.b);
   };
   load(0);
   cp_async_commit();
@@ -1654,43 +1646,53 @@ __global__ void __launch_bounds__(WT, 2)
   for (int k = 0; k < NMAX / 8; ++k)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[k][e] = 0.f;
+  // the warp's A fragments of M (rows t, k the other tile) in f32, summed
+  // over the block's groups in order: side 1 M^T as stored, side 0 M, the
+  // stored tile transposed
+  float af[MT / 16][4][2];
   for (int u = 0; u < nunits; ++u) {
     if (u + 1 < nunits) load(u + 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const bf16* Mpart = ring + (u & 1) * USTAGE;
-    const bf16* Nt = Mpart + NPART * MT * LDM;
-    const bool diag = ofirst + u % nother == t;
+    const float* Mf =
+        reinterpret_cast<const float*>(ring + (u & 1) * USTAGE);
+    const bool diag = ofirst + u / ngrp == t;
 #pragma unroll
-    for (int kk = 0; kk < MT / 16; ++kk) {
-      // on the diagonal tile, M is 0 where the column passes the row
-      if (diag && (side ? kk < warp : kk > warp)) continue;
-      uint32_t a[NPART][4];
+    for (int kk = 0; kk < MT / 16; ++kk)
 #pragma unroll
-      for (int part = 0; part < NPART; ++part) {
-        if (side)
-          ldmatrix_x4(a[part], Mpart + part * MT * LDM +
-                                   (jw + lane % 16) * LDM + kk * 16 +
-                                   (lane / 16) * 8);
-        else
-          ldmatrix_x4_trans(a[part],
-                            Mpart + part * MT * LDM +
-                                (kk * 16 + (lane / 16) * 8 + lane % 8) * LDM +
-                                jw + ((lane / 8) & 1) * 8);
+      for (int e = 0; e < 4; ++e) {
+        const int row = jw + g + 8 * (e & 1);
+        const int k = kk * 16 + 2 * t4 + 8 * (e >> 1);
+        const float v0 = side ? Mf[row * LDM + k] : Mf[k * LDM + row];
+        const float v1 =
+            side ? Mf[row * LDM + k + 1] : Mf[(k + 1) * LDM + row];
+        af[kk][e][0] = u % ngrp ? af[kk][e][0] + v0 : v0;
+        af[kk][e][1] = u % ngrp ? af[kk][e][1] + v1 : v1;
       }
+    if (u % ngrp == ngrp - 1) {
+      const bf16* Nt = reinterpret_cast<const bf16*>(Mf + MT * LDM);
 #pragma unroll
-      for (int nb = 0; nb < NMAX / 16; ++nb) {
-        if (nb * 16 >= wn) break;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Nt +
-                                 (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) *
-                                     LDN +
-                                 nb * 16 + (lane / 16) * 8);
+      for (int kk = 0; kk < MT / 16; ++kk) {
+        // on the diagonal tile, M is 0 where the column passes the row
+        if (diag && (side ? kk < warp : kk > warp)) continue;
+        uint32_t a[NPART][4];
 #pragma unroll
-        for (int part = 0; part < NPART; ++part) {
-          mma_bf16(acc[2 * nb], a[part], b[0], b[1]);
-          mma_bf16(acc[2 * nb + 1], a[part], b[2], b[3]);
+        for (int e = 0; e < 4; ++e)
+          split3_bf16(af[kk][e][0], af[kk][e][1], a[0][e], a[1][e],
+                      a[2][e]);
+#pragma unroll
+        for (int nb = 0; nb < NMAX / 16; ++nb) {
+          if (nb * 16 >= wn) break;
+          uint32_t b[4];
+          ldmatrix_x4_trans(
+              b, Nt + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * LDN +
+                     nb * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int part = 0; part < NPART; ++part) {
+            mma_bf16(acc[2 * nb], a[part], b[0], b[1]);
+            mma_bf16(acc[2 * nb + 1], a[part], b[2], b[3]);
+          }
         }
       }
     }
@@ -1700,8 +1702,8 @@ __global__ void __launch_bounds__(WT, 2)
   // each head's state term: side 0 u = dy_t S_c (S_c is 0 in chunk 0),
   // side 1 v = x_t G_c (G_c is 0 in the last chunk without d_state)
   if (side == 0 ? c > 0 : c < d.nc - 1 || with_ds) {
-    bf16* E = ring;           // [MT][LDP] dy or x of the tile
-    bf16* Z = E + MT * LDP;   // [NPART][PMAX][LDN] S_c or G_c
+    bf16* E = reinterpret_cast<bf16*>(ring);  // [MT][LDP] dy or x
+    bf16* Z = E + MT * LDP;  // [NPART][PMAX][LDN] S_c or G_c
     for (int hk = 0; hk < nhh; ++hk) {
       const int hh = hh0 + hk;
       const long long bh = static_cast<long long>(bb) * d.h + hh;
@@ -1912,7 +1914,7 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 // + 8 nc q) + 2 h b nc q n floats; in bf16, with t = ceil(q / 64), sp = nc
 // q and m = ceil(h / 2) t (t + 1) / 2, 2 b h nc t q + 3 b h sp + 2 b h nc
 // p n + 2 (3 b h nc p n / 2 + 1) + b h nc ceil(p n / 1024) + 4 b h sp + b
-// nc m 3 64 64 / 2 + 2 ceil(h / 8) b sp n + 2 b h nc + 136 floats (nc =
+// nc m 64 64 + 2 ceil(h / 8) b sp n + 2 b h nc + 136 floats (nc =
 // ceil(s / q); ops.py's _backward_work).  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,

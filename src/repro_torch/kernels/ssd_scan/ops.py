@@ -102,8 +102,8 @@ def _backward_work(b, s, h, p, n, q, bf16):
     sums of T per 64-row column tile and column sums, a_cum, the chunks'
     own states and state gradients, both carried in three bf16 parts,
     <G, S> in parts of 1024 elements, four per-row sums, the sum of M^T
-    over each group of 2 heads in three bf16 parts per tile pair, dB and
-    dC of each group of 8 heads, dA and dD of each chunk."""
+    over each group of 2 heads per 64-row tile pair, dB and dC of each
+    group of 8 heads, dA and dD of each chunk."""
     nc = -(-s // q)
     bh, sp, pn = b * h, nc * q, p * n
     if not bf16:
@@ -113,7 +113,7 @@ def _backward_work(b, s, h, p, n, q, bf16):
     return (2 * bh * nc * tiles * q + 2 * bh * sp + bh * sp
             + 2 * bh * nc * pn + 2 * (bh * nc * 3 * pn // 2 + 1)
             + bh * nc * -(-pn // 1024) + 4 * bh * sp
-            + b * nc * -(-h // 2) * pairs * 3 * 64 * 64 // 2
+            + b * nc * -(-h // 2) * pairs * 64 * 64
             + 2 * -(-h // 8) * b * sp * n + 2 * bh * nc + 8 * 17)
 
 

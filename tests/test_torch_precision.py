@@ -617,3 +617,160 @@ def test_ssd_needs_three_parts():
     """Two bf16 parts (~16 bits) of the folded f32 operands miss the bar
     where the f32 formula's own error is small."""
     assert _ssd_share(*SSD_CASES[4], parts=2)[0] > 1
+
+
+def ssd_bwd_emulation(x, dt, A, B, C, D, dy, *, chunk, d_state=None,
+                      m_parts=3, l_parts=3, parts=3, group=2, summed=8):
+    """The bf16 backward kernels' arithmetic (``csrc/ssd_scan_bwd.cu``,
+    ``tc``): a_cum in f32; the chunks' own states from x w dt and dy
+    exp(a_cum), each split into ``parts`` bf16 parts against exact B and
+    C; the carries in f32, S_c and G_c split in ``parts``; per chunk
+    C B^T and P = dy x^T from exact bf16 products summed in f32, M = L (P
+    dt_j), T = M (C B^T) formed once in f64 with d a_cum's row and column
+    sums; M summed in f32 over each ``group`` of heads, those sums over
+    each ``summed`` heads, split into ``m_parts`` against B (dC) and C
+    (dB); L o C B^T split into
+    ``l_parts`` against dy (dxd); the state terms; d a_cum's reverse sum,
+    ddt, dA and dD in f64.  x, B, C, dy bf16; dt, A, D, d_state f32.
+    Returns (dx, ddt, dA, dB, dC, dD) rounded as the kernels round them."""
+    b, s0, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s0)
+    s = -(-s0 // q) * q
+    pad = s - s0
+    f = torch.nn.functional.pad
+    xf = f(x.float(), (0, 0, 0, 0, 0, pad)).reshape(b, -1, q, h, p)
+    dyf = f(dy.float(), (0, 0, 0, 0, 0, pad)).reshape(b, -1, q, h, p)
+    dtf = f(dt.float(), (0, 0, 0, pad)).reshape(b, -1, q, h)
+    Bf = f(B.float(), (0, 0, 0, pad)).reshape(b, -1, q, n)
+    Cf = f(C.float(), (0, 0, 0, pad)).reshape(b, -1, q, n)
+    nc = xf.shape[1]
+    a_cum = torch.cumsum(A.float() * dtf, dim=2)              # [b, c, q, h]
+    a_last = a_cum[:, :, -1]                                  # [b, c, h]
+    w = torch.exp(a_last[:, :, None] - a_cum)                 # w_j
+    ea = torch.exp(a_cum)
+
+    def split(t, k):
+        return _parts(t, k)
+
+    own_s = sum(torch.einsum("bcqhp,bcqn->bchpn", t, Bf)
+                for t in split(xf * (w * dtf)[..., None], parts))
+    own_g = sum(torch.einsum("bcqhp,bcqn->bchpn", t, Cf)
+                for t in split(dyf * ea[..., None], parts))
+    S = [torch.zeros(b, h, p, n)]
+    for c in range(nc - 1):
+        S.append(S[-1] * torch.exp(a_last[:, c])[..., None, None]
+                 + own_s[:, c])
+    G = [torch.zeros(b, h, p, n) if d_state is None else d_state.float()]
+    for c in range(nc - 1, 0, -1):
+        G.insert(0, own_g[:, c] + torch.exp(a_last[:, c])[..., None, None]
+                 * G[0])
+    S, G = torch.stack(S, 1), torch.stack(G, 1)               # [b,c,h,p,n]
+    gs = (G * S).sum((-2, -1))
+
+    below = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    ac = a_cum.movedim(3, 2)                                  # [b, c, h, q]
+    L = torch.where(below, torch.exp(torch.where(
+        below, ac[..., :, None] - ac[..., None, :], 0.0)), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
+    pm = torch.einsum("bcihp,bcjhp->bchij", dyf, xf)
+    m = L * (pm * dtf.movedim(3, 2)[..., None, :])            # [b,c,h,i,j]
+    t = m.double() * cb[:, :, None].double()
+    d_acum = (t.sum(-1) - t.sum(-2)).movedim(2, 3)            # [b, c, q, h]
+    # M over each group of 2 heads, those sums over each 8 heads, in f32
+    msum = torch.stack([m[:, :, g0:g0 + group].sum(2)
+                        for g0 in range(0, h, group)], 2)     # [b,c,g,i,j]
+    per = summed // group
+    msum = torch.stack([msum[:, :, g0:g0 + per].sum(2)
+                        for g0 in range(0, msum.shape[2], per)], 2)
+    dC = sum(torch.einsum("bcgij,bcjn->bcin", t, Bf)
+             for t in split(msum, m_parts))
+    dB = sum(torch.einsum("bcgij,bcin->bcjn", t, Cf)
+             for t in split(msum, m_parts))
+    dxd = sum(torch.einsum("bchij,bcihp->bcjhp", t, dyf)
+              for t in split(L * cb[:, :, None], l_parts))
+    # the entering state's terms (S_0 = 0) and the leaving gradient's
+    u = sum(torch.einsum("bcqhp,bchpn->bcqhn", dyf, t) for t in split(S, parts))
+    dC = dC + (ea[..., None] * u).sum(3)
+    d_acum = d_acum + (ea * (u * Cf[:, :, :, None]).sum(-1)).double()
+    gb = sum(torch.einsum("bcqn,bchpn->bcqhp", Bf, t) for t in split(G, parts))
+    v = sum(torch.einsum("bcqhp,bchpn->bcqhn", xf, t) for t in split(G, parts))
+    dB = dB + ((w * dtf)[..., None] * v).sum(3)
+    dxd = dxd + w[..., None] * gb
+    st = w * ((xf * dtf[..., None]) * gb).sum(-1)
+    d_acum = d_acum - st.double()
+    d_acum[:, :, -1] += st.double().sum(2) + torch.exp(
+        a_last.double()) * gs.double()
+    da = torch.flip(torch.cumsum(torch.flip(d_acum, (2,)), 2), (2,))
+    ddt = ((xf * dxd).sum(-1).double() + A.double() * da).float()
+    dA = (dtf.double() * da).sum((0, 1, 2)).float()
+    dD = (dyf * xf).sum(-1).double().sum((0, 1, 2)).float()
+    dx = dtf[..., None] * dxd + D.float()[:, None] * dyf
+    cut = (slice(None), slice(0, s0))
+    return (dx.reshape(b, s, h, p)[cut].bfloat16(),
+            ddt.reshape(b, s, h)[cut], dA, dB.reshape(b, s, n)[cut].bfloat16(),
+            dC.reshape(b, s, n)[cut].bfloat16(), dD)
+
+
+def _ssd_bwd_shares(shape, chunk, seed, with_state, mamba=False, **emu):
+    """Per gradient (dx, ddt, dA, dB, dC, dD), the largest share of phase
+    46's bar an element takes: against the plain backward in f64 from the
+    same bf16 inputs, 4 times the f32 plain backward's own largest error +
+    1e-7 + 2^-8 |want|.  Inputs as ``tests/test_torch_scan_grads.py``
+    draws them; ``mamba``: A = -linspace(1, 16, h), mamba2-370m's decays."""
+    b, s, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    x, dt, A, B, C, D, dy = (rng.standard_normal(z) for z in (
+        (b, s, h, p), (b, s, h), h, (b, s, n), (b, s, n), h, (b, s, h, p)))
+    ds = rng.standard_normal((b, h, p, n)) if with_state else None
+    dt = np.log1p(np.exp(dt))
+    A = -np.linspace(1.0, 16.0, h) if mamba else -np.exp(A)
+    x, B, C, dy = (torch.from_numpy(a).bfloat16() for a in (x, B, C, dy))
+    dt, A, D = (torch.from_numpy(a).float() for a in (dt, A, D))
+    ds = None if ds is None else torch.from_numpy(ds).float()
+    got = ssd_bwd_emulation(x, dt, A, B, C, D, dy, chunk=chunk, d_state=ds,
+                            **emu)
+    args = (x, dt, A, B, C, D, dy)
+    want, plain = (ssd_ref.ssd_backward_reference(
+        *(a.to(fl) for a in args), chunk=chunk,
+        d_state=None if ds is None else ds.to(fl))
+        for fl in (torch.float64, torch.float32))
+    shares = []
+    for g, w, p32 in zip(got, want, plain):
+        e32 = float((p32.double() - w).abs().max())
+        bar = 4 * e32 + 1e-7 + 2 ** -8 * w.abs()
+        shares.append(float(((g.double() - w).abs() / bar).max()))
+    return shares
+
+
+#: the SSD backward's cases of ``tests/test_torch_scan_grads.py``
+#: (the JAX tests' shapes and chunks, a ragged S, d_state) and one
+#: 256-row chunk with mamba2-370m's decays at narrow widths
+SSD_BWD_CASES = [((1, 32, 2, 8, 4), 8, False, False),
+                 ((1, 32, 2, 8, 4), 16, False, False),
+                 ((2, 64, 4, 16, 8), 8, False, False),
+                 ((2, 64, 4, 16, 8), 16, True, False),
+                 ((2, 37, 3, 8, 4), 16, False, False),
+                 ((2, 37, 3, 8, 4), 16, True, False),
+                 ((1, 300, 2, 16, 16), 256, True, True)]
+
+
+@pytest.mark.parametrize("shape,chunk,with_state,mamba", SSD_BWD_CASES)
+def test_ssd_bwd_rounding_meets_the_kernel_bar(shape, chunk, with_state,
+                                               mamba):
+    shares = _ssd_bwd_shares(shape, chunk, sum(shape), with_state, mamba)
+    assert max(shares) <= 1, shares
+
+
+@pytest.mark.parametrize("split", ["m_parts", "l_parts"])
+def test_ssd_bwd_needs_the_split_of_its_f32_operands(split):
+    """One bf16 rounding of M (against B and C) or of L o C B^T (against
+    dy) misses the bar by far, the other operands still in three parts;
+    two parts of every f32 operand meet it in these cases, as three do."""
+    for shape, chunk, with_state, mamba in (SSD_BWD_CASES[2],
+                                            SSD_BWD_CASES[-1]):
+        seed = sum(shape)
+        assert max(_ssd_bwd_shares(shape, chunk, seed, with_state, mamba,
+                                   **{split: 1})) > 10
+        assert max(_ssd_bwd_shares(shape, chunk, seed, with_state, mamba,
+                                   m_parts=2, l_parts=2, parts=2)) <= 1

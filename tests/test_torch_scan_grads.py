@@ -228,13 +228,16 @@ def test_ssd_backward_kernel_matches_the_plain_backward(
 
 
 @pytest.mark.cuda
-def test_ssd_backward_kernel_da_is_nearer_exact_than_the_f32_plain(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_da_is_nearer_exact_than_the_f32_plain(cuda,
+                                                                   dtype):
     """dA comes from d a_cum, row sums minus column sums of T that nearly
-    cancel over a 256-row chunk: the kernel adds each T_ij up in f64, so
-    its dA lies nearer the f64 plain backward than the f32 plain
-    backward's does (summed in f32 it lay 3x further)."""
+    cancel over a 256-row chunk: the kernel adds each T_ij up in f64 (the
+    bf16 kernels form each T tile once), so its dA lies nearer the f64
+    plain backward than the f32 plain backward's does (summed in f32 it
+    lay 3x further), from f32 or bf16 inputs alike."""
     shape, chunk = (2, 300, 4, 64, 128), 256
-    arrays, dy, ds = _ssd_on(cuda, shape, sum(shape), torch.float32, True)
+    arrays, dy, ds = _ssd_on(cuda, shape, sum(shape), dtype, True)
     got = ssd_ops._launch_backward(*arrays, dy, ds, chunk)[2]
     args = (*arrays, dy)
     want, plain = (ssd_ref.ssd_backward_reference(

@@ -3,9 +3,11 @@
 run, on one NVIDIA GPU.
 
     python3 tools/lm_train_probe.py
+    python3 tools/lm_train_probe.py mamba2-370m [SRC LABEL]
 
 Run from a checkout of the repository on a machine with a GPU; it builds
-the flash kernels.  The card's name and power limit come first; then:
+the kernels it runs.  The card's name and power limit come first; then,
+with no arguments:
 
 - where one training step of qwen2.5-3b at full width and depth (8 x 128
   tokens, f32 masters, bf16 layers, ``launch/steps.py``'s step) spends
@@ -20,6 +22,12 @@ the flash kernels.  The card's name and power limit come first; then:
   kernel built with and without it, timed in turns (CUDA events; with,
   without, without, with) at qwen2.5-3b's and llama3-8b's shapes in
   bf16, and the two builds' largest difference.
+
+With ``mamba2-370m``: the same breakdown of one mamba2-370m training step
+at phase 47's shape (8 x 512 tokens, full width and depth), the SSD
+kernel's forward and its backward apart, for the tree whose ``src``
+directory is SRC (default this checkout's; a ``git archive`` of another
+commit unpacked into a git-ignored directory), named LABEL in the output.
 """
 from __future__ import annotations
 
@@ -31,18 +39,20 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+SRC = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT / "src"
+sys.path[:0] = [str(ROOT), str(SRC)]
 
 from chip_smoke import card_line, fail, in_range, median_ms, randn  # noqa: E402
 
 #: kinds of kernel, by a piece of their names (the first that matches)
 KINDS = (("flash backward", ("flash_bwd",)), ("flash", ("flash_kernel",)),
+         ("SSD backward", ("ssd_bwd",)), ("SSD", ("ssd_kernel",)),
          ("matrix products", ("nvjet", "gemm", "Gemm", "xmma", "cutlass",
                               "gemv")),
          ("elementwise", ("elementwise", "reduce_kernel")))
 
 
-def step_breakdown(dev) -> None:
+def step_breakdown(dev, arch="qwen2.5-3b", seq=128, label="") -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -51,10 +61,10 @@ def step_breakdown(dev) -> None:
     from repro_torch.launch import steps
     from repro_torch.models import init_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
     params = init_params(cfg, device=dev, keep_f32=True)
     opt = init_opt_state(params)
-    stream = TokenStream(cfg, DataConfig(seq_len=128, batch_size=8))
+    stream = TokenStream(cfg, DataConfig(seq_len=seq, batch_size=8))
     batches = [b for b, _ in zip(stream.batches(dev), range(7))]
     step = steps.make_train_step(cfg, AdamWConfig(warmup_steps=2,
                                                   total_steps=10))
@@ -95,8 +105,8 @@ def step_breakdown(dev) -> None:
               for label in ranges}
     inside["backward (the rest)"] = busy - sum(inside.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"qwen2.5-3b train step, 8 x 128 tokens: {call * 1e3:.1f} ms a "
-          f"call (3 steps); under the profiler {wall * 1e3:.1f} ms, device "
+    print(f"{arch} train step, 8 x {seq} tokens{label}: {call * 1e3:.1f} ms "
+          f"a call (3 steps); under the profiler {wall * 1e3:.1f} ms, device "
           f"busy {busy:.1f} ms = {busy / (wall * 1e3):.1%}; by range: " +
           ", ".join(f"{k} {v:.1f} ms" for k, v in inside.items()) +
           "; by kind: " + ", ".join(f"{k} {v:.1f} ms"
@@ -150,8 +160,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import _build
     print(card_line(), flush=True)
-    _build.build(["flash_attention", "flash_attention_bwd"])
     dev = torch.device("cuda")
+    if sys.argv[1:2] == ["mamba2-370m"]:
+        _build.build(["ssd_scan", "ssd_scan_bwd"])
+        step_breakdown(dev, "mamba2-370m", 512,
+                       f" ({sys.argv[3]})" if len(sys.argv) > 3 else "")
+        return
+    _build.build(["flash_attention", "flash_attention_bwd"])
     step_breakdown(dev)
     torch.cuda.empty_cache()
     fmad_cost(dev)
