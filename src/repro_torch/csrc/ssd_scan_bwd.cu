@@ -897,17 +897,17 @@ constexpr int WT = 128;         // threads: 4 warps of 16 rows
 constexpr int LDP = PMAX + 8;   // padded row of the [*, P] bf16 tiles
 constexpr int LDN = NMAX + 8;   // padded row of the [*, N] bf16 tiles
 constexpr int LDM = MT + 4;     // padded row of a [MT, MT] f32 tile of M
-constexpr int HG = 2;           // heads of a ssd_bwd_tc_cols block
-constexpr int HC = 8;           // heads of a ssd_bwd_tc_sums block
+constexpr int HG = 2;           // most heads of a ssd_bwd_tc_cols block
+constexpr int HC = 8;           // most heads of a ssd_bwd_tc_sums block
+constexpr int FILL = 264;       // blocks that fill the card: 2 an SM
 constexpr int NPART = 3;        // bf16 parts of a split f32 operand
 constexpr int CE = 4;           // state elements per carry thread
 constexpr int CW = 256;         // carry threads
-constexpr int STAGE = MT * LDN + HG * MT * LDP;  // C and HG dy tiles
 // bytes of a ssd_bwd_tc_sums stage: an f32 tile of M^T, a tile of B or C
 constexpr int USTAGE = sizeof(float) * MT * LDM + sizeof(bf16) * MT * LDN;
 static_assert(2 * USTAGE >= sizeof(bf16) * (MT * LDP + NPART * PMAX * LDN),
               "a head's dy or x and S_c or G_c fit the ring");
-static_assert(HG * MT == WT && HC % HG == 0, "a thread a row of a group");
+static_assert(HG * MT <= WT && HC % HG == 0, "a thread a row of a group");
 
 // elements per copy of a row of x, dy, B, C and of the split states
 struct Vec {
@@ -918,17 +918,29 @@ struct Vec {
 struct Shape {
   int ntq;     // 64-row tiles of a chunk
   int npairs;  // tile pairs (i, j), j <= i, of a chunk
-  int ngroups; // groups of HG heads
-  int nhc;     // groups of HC heads
+  int hg;      // heads of a ssd_bwd_tc_cols block: 2, or 1
+  int hc;      // heads of a ssd_bwd_tc_sums block: 8, 4, 2, or hg
+  int ngroups; // groups of hg heads
+  int nhc;     // groups of hc heads
   int cbc;     // carry blocks per (batch, head)
 };
 
+// the groups of heads: the most heads a block whose grid still fills the
+// card, or else the fewest (small shapes: more blocks, shorter ones)
 __host__ __device__ Shape shape_of(const Dims& d) {
   Shape sh;
   sh.ntq = (d.q + MT - 1) / MT;
   sh.npairs = sh.ntq * (sh.ntq + 1) / 2;
-  sh.ngroups = (d.h + HG - 1) / HG;
-  sh.nhc = (d.h + HC - 1) / HC;
+  const int tiles = sh.ntq * d.nc * d.b;
+  sh.hg = tiles * ((d.h + HG - 1) / HG) >= FILL ? HG : 1;
+  sh.hc = sh.hg;
+  for (int c = HC; c > sh.hg; c /= 2)
+    if (2 * tiles * ((d.h + c - 1) / c) >= FILL) {
+      sh.hc = c;
+      break;
+    }
+  sh.ngroups = (d.h + sh.hg - 1) / sh.hg;
+  sh.nhc = (d.h + sh.hc - 1) / sh.hc;
   sh.cbc = (d.p * d.n + CW * CE - 1) / (CW * CE);
   return sh;
 }
@@ -948,8 +960,8 @@ struct Work {
   float* xdxd;   // [b, h, sp] x_j . dxd_j
   float* dyx;    // [b, h, sp] dy_j . x_j
   float* Mp;     // [b, nc, ngroups, npairs, MT, MT] a group's M^T
-  float* dBp;    // [nhc, b, sp, n] dB of each group of HC heads
-  float* dCp;    // [nhc, b, sp, n] dC of each group of HC heads
+  float* dBp;    // [nhc, b, sp, n] dB of each group of hc heads
+  float* dCp;    // [nhc, b, sp, n] dC of each group of hc heads
   float* dAp;    // [b, h, nc] dA of each chunk
   float* dDp;    // [b, h, nc] dD of each chunk
 };
@@ -982,6 +994,43 @@ void carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
   w->dCp = take(static_cast<long long>(sh.nhc) * d.b * sp * d.n);
   w->dAp = take(bh * d.nc);
   w->dDp = take(bh * d.nc);
+}
+
+// the copy of a tile whose rows allow no cp.async (x, B or C at an odd
+// element offset): 8 elements a thread at a time, every load issued
+// before the stores, so that their latencies overlap; out of line, to
+// keep its registers out of the kernels' main paths
+__device__ __noinline__ void copy_tile_scalar(bf16* dst, int ld,
+                                              const bf16* src,
+                                              long long stride, int nrows,
+                                              int nvalid, int width,
+                                              int ncols) {
+  const int total = nrows * width;
+  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * WT) {
+    bf16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * WT, r = e / width, col = e % width;
+      v[k] = e < total && r < nvalid && col < ncols ? src[r * stride + col]
+                                                     : __float2bfloat16_rn(0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * WT;
+      if (e < total) dst[e / width * ld + e % width] = v[k];
+    }
+  }
+}
+
+// copy_tile by the block's WT threads, or copy_tile_scalar where vec is 1
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          long long stride, int nrows,
+                                          int nvalid, int width, int ncols,
+                                          int vec) {
+  if (vec > 1)
+    copy_tile<WT>(dst, ld, src, stride, nrows, nvalid, width, ncols, vec);
+  else
+    copy_tile_scalar(dst, ld, src, stride, nrows, nvalid, width, ncols);
 }
 
 size_t states_smem(int q) {
@@ -1044,9 +1093,9 @@ __global__ void __launch_bounds__(WT)
     const int ev = pass == 0 ? vec.x : vec.y, nvv = pass == 0 ? vec.b : vec.c;
     auto load = [&](int jt) {
       const int j0 = jt * MT;
-      copy_tile<WT>(Er + (jt & 1) * MT * LDP, LDP, eb + j0 * es, es, MT,
+      load_tile(Er + (jt & 1) * MT * LDP, LDP, eb + j0 * es, es, MT,
                     nv - j0, wp, d.p, ev);
-      copy_tile<WT>(Nr + (jt & 1) * MT * LDN, LDN, nbase + j0 * ns, ns, MT,
+      load_tile(Nr + (jt & 1) * MT * LDN, LDN, nbase + j0 * ns, ns, MT,
                     nv - j0, wn, d.n, nvv);
     };
     load(0);
@@ -1215,8 +1264,13 @@ __global__ void __launch_bounds__(CW)
   }
 }
 
+// C of a row tile and the HG heads' dy
+template <int HG>
+constexpr int STAGE = MT * LDN + HG * MT * LDP;
+
+template <int HG>
 size_t cols_smem() {
-  return sizeof(bf16) * (MT * LDN + HG * MT * LDP + 2 * STAGE) +
+  return sizeof(bf16) * (MT * LDN + HG * MT * LDP + 2 * STAGE<HG>) +
          sizeof(float) * 6 * HG * MT + sizeof(double) * 4 * HG * MT;
 }
 
@@ -1228,6 +1282,7 @@ size_t cols_smem() {
 // B^T in three bf16 parts; the sum of M^T over the group's heads goes out
 // in f32 for ssd_bwd_tc_sums; then G_c's terms, dx_j, x_j . dxd_j, dy_j .
 // x_j.  Warp w owns rows 16 w .. 16 w + 15 of the tile
+template <int HG>
 __global__ void __launch_bounds__(WT, 2)
     ssd_bwd_tc_cols(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -1239,7 +1294,7 @@ __global__ void __launch_bounds__(WT, 2)
   bf16* Xj = Bj + MT * LDN;                      // [HG][MT][LDP] x of tile j
   bf16* ring = Xj + HG * MT * LDP;  // 2 stages of C [MT][LDN], dy [HG][MT][LDP]
   // after the walk the ring holds a head's G_c: [NPART][PMAX][LDN]
-  float* acj = reinterpret_cast<float*>(ring + 2 * STAGE);  // [HG][MT]
+  float* acj = reinterpret_cast<float*>(ring + 2 * STAGE<HG>);  // [HG][MT]
   float* dtj = acj + HG * MT;                               // [HG][MT]
   float* aci = dtj + HG * MT;  // [2][HG][MT] a_cum of each stage's rows
   double* red = reinterpret_cast<double*>(aci + 2 * HG * MT);  // [4][HG][MT]
@@ -1257,32 +1312,35 @@ __global__ void __launch_bounds__(WT, 2)
   const long long hp = static_cast<long long>(d.h) * d.p;
   const bf16* dyc = dy + (static_cast<long long>(bb) * d.s + c0) * hp;
 
-  copy_tile<WT>(Bj, LDN, Bm + bb * st.bb + (c0 + j0) * st.bs, st.bs, MT,
+  load_tile(Bj, LDN, Bm + bb * st.bb + (c0 + j0) * st.bs, st.bs, MT,
                 nv - j0, wn, d.n, vec.b);
   for (int hj = 0; hj < nh; ++hj)
-    copy_tile<WT>(Xj + hj * MT * LDP, LDP,
+    load_tile(Xj + hj * MT * LDP, LDP,
                   x + bb * st.xb + (h0 + hj) * st.xh + (c0 + j0) * st.xs,
                   st.xs, MT, nv - j0, wp, d.p, vec.x);
   // row r of a tile's head hj: thread hj MT + r loads its a_cum and dt
   const int hl = tid / MT, rl = tid % MT;
   const long long bhl = static_cast<long long>(bb) * d.h + h0 + hl;
   auto load = [&](int it) {
-    bf16* stage = ring + ((it - jt) & 1) * STAGE;
+    bf16* stage = ring + ((it - jt) & 1) * STAGE<HG>;
     const int i0 = it * MT;
-    copy_tile<WT>(stage, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs,
+    load_tile(stage, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs,
                   MT, nv - i0, wn, d.n, vec.c);
     for (int hj = 0; hj < nh; ++hj)
-      copy_tile<WT>(stage + MT * LDN + hj * MT * LDP, LDP,
+      load_tile(stage + MT * LDN + hj * MT * LDP, LDP,
                     dyc + i0 * hp + (h0 + hj) * d.p, hp, MT, nv - i0, wp,
                     d.p, vec.y);
-    aci[((it - jt) & 1) * HG * MT + tid] =
-        hl < nh && i0 + rl < nv ? w.acum[bhl * d.sp() + c0 + i0 + rl] : 0.f;
+    if (tid < HG * MT)
+      aci[((it - jt) & 1) * HG * MT + tid] =
+          hl < nh && i0 + rl < nv ? w.acum[bhl * d.sp() + c0 + i0 + rl]
+                                  : 0.f;
   };
-  acj[tid] = hl < nh && j0 + rl < nv ? w.acum[bhl * d.sp() + c0 + j0 + rl]
-                                     : 0.f;
-  dtj[tid] = hl < nh && j0 + rl < nv
-                 ? dt[bb * st.db + (c0 + j0 + rl) * st.ds + (h0 + hl) * st.dh]
-                 : 0.f;
+  if (tid < HG * MT) {
+    const bool ok = hl < nh && j0 + rl < nv;
+    acj[tid] = ok ? w.acum[bhl * d.sp() + c0 + j0 + rl] : 0.f;
+    dtj[tid] = ok ? dt[bb * st.db + (c0 + j0 + rl) * st.ds + (h0 + hl) * st.dh]
+                  : 0.f;
+  }
   load(jt);
   cp_async_commit();
 
@@ -1314,7 +1372,7 @@ __global__ void __launch_bounds__(WT, 2)
                                         (jw + lane % 16) * LDP + kk * 16 +
                                         (lane / 16) * 8);
     }
-    const bf16* Ci = ring + ((it - jt) & 1) * STAGE;
+    const bf16* Ci = ring + ((it - jt) & 1) * STAGE<HG>;
     const bf16* Yi = Ci + MT * LDN;
     const float* ai = aci + ((it - jt) & 1) * HG * MT;
     const int i0 = it * MT;
@@ -1465,7 +1523,7 @@ __global__ void __launch_bounds__(WT, 2)
       const long long bhc =
           (static_cast<long long>(bb) * d.h + h0 + hj) * d.nc + c;
       for (int part = 0; part < NPART; ++part)
-        copy_tile<WT>(ring + part * PMAX * LDN, LDN,
+        load_tile(ring + part * PMAX * LDN, LDN,
                       w.Gp + (bhc * NPART + part) * pn, d.n, wp, d.p, wn,
                       d.n, vec.s);
       cp_async_commit();
@@ -1597,8 +1655,9 @@ __global__ void __launch_bounds__(WT, 2)
   const int hc = blockIdx.x / per, rank = blockIdx.x % per;
   const int side = rank & 1;  // ranks 2k, 2k + 1 make ntq - k products
   const int t = side ? rank / 2 : sh.ntq - 1 - rank / 2;
-  const int hh0 = hc * HC, nhh = min(HC, d.h - hh0);
-  const int gfirst = hh0 / HG, ngrp = (hh0 + nhh - 1) / HG - gfirst + 1;
+  const int hh0 = hc * sh.hc, nhh = min(sh.hc, d.h - hh0);
+  const int gfirst = hh0 / sh.hg;
+  const int ngrp = (hh0 + nhh - 1) / sh.hg - gfirst + 1;
   const int c = blockIdx.y, bb = blockIdx.z;
   const int c0 = c * d.q, nv = min(d.q, d.s - c0), t0 = t * MT;
   if (t0 >= nv) return;
@@ -1615,7 +1674,7 @@ __global__ void __launch_bounds__(WT, 2)
   const int nunits = ngrp * nother;
 
   if (side == 0)
-    copy_tile<WT>(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
+    load_tile(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
                   nv - t0, wn, d.n, vec.c);
   auto load = [&](int u) {
     const int o = ofirst + u / ngrp, grp = gfirst + u % ngrp;
@@ -1632,10 +1691,10 @@ __global__ void __launch_bounds__(WT, 2)
     bf16* Nt = reinterpret_cast<bf16*>(Mf + MT * LDM);
     const int o0 = o * MT;
     if (side)
-      copy_tile<WT>(Nt, LDN, Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT,
+      load_tile(Nt, LDN, Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT,
                     nv - o0, wn, d.n, vec.c);
     else
-      copy_tile<WT>(Nt, LDN, Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT,
+      load_tile(Nt, LDN, Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT,
                     nv - o0, wn, d.n, vec.b);
   };
   load(0);
@@ -1708,16 +1767,16 @@ __global__ void __launch_bounds__(WT, 2)
       const int hh = hh0 + hk;
       const long long bh = static_cast<long long>(bb) * d.h + hh;
       if (side)
-        copy_tile<WT>(E, LDP, x + bb * st.xb + hh * st.xh + (c0 + t0) * st.xs,
+        load_tile(E, LDP, x + bb * st.xb + hh * st.xh + (c0 + t0) * st.xs,
                       st.xs, MT, nv - t0, wp, d.p, vec.x);
       else
-        copy_tile<WT>(E, LDP,
+        load_tile(E, LDP,
                       dy + (static_cast<long long>(bb) * d.s + c0 + t0) * hp +
                           hh * d.p,
                       hp, MT, nv - t0, wp, d.p, vec.y);
       const bf16* zs = (side ? w.Gp : w.Sp) + (bh * d.nc + c) * NPART * pn;
       for (int part = 0; part < NPART; ++part)
-        copy_tile<WT>(Z + part * PMAX * LDN, LDN, zs + part * pn, d.n, wp,
+        load_tile(Z + part * PMAX * LDN, LDN, zs + part * pn, d.n, wp,
                       d.p, wn, d.n, vec.s);
       cp_async_commit();
       cp_async_wait<0>();
@@ -1849,13 +1908,14 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
            const float* d_state, void* dx, float* ddt, float* dA, void* dB,
            void* dC, float* dD, float* ws, const Dims& d,
            const long long* s10, cudaStream_t stream) {
-  static size_t ok_states = 0, ok_cols = 0, ok_sums = 0, ok_final = 0;
-  const size_t sm_states = states_smem(d.q), sm_cols = cols_smem();
-  const size_t sm_sums = sums_smem();
+  static size_t ok_states = 0, ok_cols1 = 0, ok_cols2 = 0, ok_sums = 0,
+                ok_final = 0;
+  const size_t sm_states = states_smem(d.q), sm_sums = sums_smem();
   const size_t sm_final = sizeof(double) * (static_cast<size_t>(d.q) + NT);
   cudaError_t err;
   if ((err = allow_smem(ssd_bwd_tc_states, sm_states, &ok_states)) ||
-      (err = allow_smem(ssd_bwd_tc_cols, sm_cols, &ok_cols)) ||
+      (err = allow_smem(ssd_bwd_tc_cols<1>, cols_smem<1>(), &ok_cols1)) ||
+      (err = allow_smem(ssd_bwd_tc_cols<HG>, cols_smem<HG>(), &ok_cols2)) ||
       (err = allow_smem(ssd_bwd_tc_sums, sm_sums, &ok_sums)) ||
       (err = allow_smem(ssd_bwd_tc_final, sm_final, &ok_final)))
     return static_cast<int>(err);
@@ -1881,9 +1941,14 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   ssd_bwd_tc_carry<<<dim3(sh.cbc, d.h, d.b), CW, 0, stream>>>(d_state, w,
                                                               d);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_bwd_tc_cols<<<dim3(sh.ntq * sh.ngroups, d.nc, d.b), WT, sm_cols,
-                    stream>>>(xt, dt, Bt, Ct, D, dyt, static_cast<bf16*>(dx),
-                              w, d, st, vec, with_ds);
+  const dim3 cols(sh.ntq * sh.ngroups, d.nc, d.b);
+  bf16* dxt = static_cast<bf16*>(dx);
+  if (sh.hg == HG)
+    ssd_bwd_tc_cols<HG><<<cols, WT, cols_smem<HG>(), stream>>>(
+        xt, dt, Bt, Ct, D, dyt, dxt, w, d, st, vec, with_ds);
+  else
+    ssd_bwd_tc_cols<1><<<cols, WT, cols_smem<1>(), stream>>>(
+        xt, dt, Bt, Ct, D, dyt, dxt, w, d, st, vec, with_ds);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
   ssd_bwd_tc_sums<<<dim3(2 * sh.ntq * sh.nhc, d.nc, d.b), WT, sm_sums,
                     stream>>>(xt, dt, Bt, Ct, dyt, w, d, st, vec, with_ds);
@@ -1912,10 +1977,11 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 // type), ddt [b, s, h], dA and dD [h] (contiguous, f32).  p <= 64, n <=
 // 128, 1 <= q.  `work`, 8-byte aligned, holds in f32 b h (nc (2 p n + 10)
 // + 8 nc q) + 2 h b nc q n floats; in bf16, with t = ceil(q / 64), sp = nc
-// q and m = ceil(h / 2) t (t + 1) / 2, 2 b h nc t q + 3 b h sp + 2 b h nc
-// p n + 2 (3 b h nc p n / 2 + 1) + b h nc ceil(p n / 1024) + 4 b h sp + b
-// nc m 64 64 + 2 ceil(h / 8) b sp n + 2 b h nc + 136 floats (nc =
-// ceil(s / q); ops.py's _backward_work).  Launches on `stream` and returns
+// q, and hg and hc the heads of a column and of a sums block (tc::
+// shape_of), 2 b h nc t q + 3 b h sp + 2 b h nc p n + 2 (3 b h nc p n / 2
+// + 1) + b h nc ceil(p n / 1024) + 4 b h sp + b nc ceil(h / hg) t (t + 1)
+// / 2 64 64 + 2 ceil(h / hc) b sp n + 2 b h nc + 136 floats (nc = ceil(s
+// / q); ops.py's _backward_work).  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,
                             const void* B, const void* C, const float* D,

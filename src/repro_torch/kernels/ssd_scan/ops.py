@@ -102,19 +102,25 @@ def _backward_work(b, s, h, p, n, q, bf16):
     sums of T per 64-row column tile and column sums, a_cum, the chunks'
     own states and state gradients, both carried in three bf16 parts,
     <G, S> in parts of 1024 elements, four per-row sums, the sum of M^T
-    over each group of 2 heads per 64-row tile pair, dB and dC of each
-    group of 8 heads, dA and dD of each chunk."""
+    over each group of hg heads per 64-row tile pair, dB and dC of each
+    group of hc heads, dA and dD of each chunk.  hg and hc as ``tc::
+    shape_of`` picks them: 2 and 8 (4, 2) where the grids of 64-row tiles
+    then still fill the card (264 blocks), else 1 and the fewest heads."""
     nc = -(-s // q)
     bh, sp, pn = b * h, nc * q, p * n
     if not bf16:
         return bh * (nc * (2 * pn + 10) + 8 * nc * q) + 2 * h * b * nc * q * n
     tiles = -(-q // 64)
     pairs = tiles * (tiles + 1) // 2
+    blocks = tiles * nc * b
+    hg = 2 if blocks * -(-h // 2) >= 264 else 1
+    hc = next((c for c in (8, 4, 2)
+               if c > hg and 2 * blocks * -(-h // c) >= 264), hg)
     return (2 * bh * nc * tiles * q + 2 * bh * sp + bh * sp
             + 2 * bh * nc * pn + 2 * (bh * nc * 3 * pn // 2 + 1)
             + bh * nc * -(-pn // 1024) + 4 * bh * sp
-            + b * nc * -(-h // 2) * pairs * 64 * 64
-            + 2 * -(-h // 8) * b * sp * n + 2 * bh * nc + 8 * 17)
+            + b * nc * -(-h // hg) * pairs * 64 * 64
+            + 2 * -(-h // hc) * b * sp * n + 2 * bh * nc + 8 * 17)
 
 
 def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):

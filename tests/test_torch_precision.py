@@ -755,10 +755,15 @@ SSD_BWD_CASES = [((1, 32, 2, 8, 4), 8, False, False),
                  ((1, 300, 2, 16, 16), 256, True, True)]
 
 
+@pytest.mark.parametrize("group,summed", [(2, 8), (1, 1)])
 @pytest.mark.parametrize("shape,chunk,with_state,mamba", SSD_BWD_CASES)
 def test_ssd_bwd_rounding_meets_the_kernel_bar(shape, chunk, with_state,
-                                               mamba):
-    shares = _ssd_bwd_shares(shape, chunk, sum(shape), with_state, mamba)
+                                               mamba, group, summed):
+    """M summed over 2 heads and those sums over 8, as at mamba2-370m's
+    widths, or taken head by head, as the kernels do where fewer heads a
+    block fill the card."""
+    shares = _ssd_bwd_shares(shape, chunk, sum(shape), with_state, mamba,
+                             group=group, summed=summed)
     assert max(shares) <= 1, shares
 
 

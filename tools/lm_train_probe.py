@@ -52,7 +52,7 @@ KINDS = (("flash backward", ("flash_bwd",)), ("flash", ("flash_kernel",)),
          ("elementwise", ("elementwise", "reduce_kernel")))
 
 
-def step_breakdown(dev, arch="qwen2.5-3b", seq=128, label="") -> None:
+def step_breakdown(dev, arch="qwen2.5-3b", seq=128, tree="") -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -105,7 +105,7 @@ def step_breakdown(dev, arch="qwen2.5-3b", seq=128, label="") -> None:
               for label in ranges}
     inside["backward (the rest)"] = busy - sum(inside.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"{arch} train step, 8 x {seq} tokens{label}: {call * 1e3:.1f} ms "
+    print(f"{arch} train step, 8 x {seq} tokens{tree}: {call * 1e3:.1f} ms "
           f"a call (3 steps); under the profiler {wall * 1e3:.1f} ms, device "
           f"busy {busy:.1f} ms = {busy / (wall * 1e3):.1%}; by range: " +
           ", ".join(f"{k} {v:.1f} ms" for k, v in inside.items()) +
