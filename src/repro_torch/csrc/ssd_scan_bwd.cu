@@ -998,13 +998,10 @@ void carve(float* ws, const Dims& d, const Shape& sh, Work* w) {
 
 // the copy of a tile whose rows allow no cp.async (x, B or C at an odd
 // element offset): 8 elements a thread at a time, every load issued
-// before the stores, so that their latencies overlap; out of line, to
-// keep its registers out of the kernels' main paths
-__device__ __noinline__ void copy_tile_scalar(bf16* dst, int ld,
-                                              const bf16* src,
-                                              long long stride, int nrows,
-                                              int nvalid, int width,
-                                              int ncols) {
+// before the stores, so that their latencies overlap
+__device__ void copy_tile_scalar(bf16* dst, int ld, const bf16* src,
+                                 long long stride, int nrows, int nvalid,
+                                 int width, int ncols) {
   const int total = nrows * width;
   for (int e0 = threadIdx.x; e0 < total; e0 += 8 * WT) {
     bf16 v[8];
@@ -1022,15 +1019,18 @@ __device__ __noinline__ void copy_tile_scalar(bf16* dst, int ld,
   }
 }
 
-// copy_tile by the block's WT threads, or copy_tile_scalar where vec is 1
+// copy_tile by the block's WT threads; in the kernels built for rows at
+// an odd offset (ODD), copy_tile_scalar where vec is 1.  The others carry
+// no scalar path: it costs the main path registers
+template <bool ODD>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           long long stride, int nrows,
                                           int nvalid, int width, int ncols,
                                           int vec) {
-  if (vec > 1)
-    copy_tile<WT>(dst, ld, src, stride, nrows, nvalid, width, ncols, vec);
-  else
+  if (ODD && vec == 1)
     copy_tile_scalar(dst, ld, src, stride, nrows, nvalid, width, ncols);
+  else
+    copy_tile<WT>(dst, ld, src, stride, nrows, nvalid, width, ncols, vec);
 }
 
 size_t states_smem(int q) {
@@ -1043,6 +1043,7 @@ size_t states_smem(int q) {
 // 1) and its own state gradient sum_i (dy_i exp(a_cum_i))^T C_i (c > 0):
 // the forward's ssd_kernel_states, x or dy scaled in registers between
 // its transposed ldmatrix and its split into three bf16 parts
+template <bool ODD>
 __global__ void __launch_bounds__(WT)
     ssd_bwd_tc_states(const bf16* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -1093,10 +1094,10 @@ __global__ void __launch_bounds__(WT)
     const int ev = pass == 0 ? vec.x : vec.y, nvv = pass == 0 ? vec.b : vec.c;
     auto load = [&](int jt) {
       const int j0 = jt * MT;
-      load_tile(Er + (jt & 1) * MT * LDP, LDP, eb + j0 * es, es, MT,
-                    nv - j0, wp, d.p, ev);
-      load_tile(Nr + (jt & 1) * MT * LDN, LDN, nbase + j0 * ns, ns, MT,
-                    nv - j0, wn, d.n, nvv);
+      load_tile<ODD>(Er + (jt & 1) * MT * LDP, LDP, eb + j0 * es, es, MT,
+                     nv - j0, wp, d.p, ev);
+      load_tile<ODD>(Nr + (jt & 1) * MT * LDN, LDN, nbase + j0 * ns, ns, MT,
+                     nv - j0, wn, d.n, nvv);
     };
     load(0);
     cp_async_commit();
@@ -1282,7 +1283,7 @@ size_t cols_smem() {
 // B^T in three bf16 parts; the sum of M^T over the group's heads goes out
 // in f32 for ssd_bwd_tc_sums; then G_c's terms, dx_j, x_j . dxd_j, dy_j .
 // x_j.  Warp w owns rows 16 w .. 16 w + 15 of the tile
-template <int HG>
+template <int HG, bool ODD>
 __global__ void __launch_bounds__(WT, 2)
     ssd_bwd_tc_cols(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -1312,24 +1313,24 @@ __global__ void __launch_bounds__(WT, 2)
   const long long hp = static_cast<long long>(d.h) * d.p;
   const bf16* dyc = dy + (static_cast<long long>(bb) * d.s + c0) * hp;
 
-  load_tile(Bj, LDN, Bm + bb * st.bb + (c0 + j0) * st.bs, st.bs, MT,
-                nv - j0, wn, d.n, vec.b);
+  load_tile<ODD>(Bj, LDN, Bm + bb * st.bb + (c0 + j0) * st.bs, st.bs, MT,
+                 nv - j0, wn, d.n, vec.b);
   for (int hj = 0; hj < nh; ++hj)
-    load_tile(Xj + hj * MT * LDP, LDP,
-                  x + bb * st.xb + (h0 + hj) * st.xh + (c0 + j0) * st.xs,
-                  st.xs, MT, nv - j0, wp, d.p, vec.x);
+    load_tile<ODD>(Xj + hj * MT * LDP, LDP,
+                   x + bb * st.xb + (h0 + hj) * st.xh + (c0 + j0) * st.xs,
+                   st.xs, MT, nv - j0, wp, d.p, vec.x);
   // row r of a tile's head hj: thread hj MT + r loads its a_cum and dt
   const int hl = tid / MT, rl = tid % MT;
   const long long bhl = static_cast<long long>(bb) * d.h + h0 + hl;
   auto load = [&](int it) {
     bf16* stage = ring + ((it - jt) & 1) * STAGE<HG>;
     const int i0 = it * MT;
-    load_tile(stage, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs,
-                  MT, nv - i0, wn, d.n, vec.c);
+    load_tile<ODD>(stage, LDN, Cm + bb * st.cb + (c0 + i0) * st.cs, st.cs,
+                   MT, nv - i0, wn, d.n, vec.c);
     for (int hj = 0; hj < nh; ++hj)
-      load_tile(stage + MT * LDN + hj * MT * LDP, LDP,
-                    dyc + i0 * hp + (h0 + hj) * d.p, hp, MT, nv - i0, wp,
-                    d.p, vec.y);
+      load_tile<ODD>(stage + MT * LDN + hj * MT * LDP, LDP,
+                     dyc + i0 * hp + (h0 + hj) * d.p, hp, MT, nv - i0, wp,
+                     d.p, vec.y);
     if (tid < HG * MT)
       aci[((it - jt) & 1) * HG * MT + tid] =
           hl < nh && i0 + rl < nv ? w.acum[bhl * d.sp() + c0 + i0 + rl]
@@ -1523,9 +1524,9 @@ __global__ void __launch_bounds__(WT, 2)
       const long long bhc =
           (static_cast<long long>(bb) * d.h + h0 + hj) * d.nc + c;
       for (int part = 0; part < NPART; ++part)
-        load_tile(ring + part * PMAX * LDN, LDN,
-                      w.Gp + (bhc * NPART + part) * pn, d.n, wp, d.p, wn,
-                      d.n, vec.s);
+        load_tile<ODD>(ring + part * PMAX * LDN, LDN,
+                       w.Gp + (bhc * NPART + part) * pn, d.n, wp, d.p, wn,
+                       d.n, vec.s);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -1638,6 +1639,7 @@ size_t sums_smem() { return sizeof(bf16) * MT * LDN + 2 * USTAGE; }
 // formed, S_c and G_c in three parts, against exact bf16 B, C, dy and x;
 // the heads summed in registers in order, the group's sum to dBp or dCp.
 // Ranked so that the blocks with the most products start first
+template <bool ODD>
 __global__ void __launch_bounds__(WT, 2)
     ssd_bwd_tc_sums(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
@@ -1674,8 +1676,8 @@ __global__ void __launch_bounds__(WT, 2)
   const int nunits = ngrp * nother;
 
   if (side == 0)
-    load_tile(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
-                  nv - t0, wn, d.n, vec.c);
+    load_tile<ODD>(Ct, LDN, Cm + bb * st.cb + (c0 + t0) * st.cs, st.cs, MT,
+                   nv - t0, wn, d.n, vec.c);
   auto load = [&](int u) {
     const int o = ofirst + u / ngrp, grp = gfirst + u % ngrp;
     const int pair = side ? o * (o + 1) / 2 + t : t * (t + 1) / 2 + o;
@@ -1691,11 +1693,11 @@ __global__ void __launch_bounds__(WT, 2)
     bf16* Nt = reinterpret_cast<bf16*>(Mf + MT * LDM);
     const int o0 = o * MT;
     if (side)
-      load_tile(Nt, LDN, Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT,
-                    nv - o0, wn, d.n, vec.c);
+      load_tile<ODD>(Nt, LDN, Cm + bb * st.cb + (c0 + o0) * st.cs, st.cs, MT,
+                     nv - o0, wn, d.n, vec.c);
     else
-      load_tile(Nt, LDN, Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT,
-                    nv - o0, wn, d.n, vec.b);
+      load_tile<ODD>(Nt, LDN, Bm + bb * st.bb + (c0 + o0) * st.bs, st.bs, MT,
+                     nv - o0, wn, d.n, vec.b);
   };
   load(0);
   cp_async_commit();
@@ -1767,17 +1769,17 @@ __global__ void __launch_bounds__(WT, 2)
       const int hh = hh0 + hk;
       const long long bh = static_cast<long long>(bb) * d.h + hh;
       if (side)
-        load_tile(E, LDP, x + bb * st.xb + hh * st.xh + (c0 + t0) * st.xs,
-                      st.xs, MT, nv - t0, wp, d.p, vec.x);
+        load_tile<ODD>(E, LDP, x + bb * st.xb + hh * st.xh + (c0 + t0) * st.xs,
+                       st.xs, MT, nv - t0, wp, d.p, vec.x);
       else
-        load_tile(E, LDP,
-                      dy + (static_cast<long long>(bb) * d.s + c0 + t0) * hp +
-                          hh * d.p,
-                      hp, MT, nv - t0, wp, d.p, vec.y);
+        load_tile<ODD>(E, LDP,
+                       dy + (static_cast<long long>(bb) * d.s + c0 + t0) * hp +
+                           hh * d.p,
+                       hp, MT, nv - t0, wp, d.p, vec.y);
       const bf16* zs = (side ? w.Gp : w.Sp) + (bh * d.nc + c) * NPART * pn;
       for (int part = 0; part < NPART; ++part)
-        load_tile(Z + part * PMAX * LDN, LDN, zs + part * pn, d.n, wp,
-                      d.p, wn, d.n, vec.s);
+        load_tile<ODD>(Z + part * PMAX * LDN, LDN, zs + part * pn, d.n, wp,
+                       d.p, wn, d.n, vec.s);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -1903,22 +1905,60 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, const float* D, const void* dy,
-           const float* d_state, void* dx, float* ddt, float* dA, void* dB,
-           void* dC, float* dD, float* ws, const Dims& d,
-           const long long* s10, cudaStream_t stream) {
+// the six launches, with the kernels built for rows at an odd offset or
+// not (ODD)
+template <bool ODD>
+int run(const bf16* x, const float* dt, const float* A, const bf16* B,
+        const bf16* C, const float* D, const bf16* dy, const float* d_state,
+        bf16* dx, float* ddt, float* dA, bf16* dB, bf16* dC, float* dD,
+        const Work& w, const Dims& d, const Shape& sh, const Strides& st,
+        const Vec& vec, cudaStream_t stream) {
   static size_t ok_states = 0, ok_cols1 = 0, ok_cols2 = 0, ok_sums = 0,
                 ok_final = 0;
   const size_t sm_states = states_smem(d.q), sm_sums = sums_smem();
   const size_t sm_final = sizeof(double) * (static_cast<size_t>(d.q) + NT);
   cudaError_t err;
-  if ((err = allow_smem(ssd_bwd_tc_states, sm_states, &ok_states)) ||
-      (err = allow_smem(ssd_bwd_tc_cols<1>, cols_smem<1>(), &ok_cols1)) ||
-      (err = allow_smem(ssd_bwd_tc_cols<HG>, cols_smem<HG>(), &ok_cols2)) ||
-      (err = allow_smem(ssd_bwd_tc_sums, sm_sums, &ok_sums)) ||
+  if ((err = allow_smem(ssd_bwd_tc_states<ODD>, sm_states, &ok_states)) ||
+      (err = allow_smem(ssd_bwd_tc_cols<1, ODD>, cols_smem<1>(),
+                        &ok_cols1)) ||
+      (err = allow_smem(ssd_bwd_tc_cols<HG, ODD>, cols_smem<HG>(),
+                        &ok_cols2)) ||
+      (err = allow_smem(ssd_bwd_tc_sums<ODD>, sm_sums, &ok_sums)) ||
       (err = allow_smem(ssd_bwd_tc_final, sm_final, &ok_final)))
     return static_cast<int>(err);
+  const int with_ds = d_state != nullptr;
+  ssd_bwd_tc_states<ODD><<<dim3(d.h, d.nc, d.b), WT, sm_states, stream>>>(
+      x, dt, A, B, C, dy, w, d, st, vec);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_carry<<<dim3(sh.cbc, d.h, d.b), CW, 0, stream>>>(d_state, w,
+                                                              d);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  const dim3 cols(sh.ntq * sh.ngroups, d.nc, d.b);
+  if (sh.hg == HG)
+    ssd_bwd_tc_cols<HG, ODD><<<cols, WT, cols_smem<HG>(), stream>>>(
+        x, dt, B, C, D, dy, dx, w, d, st, vec, with_ds);
+  else
+    ssd_bwd_tc_cols<1, ODD><<<cols, WT, cols_smem<1>(), stream>>>(
+        x, dt, B, C, D, dy, dx, w, d, st, vec, with_ds);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_sums<ODD><<<dim3(2 * sh.ntq * sh.nhc, d.nc, d.b), WT, sm_sums,
+                         stream>>>(x, dt, B, C, dy, w, d, st, vec, with_ds);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  ssd_bwd_tc_final<<<dim3(d.nc, static_cast<unsigned>(d.b) * d.h), NT,
+                      sm_final, stream>>>(dt, A, ddt, w, d, st);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  const long long total = static_cast<long long>(d.b) * d.s * d.n;
+  ssd_bwd_reduce<bf16><<<static_cast<unsigned>((total + NT - 1) / NT), NT,
+                         0, stream>>>(dB, dC, dA, dD, w.dBp, w.dCp, w.dAp,
+                                      w.dDp, sh.nhc, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* x, const float* dt, const float* A, const void* B,
+           const void* C, const float* D, const void* dy,
+           const float* d_state, void* dx, float* ddt, float* dA, void* dB,
+           void* dC, float* dD, float* ws, const Dims& d,
+           const long long* s10, cudaStream_t stream) {
   const Shape sh = shape_of(d);
   Work w;
   carve(ws, d, sh, &w);
@@ -1929,39 +1969,13 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   const Vec vec{vec_of(x, s10, 3, d.p), vec_of(dy, dys, 2, d.p),
                 vec_of(B, s10 + 6, 2, d.n), vec_of(C, s10 + 8, 2, d.n),
                 vec_of(w.Sp, &row, 1, d.n)};
-  const bf16* xt = static_cast<const bf16*>(x);
-  const bf16* Bt = static_cast<const bf16*>(B);
-  const bf16* Ct = static_cast<const bf16*>(C);
-  const bf16* dyt = static_cast<const bf16*>(dy);
-  const int with_ds = d_state != nullptr;
-  const unsigned bh = static_cast<unsigned>(d.b) * d.h;
-  ssd_bwd_tc_states<<<dim3(d.h, d.nc, d.b), WT, sm_states, stream>>>(
-      xt, dt, A, Bt, Ct, dyt, w, d, st, vec);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_bwd_tc_carry<<<dim3(sh.cbc, d.h, d.b), CW, 0, stream>>>(d_state, w,
-                                                              d);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  const dim3 cols(sh.ntq * sh.ngroups, d.nc, d.b);
-  bf16* dxt = static_cast<bf16*>(dx);
-  if (sh.hg == HG)
-    ssd_bwd_tc_cols<HG><<<cols, WT, cols_smem<HG>(), stream>>>(
-        xt, dt, Bt, Ct, D, dyt, dxt, w, d, st, vec, with_ds);
-  else
-    ssd_bwd_tc_cols<1><<<cols, WT, cols_smem<1>(), stream>>>(
-        xt, dt, Bt, Ct, D, dyt, dxt, w, d, st, vec, with_ds);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_bwd_tc_sums<<<dim3(2 * sh.ntq * sh.nhc, d.nc, d.b), WT, sm_sums,
-                    stream>>>(xt, dt, Bt, Ct, dyt, w, d, st, vec, with_ds);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  ssd_bwd_tc_final<<<dim3(d.nc, bh), NT, sm_final, stream>>>(dt, A, ddt, w,
-                                                             d, st);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  const long long total = static_cast<long long>(d.b) * d.s * d.n;
-  ssd_bwd_reduce<bf16><<<static_cast<unsigned>((total + NT - 1) / NT), NT,
-                         0, stream>>>(static_cast<bf16*>(dB),
-                                      static_cast<bf16*>(dC), dA, dD, w.dBp,
-                                      w.dCp, w.dAp, w.dDp, sh.nhc, d);
-  return static_cast<int>(cudaGetLastError());
+  const bool odd = vec.x == 1 || vec.y == 1 || vec.b == 1 || vec.c == 1 ||
+                   vec.s == 1;
+  auto go = odd ? run<true> : run<false>;
+  return go(static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
+            static_cast<const bf16*>(C), D, static_cast<const bf16*>(dy),
+            d_state, static_cast<bf16*>(dx), ddt, dA, static_cast<bf16*>(dB),
+            static_cast<bf16*>(dC), dD, w, d, sh, st, vec, stream);
 }
 
 }  // namespace tc
