@@ -78,7 +78,7 @@
 //   ssd_bwd_tc_carry (p n / 1024, head, batch): S_c and G_c over the
 //       chunks, 4 elements a thread, each nonzero one out in three bf16
 //       parts, <G_c, S_c> from the parts (they hold S_c exactly);
-//   ssd_bwd_tc_cols (column tile x group of 2 heads, chunk, batch): per
+//   ssd_bwd_tc_cols (column tile x group of hg heads, chunk, batch): per
 //       row tile i >= j, C B^T once for the group, then per head P = x_j
 //       dy_i^T, M^T = L o (P dt_j), T = M^T o C B^T in f64 (its column
 //       sums in registers, its row sums over the tile to a workspace: T is
@@ -86,15 +86,20 @@
 //       group's heads goes out in f32; then gb = G_c B_j, dx, x .
 //       dxd, dy . x.  The column tile that walks the most row tiles starts
 //       first;
-//   ssd_bwd_tc_sums (tile x side x group of 8 heads, chunk, batch): dC_t =
-//       sum_j M_tj B_j and dB_t = sum_i M^T_ti C_i, M summed over the 8
+//   ssd_bwd_tc_sums (tile x side x group of hc heads, chunk, batch): dC_t
+//       = sum_j M_tj B_j and dB_t = sum_i M^T_ti C_i, M summed over the hc
 //       heads first (B and C are shared by all heads: one product a tile
 //       pair, not one a head), each head's exp(a_cum_t) dy_t S_c and w_t
 //       dt_t x_t G_c summed into them in registers in order; ranked so that
 //       the blocks with the most products start first;
 //   ssd_bwd_tc_final (chunk, batch x head): d a_cum from the row sums over
 //       the column tiles in order and the rest, then as ssd_bwd_final;
-//   ssd_bwd_reduce: dB and dC summed over the groups of 8 heads in order.
+//   ssd_bwd_reduce: dB and dC summed over the groups of hc heads in order.
+// hg is 2 and hc 8 where their grids still fill the card twice over
+// (mamba2-370m's training shape), else fewer (tc::shape_of): small shapes
+// run more, shorter blocks.  Rows at an odd element offset allow no
+// cp.async; the kernels built for them (ODD) copy those 8 elements a
+// thread at once, and the others carry no scalar path.
 // Against the f32 design's cost: its products ran as fmaf loops (6.6
 // TFLOP/s); it formed C B^T once a head (64 times a (batch, chunk) where
 // once does) and dy xd^T and T in both tile kernels; its per-head dB and
@@ -104,7 +109,10 @@
 // Here B and C enter one product a group of heads (M summed over the
 // group first), dy x^T and T are formed once, dB and dC go through the
 // workspace once per 8 heads, every block fits two to an SM, and the
-// carry moves each element once.
+// carry moves each element once.  At the training shape that takes
+// 0.52 ms, 4 % of the bound (tools/ssd_bwd_ab.py): the sums kernel's
+// per-head S_c and G_c loads and the columns kernel's latency (8 warps
+// an SM) bound it now.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

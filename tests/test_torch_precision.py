@@ -1,13 +1,14 @@
 """The rounding of the port's bf16 tensor-core kernels, emulated on the
 CPU: ``csrc/flash_attention.cu``'s ``flash_kernel_wgmma``, its backward
 ``csrc/flash_attention_bwd.cu``'s two ``wgmma`` kernels,
-``csrc/decode_attention.cu``'s ``decode_kernel_mma`` and
-``csrc/ssd_scan.cu``'s three bf16 passes, operation by operation in plain
+``csrc/decode_attention.cu``'s ``decode_kernel_mma``,
+``csrc/ssd_scan.cu``'s three bf16 passes and its backward's bf16 kernels
+(``csrc/ssd_scan_bwd.cu``, ``tc``), operation by operation in plain
 PyTorch (bf16 operands, products summed in f32 per tile, the f32 operand
 of each product split into bf16 parts: two for the forward attention
 kernels' P, three for the backward's P and dS and for the SSD's folded
-operands), held to the bars that ``chip_smoke.py`` and the ``cuda`` tests
-apply to the kernels themselves:
+operands and its backward's), held to the bars that ``chip_smoke.py`` and
+the ``cuda`` tests apply to the kernels themselves:
 
 - flash and decode, bf16 output against the plain version in f32 (phase
   12): 1e-4 + 2^-8 |want| per element;
@@ -16,7 +17,10 @@ apply to the kernels themselves:
   plain backward's own largest error + 1e-7 + 2^-8 |want|;
 - SSD, bf16 y against the f32 plain version rounded to bf16 (phase 13):
   one bf16 ulp of |want| plus twice the f32 plain version's own error
-  against f64; the final state within the JAX tests' atol 1e-4, rtol 1e-3.
+  against f64; the final state within the JAX tests' atol 1e-4, rtol 1e-3;
+- the SSD backward, bf16 gradients against the plain backward in f64
+  (phase 46, ``tests/test_torch_scan_grads.py``): 4 times the f32 plain
+  backward's own largest error + 1e-7 + 2^-8 |want|.
 
 A rounding scheme that misses a bar here would miss it on the card.  The
 same goes for the Canny kernel's two schemes, which must give the plain
