@@ -811,7 +811,9 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// raise a kernel's dynamic shared-memory limit to `bytes` once
+// raise a kernel's dynamic shared-memory limit to `bytes` once; `allowed`
+// records the limit the kernel holds, so each kernel has exactly one (a
+// second record could set the limit below what the first believes)
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, size_t* allowed) {
   if (bytes <= *allowed) return cudaSuccess;
@@ -1914,25 +1916,24 @@ __global__ void __launch_bounds__(NT)
 }
 
 // the six launches, with the kernels built for rows at an odd offset or
-// not (ODD)
+// not (ODD); each build keeps the shared-memory limits of its own kernels
+// (sm_final: the final kernel's, which both builds launch, set by the
+// caller)
 template <bool ODD>
 int run(const bf16* x, const float* dt, const float* A, const bf16* B,
         const bf16* C, const float* D, const bf16* dy, const float* d_state,
         bf16* dx, float* ddt, float* dA, bf16* dB, bf16* dC, float* dD,
         const Work& w, const Dims& d, const Shape& sh, const Strides& st,
-        const Vec& vec, cudaStream_t stream) {
-  static size_t ok_states = 0, ok_cols1 = 0, ok_cols2 = 0, ok_sums = 0,
-                ok_final = 0;
+        const Vec& vec, size_t sm_final, cudaStream_t stream) {
+  static size_t ok_states = 0, ok_cols1 = 0, ok_cols2 = 0, ok_sums = 0;
   const size_t sm_states = states_smem(d.q), sm_sums = sums_smem();
-  const size_t sm_final = sizeof(double) * (static_cast<size_t>(d.q) + NT);
   cudaError_t err;
   if ((err = allow_smem(ssd_bwd_tc_states<ODD>, sm_states, &ok_states)) ||
       (err = allow_smem(ssd_bwd_tc_cols<1, ODD>, cols_smem<1>(),
                         &ok_cols1)) ||
       (err = allow_smem(ssd_bwd_tc_cols<HG, ODD>, cols_smem<HG>(),
                         &ok_cols2)) ||
-      (err = allow_smem(ssd_bwd_tc_sums<ODD>, sm_sums, &ok_sums)) ||
-      (err = allow_smem(ssd_bwd_tc_final, sm_final, &ok_final)))
+      (err = allow_smem(ssd_bwd_tc_sums<ODD>, sm_sums, &ok_sums)))
     return static_cast<int>(err);
   const int with_ds = d_state != nullptr;
   ssd_bwd_tc_states<ODD><<<dim3(d.h, d.nc, d.b), WT, sm_states, stream>>>(
@@ -1967,6 +1968,11 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
            const float* d_state, void* dx, float* ddt, float* dA, void* dB,
            void* dC, float* dD, float* ws, const Dims& d,
            const long long* s10, cudaStream_t stream) {
+  static size_t ok_final = 0;
+  const size_t sm_final = sizeof(double) * (static_cast<size_t>(d.q) + NT);
+  if (const cudaError_t err =
+          allow_smem(ssd_bwd_tc_final, sm_final, &ok_final))
+    return static_cast<int>(err);
   const Shape sh = shape_of(d);
   Work w;
   carve(ws, d, sh, &w);
@@ -1983,7 +1989,7 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   return go(static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
             static_cast<const bf16*>(C), D, static_cast<const bf16*>(dy),
             d_state, static_cast<bf16*>(dx), ddt, dA, static_cast<bf16*>(dB),
-            static_cast<bf16*>(dC), dD, w, d, sh, st, vec, stream);
+            static_cast<bf16*>(dC), dD, w, d, sh, st, vec, sm_final, stream);
 }
 
 }  // namespace tc

@@ -279,6 +279,31 @@ def test_ssd_backward_kernel_reads_the_models_strided_views(cuda):
 
 
 @pytest.mark.cuda
+def test_ssd_backward_kernel_after_a_call_at_an_odd_offset(cuda):
+    """The bf16 kernels built for rows at an odd element offset and those
+    for aligned rows launch one final kernel: a call of the first at a
+    shorter chunk leaves the second able to launch at its own chunk."""
+    arrays, dy, ds = _ssd_on(cuda, (2, 300, 4, 64, 128), 5, torch.bfloat16,
+                             True)
+    ssd_ops._launch_backward(*arrays, dy, ds, 256)
+    b, s, h, p, n = 2, 300, 4, 64, 128
+    conv = torch.zeros(b, s, 1 + h * p + 2 * n, device=cuda,
+                       dtype=torch.bfloat16)
+    conv[..., 1:1 + h * p] = arrays[0].reshape(b, s, h * p)
+    conv[..., 1 + h * p:1 + h * p + n] = arrays[3]
+    conv[..., 1 + h * p + n:] = arrays[4]
+    odd = (conv[..., 1:1 + h * p].reshape(b, s, h, p), *arrays[1:3],
+           conv[..., 1 + h * p:1 + h * p + n], conv[..., 1 + h * p + n:],
+           arrays[5])
+    ssd_kernel_close("odd offset, chunk 200",
+                     ssd_ops._launch_backward(*odd, dy, ds, 200), *odd, dy,
+                     200, ds)
+    ssd_kernel_close("aligned after it, chunk 256",
+                     ssd_ops._launch_backward(*arrays, dy, ds, 256),
+                     *arrays, dy, 256, ds)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("shape", [(8, 256, 2560), (3, 77, 1000),
                                    (2, 5, 37)])
