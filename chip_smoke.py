@@ -4100,7 +4100,8 @@ def serve_driver(device="cuda", extra=()):
     """Phase 31: the serve driver's nine runs on ``device`` (``extra``:
     more flags, e.g. ``--reduced`` for a rehearsal on the CPU), then run
     (e) again with ``--device cpu --reduced``.  Returns the LLM kernels'
-    launches summed over the runs."""
+    launches summed over the runs and run (a)'s decisions (run (i), on
+    phase 48's rows, comes after phase 48)."""
     import itertools
     from repro_torch.serving.pool import DEFAULT_POOL
     t0 = time.perf_counter()
@@ -4128,6 +4129,8 @@ def serve_driver(device="cuda", extra=()):
         if after - start > 2**30:
             fail(f"run ({label}) left {gib(after - start)} of device memory "
                  "behind")
+        if label == "a":
+            synthetic = run.decisions
         if label == "b":
             adapt_check(run, out_dir / "profile.json")
             continue
@@ -4168,7 +4171,7 @@ def serve_driver(device="cuda", extra=()):
           f"memory {gib(start)} before the phase, "
           f"{gib(device_memory(device))} after")
     phase("31 the serve driver at full width", t0)
-    return total
+    return total, synthetic
 
 
 def example_run(module, argv):
@@ -4257,6 +4260,186 @@ def examples_on_card(testbed, canny_ops, canny_ref, device="cuda",
               f"to its cpu run:\n  " + "\n  ".join(text.splitlines()))
     phase("32 the examples", t0)
     return canny
+
+
+#: phase 48's rows: the default pool at the two serving shapes, then
+#: mamba2-370m's training and 500k-token rows and llama3-8b's skip row
+DRYRUN_CALLS = (("pool", None, ("prefill_32k", "decode_32k")),
+                ("mamba2", ("mamba2-370m",), ("train_4k", "long_500k")),
+                ("skip", ("llama3-8b",), ("long_500k",)))
+#: the reduced combinations whose counts must be equal on the card and the
+#: CPU: a dense prefill (the flash kernel), its decode (the decode kernel)
+#: and an ssm prefill (the SSD kernel)
+DRYRUN_SAME = (("llama3-8b", "prefill", 48), ("llama3-8b", "decode", 48),
+               ("mamba2-370m", "prefill", 300))
+
+
+def dryrun_counts_on_both(dev) -> None:
+    """The step cost counter of three reduced combinations, bf16, on the
+    card and on the CPU: operations and bytes equal, and every kind of
+    aten op and kernel counted alike."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import StepCost
+    from repro_torch.models import init_params
+    from repro_torch.models.base import InputShape
+    for arch, kind, seq in DRYRUN_SAME:
+        cfg = get_config(arch).reduced(num_layers=2)
+        shape = InputShape(kind, seq, 2, kind)
+        counts = []
+        for device in (dev, torch.device("cpu")):
+            run, _ = dryrun._step(cfg, shape, 2, init_params(cfg, 0, device),
+                                  device, 0)
+            with StepCost() as cost:
+                run()
+            counts.append(cost)
+        card, cpu = counts
+        if (card.flops, card.bytes) != (cpu.flops, cpu.bytes) or \
+                card.by_kind != cpu.by_kind:
+            diff = {k: (card.by_kind[k], cpu.by_kind[k])
+                    for k in set(card.by_kind) | set(cpu.by_kind)
+                    if card.by_kind[k] != cpu.by_kind[k]}
+            fail(f"dry run counts of reduced {arch} {kind} differ: card "
+                 f"{card.flops:.6e} ops {card.bytes:.6e} B, cpu "
+                 f"{cpu.flops:.6e} ops {cpu.bytes:.6e} B; by kind {diff}")
+        print(f"dry run counts, reduced {arch} {kind} (2 x {seq}, bf16): "
+              f"{card.flops:.6e} ops, {card.bytes:.6e} B on the card == "
+              f"on the cpu ({len(card.by_kind)} kinds equal)")
+
+
+def dryrun_launches(cfg, kind, steps):
+    """(forward, backward) launches of each LLM kernel over ``steps``
+    steps of one dry-run row of ``cfg``: a prefill launches flash once an
+    attention layer and the scans once a layer; a decode step the decode
+    kernel once an attention layer; a training step the forward kernels
+    and their backwards once a layer each."""
+    kinds = launch_kinds(cfg)
+    attn = sum(k in ("attn", "local") for k in kinds)
+    fwd = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+           "rglru_scan": 0}
+    if kind == "decode":
+        fwd["decode_attention"] = attn * steps
+    else:
+        fwd.update(flash_attention=attn * steps,
+                   ssd_scan=kinds.count("ssm") * steps,
+                   rglru_scan=kinds.count("rec") * steps)
+    bwd = {k: (n if kind == "train" else 0) for k, n in fwd.items()
+           if k != "decode_attention"}
+    return fwd, bwd
+
+
+def dry_run(dev):
+    """Phase 48: ``repro_torch.launch.dryrun.main`` on the card over
+    ``DRYRUN_CALLS`` (13 rows), each kernel's launches set to 0 before a
+    call and held to the rows' layers after it; one line a row; the
+    counts of ``DRYRUN_SAME`` equal on the card and the CPU.  Returns the
+    artifact's path and the launches ({name: (forward, backward)})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.serving.pool import DEFAULT_POOL
+    t0 = time.perf_counter()
+    mods = llm_kernel_ops()
+    out_dir = ROOT / "chiprun_out" / f"dryrun-{time.strftime('%H%M%S')}"
+    steps = 1 + dryrun.REPS + 1   # warm-up, timed, counted
+    total = {k: (0, 0) for k in mods}
+    rows = []
+    for label, archs, shapes in DRYRUN_CALLS:
+        archs = archs or DEFAULT_POOL
+        for m in mods.values():
+            m.launches = 0
+            if hasattr(m, "backward_launches"):
+                m.backward_launches = 0
+        t1 = time.perf_counter()
+        rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--out",
+                          str(out_dir)])
+        got = {k: (m.launches, getattr(m, "backward_launches", 0))
+               for k, m in mods.items()}
+        lines = (out_dir / "dryrun.jsonl").read_text().splitlines()
+        new = [json.loads(x) for x in lines[len(rows):]]
+        rows += new
+        want = {k: (0, 0) for k in mods}
+        for r in new:
+            if r["status"] != "ok":
+                continue
+            fwd, bwd = dryrun_launches(get_config(r["arch"]),
+                                       dryrun.INPUT_SHAPES[r["shape"]].kind,
+                                       steps)
+            want = {k: (want[k][0] + fwd[k], want[k][1] + bwd.get(k, 0))
+                    for k in want}
+        print(f"dry run ({label}): rc {rc}, {len(new)} rows in "
+              f"{time.perf_counter() - t1:.1f} s; launches (forward, "
+              f"backward) {got}")
+        if rc != 0 or got != want:
+            fail(f"dry run ({label}): rc {rc}; launches {got}, expected "
+                 f"{want}")
+        total = {k: (total[k][0] + got[k][0], total[k][1] + got[k][1])
+                 for k in total}
+    card = torch.cuda.get_device_name(0)
+    for r in rows:
+        if r["status"] != "ok":
+            print(f"  {r['arch']} {r['shape']}: {r['status']} ({r['reason']})")
+            continue
+        share = r["t_step_s"] / r["measured_step_s"]
+        print(f"  {r['arch']} {r['shape']} on {r['device']}: batch "
+              f"{r['global_batch']}; counted {r['flops_per_chip']:.4e} ops, "
+              f"{r['bytes_per_chip']:.4e} B; compute {r['t_compute_s']:.6f} "
+              f"s, memory {r['t_memory_s']:.6f} s, collective "
+              f"{r['t_collective_s']} s ({r['bottleneck']}); t_step "
+              f"{r['t_step_s']:.6f} s, measured {r['measured_step_s']:.6f} "
+              f"s: roofline share {share:.1%}; peak {r['peak_memory_gb']}"
+              f" GiB; energy {r['energy_j']:.4f} J; useful flops "
+              f"{r['useful_flops_ratio']:.3f}")
+        if not (r["mesh"] == "1x1" and r["chips"] == 1 and card in
+                r["device"] and r["measured_step_s"] > 0 and 0 < share):
+            fail(f"dry run row {r['arch']} {r['shape']} is malformed: {r}")
+    status = {(r["arch"], r["shape"]): r["status"] for r in rows}
+    if len(rows) != 13 or status.pop(("llama3-8b", "long_500k")) != "skip" \
+            or set(status.values()) != {"ok"}:
+        fail(f"dry run: rows {status}")
+    dryrun_counts_on_both(dev)
+    device_memory("cuda")
+    phase("48 the dry run on the card", t0)
+    return out_dir / "dryrun.jsonl", total
+
+
+def serve_on_dryrun(artifact, synthetic):
+    """Phase 31's run (i), after phase 48: the serve driver routing on the
+    card's own rows (``--dryrun-mesh 1x1``), its routes equal to the CPU
+    policy's over the same rows and printed beside run (a)'s on the
+    analytic profile (``synthetic``: its decisions).  Returns its
+    launches."""
+    from repro_torch.core.policy import PoolPolicy, RouteRequest
+    from repro_torch.serving.pool import (DEFAULT_POOL, ServingPool,
+                                          pool_table_from_dryrun)
+    t0 = time.perf_counter()
+    argv = ["--requests", "24", "--delta", "5"]
+    run = serve_run("i", argv, "cuda", ["--dryrun-artifact", str(artifact),
+                                        "--dryrun-mesh", "1x1"],
+                    artifact.parent)
+    if run.lines[0] != f"pool profile from {artifact}: 5 backends":
+        fail(f"run (i)'s first line: {run.lines[0]}")
+    cpu = PoolPolicy(ServingPool(pool_table_from_dryrun(
+        str(artifact), mesh="1x1", device="cpu"), delta=5.0))
+    want = [(d.backend, d.group) for d in cpu.decide_batch(
+        [RouteRequest(uid=i, complexity=n)
+         for i, (n, _, _) in enumerate(run.decisions)])]
+    got = [(arch, bucket) for _, arch, bucket in run.decisions]
+    if len(got) != 24 or got != want:
+        fail(f"run (i): routes differ from the policy's on the CPU: {got} "
+             f"/ {want}")
+    if served_uids(run.lines) != list(range(24)):
+        fail(f"run (i) served uids {served_uids(run.lines)}")
+    print("run (i) on the card's rows beside run (a) on the analytic "
+          "profile (prompt length: (i) / (a)):\n  " + "\n  ".join(
+              f"{n}: {arch}@{b} / {a_arch}@{a_b}" for (n, arch, b),
+              (_, a_arch, a_b) in zip(run.decisions, synthetic)))
+    served = {a for a, *_ in run.batches}
+    if not served <= set(DEFAULT_POOL):
+        fail(f"run (i) served {served}")
+    phase("31 (i) the serve driver on the dry run's rows", t0)
+    return run.launches
 
 
 def main() -> None:
@@ -4573,7 +4756,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 31-32 ------------------------------- the serve driver, the examples
-    driver_launches = serve_driver()
+    driver_launches, synthetic_routes = serve_driver()
     main_launches["canny_fused"] += examples_on_card(testbed, canny_ops,
                                                      canny_ref)
 
@@ -4630,6 +4813,15 @@ def main() -> None:
     for k, (f, b) in scan_launches.items():
         served_launches[k] += f
         trained_bwd[k] = trained_bwd.get(k, 0) + b
+
+    # 48 -------------------------------------- the dry run on the card
+    artifact, dry_launches = dry_run(dev)
+    for k, (f, b) in dry_launches.items():
+        served_launches[k] += f
+        if b:
+            trained_bwd[k] = trained_bwd.get(k, 0) + b
+    for k, n in serve_on_dryrun(artifact, synthetic_routes).items():
+        served_launches[k] += n
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

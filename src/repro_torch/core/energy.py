@@ -1,7 +1,9 @@
-"""Energy accounting for the edge devices of the paper's testbed.
+"""Energy accounting: the edge devices of the paper's testbed and the
+roofline backends of the LLM pool.
 
 Edge energy comes from the device models in repro_torch.detection.devices;
-the gateway host is modeled as a Pi5-class device.
+the gateway host is modeled as a Pi5-class device.  Pool backends derive
+latency/energy from the dry-run roofline rows (repro_torch.launch.dryrun).
 """
 from __future__ import annotations
 
@@ -31,3 +33,13 @@ def gateway_cost(flops: float) -> Dict[str, float]:
     t_ms = flops / (GATEWAY_DEVICE.gflops * 1e9) * 1e3 + 0.05
     return {"time_ms": t_ms,
             "energy_mwh": GATEWAY_DEVICE.watts * t_ms / 1e3 / 3600.0 * 1e3}
+
+
+def roofline_backend_profile(row: Dict, *, requests_per_step: int = 1) -> Dict[str, float]:
+    """Convert a dry-run roofline row (launch.roofline.Roofline.row()) into
+    per-request latency/energy for the serving pool."""
+    t = row["t_step_s"]
+    e = row["energy_j"]
+    per = max(requests_per_step, 1)
+    return {"time_ms": t * 1e3 / per,
+            "energy_mwh": e / 3.6 / per}  # J -> mWh

@@ -239,6 +239,19 @@ def _launch(q, k, v, lengths, window, softcap):
     return o
 
 
+def cost(q, k, v, lengths, *, window=None, softcap=None):
+    """(operations, bytes) of a call, from the shapes: every row attends
+    the cache's T rows (or the window), never read from ``lengths``; 4 a
+    (head, key, d); those K/V rows and q read, the output written, the
+    lengths read."""
+    b, h, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    keys = b * min(t, window or t)
+    return (4 * h * d * keys, q.element_size() * (
+        2 * kv * d * keys + 2 * b * h * d) + lengths.element_size() * b)
+
+
+@_build.counted(cost)
 def decode(q, k, v, lengths, *, window=None, softcap=None):
     """Scale D ** -0.5.  q [B,H,D]; k, v [B,KV,T,D]; lengths [B] int32 ->
     [B,H,D] in q's dtype, on q's device: the CUDA kernel for CUDA tensors,

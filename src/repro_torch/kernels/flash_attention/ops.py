@@ -10,7 +10,9 @@ or a slice of a larger cache, as long as the last dim is contiguous), and
 each output keeps its input's strides, so the model passes [B, S, H, D]
 activations without copies.  On the card, a call that autograd records
 (an input that requires a gradient, with gradients enabled) goes through
-``_Attention``, whose backward is the backward kernel.
+``_Attention``, whose backward is the backward kernel.  ``cost`` and
+``backward_cost`` are what a step cost counter adds for a call
+(``_build.counted``).
 """
 from __future__ import annotations
 
@@ -54,6 +56,32 @@ def check_rows(name: str, x: torch.Tensor) -> None:
     if not rows_aligned(x):
         raise ValueError(f"{name} needs a contiguous last dim and 16-byte "
                          f"aligned rows; got strides {x.stride()}")
+
+
+def attended_pairs(b, h, s, t, causal=True, window=None) -> int:
+    """The (query row, key column) pairs a call attends: row i sees the
+    columns j <= i (by index) within the window when causal, else all T."""
+    if not causal:
+        return b * h * s * t
+    w = min(window or s, s, t)
+    return b * h * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def cost(q, k, v, *, causal=True, window=None, softcap=None):
+    """(operations, bytes) of a forward call, from the shapes: 4 a (row,
+    column, d) over the attended pairs; q, k, v read and the output
+    written once."""
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    return (4 * d * attended_pairs(b, h, s, t, causal, window),
+            q.element_size() * (2 * b * h * s * d + 2 * b * kv * t * d))
+
+
+def backward_cost(q, k, v, *, causal=True, window=None, softcap=None):
+    """(operations, bytes) of its backward: 2.5 times the forward's
+    operations; q, k, v and dO read and dq, dk, dv written."""
+    ops, nbytes = cost(q, k, v, causal=causal, window=window)
+    return 2.5 * ops, 2 * nbytes
 
 
 def _launch(q, k, v, causal, window, softcap):
@@ -151,6 +179,7 @@ class _Attention(torch.autograd.Function):
                 None)
 
 
+@_build.counted(cost, backward_cost)
 def attention(q, k, v, *, causal=True, window=None, softcap=None):
     """Attention at scale D ** -0.5.  q [B,H,S,D]; k, v [B,KV,T,D] ->
     [B,H,S,D] in q's dtype, on q's device: the CUDA kernel for CUDA

@@ -102,6 +102,20 @@ class _LinearScan(torch.autograd.Function):
         return _launch_backward(a, h, dh, h0)
 
 
+def cost(a, b, h0=None):
+    """(operations, bytes) of a forward call: a multiply and an add an
+    element; a and b read and h written in f32 (and h0 read)."""
+    extra = 0 if h0 is None else 4 * h0.numel()
+    return 2 * a.numel(), 12 * a.numel() + extra
+
+
+def backward_cost(a, b, h0=None):
+    """(operations, bytes) of its backward: an add and two multiplies an
+    element; a, h and dh read and da and db written in f32."""
+    return 3 * a.numel(), 20 * a.numel()
+
+
+@_build.counted(cost, backward_cost)
 def linear_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t over axis 1 from h0 (zeros when None).  a,
     b [B,S,W] f32; h0 [B,W] f32 -> h [B,S,W] f32, on a's device: the CUDA

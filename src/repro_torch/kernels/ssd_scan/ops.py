@@ -12,7 +12,9 @@ work through the caller's chunk with chunk-wide cumulative decays, pad a
 ragged S with dt = 0 as the plain version does, and the forward always
 writes the final state.  On the card, a call that autograd records (an
 input that requires a gradient, with gradients enabled) goes through
-``_SSD``, whose backward is the backward kernel.
+``_SSD``, whose backward is the backward kernel.  ``cost`` and
+``backward_cost`` are what a step cost counter adds for a call
+(``_build.counted``).
 """
 from __future__ import annotations
 
@@ -185,6 +187,50 @@ class _SSD(torch.autograd.Function):
                 None)
 
 
+def _pairs(s, chunk):
+    """(causal pairs within the chunks, rows of the first chunk, of the
+    last)."""
+    q = min(chunk, s)
+    rows = [min(q, s - c0) for c0 in range(0, s, q)]
+    return sum(r * (r + 1) // 2 for r in rows), rows[0], rows[-1]
+
+
+def cost(x, dt, A, B, C, D, *, chunk, return_final_state=False):
+    """(operations, bytes) of a forward call, from the shapes: per (batch,
+    chunk) the C B^T scores on and below the diagonal; per head the decayed
+    scores times x dt, the carried state's term after the first chunk, the
+    state update over every row.  x, B, C read and y written in x's type,
+    dt read and the final state written in f32, A and D read."""
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    tri, first, _ = _pairs(s, chunk)
+    return (2 * b * (tri * n + h * tri * p + h * (s - first) * p * n
+                     + h * s * p * n),
+            x.element_size() * (2 * b * s * h * p + 2 * b * s * n)
+            + 4 * b * s * h + 4 * b * h * p * n + 8 * h)
+
+
+def backward_cost(x, dt, A, B, C, D, *, chunk, return_final_state=False):
+    """(operations, bytes) of its backward: per (batch, chunk) C_i . B_j
+    over the causal pairs, per head dy_i . xd_j, dC, dB and dxd over them;
+    per row and head the chunk's own state and state gradient, the
+    entering state's term after the first chunk, the state terms before
+    the last chunk (every chunk with the final state's gradient).  x and
+    dy read and dx written, B and C read and dB, dC written, in x's type;
+    dt read and ddt written, A and D read and dA, dD written in f32 (and
+    the final state's gradient read)."""
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    tri, first, last = _pairs(s, chunk)
+    earlier = s if return_final_state else s - last
+    return (2 * b * (tri * (n + h * (2 * p + 2 * n))
+                     + h * p * n * (2 * s + (s - first) + 2 * earlier)),
+            x.element_size() * (3 * b * s * h * p + 4 * b * s * n)
+            + 4 * 2 * b * s * h + 4 * 4 * h
+            + (4 * b * h * p * n if return_final_state else 0))
+
+
+@_build.counted(cost, backward_cost)
 def ssd(x, dt, A, B, C, D, *, chunk: int, return_final_state: bool = False):
     """The SSD scan from a zero state.  x [b,s,h,p]; dt [b,s,h] (softplus
     applied); A, D [h]; B, C [b,s,n] -> y [b,s,h,p] in x's dtype (and the

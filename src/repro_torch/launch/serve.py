@@ -13,6 +13,9 @@ their ``reduced()`` variants with ``--reduced``.  Prompts are capped at
 ``PROMPT_CAP`` tokens (routing still sees the full requested length).  The
 routing profile comes from the dry-run roofline (``--dryrun-artifact``)
 when that file exists, else from the analytic ``synthetic_pool_table``.
+The artifact is the JAX package's (its TPU mesh's rows, ``--dryrun-mesh``
+16x16 by default) or the port's own (``python -m
+repro_torch.launch.dryrun``: the card's rows, ``--dryrun-mesh 1x1``).
 
 The driver is a thin loop over ``EcoreService``: it builds a ``PoolPolicy``
 (Algorithm 1 over prompt-length buckets), submits ``RouteRequest``s, and
@@ -181,6 +184,10 @@ def main(argv=None):
     serving.add_argument("--archs", nargs="*", default=list(DEFAULT_POOL))
     serving.add_argument("--dryrun-artifact",
                          default="artifacts/dryrun.jsonl")
+    serving.add_argument("--dryrun-mesh", default="16x16",
+                         help="the artifact's rows to route on (default "
+                              "16x16, the reference's mesh; 1x1 for the "
+                              "port's dry run on one card)")
     serving.add_argument("--max-new", type=int, default=8)
     serving.add_argument("--max-batch", type=int, default=8)
     serving.add_argument("--max-wait-ms", type=float, default=None,
@@ -265,7 +272,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     if os.path.exists(args.dryrun_artifact):
-        table = pool_table_from_dryrun(args.dryrun_artifact, device=dev)
+        table = pool_table_from_dryrun(args.dryrun_artifact,
+                                       mesh=args.dryrun_mesh, device=dev)
         table = ProfileTable([e for e in table.entries
                               if e.model in args.archs], device=dev)
         src = args.dryrun_artifact

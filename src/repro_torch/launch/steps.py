@@ -1,17 +1,26 @@
-"""The training step: ``repro.launch.steps.make_train_step`` without a mesh.
+"""The steps of ``repro.launch.steps`` without a mesh: training, prefill
+and decode, and their inputs for an ``InputShape``.
 
-The step differentiates ``loss_fn`` by autograd with respect to the f32
+The training step differentiates ``loss_fn`` by autograd with respect to the f32
 master parameters (``init_params(..., keep_f32=True)``), which the loss
 casts to the layers' dtypes once a step (``models.cast_params``), and
 hands the gradients to ``adamw_update``.  On the card the attention layers
 run the flash kernel and its backward kernel.
+
+Torch has no ``ShapeDtypeStruct``: where the reference builds input
+specs, ``batch_inputs`` and ``decode_inputs`` return seeded tensors on
+the device, drawn from one ``torch.Generator``.  A decode input is a full
+cache of seeded values whose ``pos`` is ``seq_len - 1``, so one decode
+step attends the whole cache without a prefill before it, as the
+reference's lowered step reads the whole buffer.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import loss_fn
-from repro_torch.models.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import decode_step, init_cache, loss_fn, prefill
+from repro_torch.models.base import InputShape, ModelConfig
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      tree_leaves, tree_paths,
                                      tree_unflatten)
@@ -95,3 +104,82 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> (last-position logits, cache)``."""
+    def prefill_step(params, batch):
+        return prefill(params, cfg, batch["tokens"],
+                       batch.get("prefix_embeds"))
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``serve_step(params, token, cache) -> (logits, cache)``; the cache
+    is updated in place."""
+    def serve_step(params, token, cache):
+        return decode_step(params, cfg, token, cache)
+    return serve_step
+
+
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text tokens after reserving prefix positions for stub modalities."""
+    if cfg.family == "vlm" and cfg.num_prefix_embeds:
+        return max(seq_len - cfg.num_prefix_embeds, 16)
+    return seq_len
+
+
+def batch_inputs(cfg: ModelConfig, shape: InputShape, batch: int, *,
+                 seed: int = 0, device="cuda"):
+    """A train or prefill batch of ``batch`` sequences: ``tokens`` [batch,
+    text_len] (and ``labels`` for training), a vlm's ``prefix_embeds``
+    [batch, num_prefix_embeds, vision_dim] or an encdec model's frames
+    [batch, enc_seq, vision_dim] in f32, drawn on ``device`` from one
+    generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = text_len(cfg, shape.seq_len)
+
+    def ids():
+        return torch.randint(0, cfg.vocab_size, (batch, st), generator=gen,
+                             device=dev)
+
+    out = {"tokens": ids()}
+    if shape.kind == "train":
+        out["labels"] = ids()
+    if cfg.family == "vlm" and cfg.num_prefix_embeds:
+        out["prefix_embeds"] = torch.randn(
+            (batch, cfg.num_prefix_embeds, cfg.vision_dim), generator=gen,
+            device=dev)
+    if cfg.family == "encdec":
+        out["prefix_embeds"] = torch.randn(
+            (batch, cfg.enc_seq, cfg.vision_dim), generator=gen, device=dev)
+    return out
+
+
+def cache_tensors(cache):
+    """The tensors of a decode cache, in a fixed order."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in cache_tensors(cache[k])]
+    if isinstance(cache, (list, tuple)):
+        return [t for c in cache for t in cache_tensors(c)]
+    return []
+
+
+def decode_inputs(cfg: ModelConfig, shape: InputShape, batch: int, *,
+                  seed: int = 0, device="cuda"):
+    """(token [batch, 1], cache) for one decode step at position
+    ``shape.seq_len - 1``: ``init_cache(cfg, batch, shape.seq_len)`` in the
+    activation dtype with every tensor filled from one generator seeded
+    with ``seed`` (standard normal values), on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    token = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                          device=dev)
+    cache = init_cache(cfg, batch, shape.seq_len, cfg.adtype, dev)
+    for t in cache_tensors(cache):
+        t.normal_(generator=gen)
+    cache["pos"] = shape.seq_len - 1
+    return token, cache

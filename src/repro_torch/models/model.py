@@ -156,10 +156,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", *,
                 keep_f32: bool = False) -> Dict[str, Any]:
     """Seeded random parameters, drawn on ``device`` from one generator;
     with ``keep_f32`` every leaf stays f32 (``cast_params`` of that tree is
-    the tree drawn without it)."""
+    the tree drawn without it).  On the ``meta`` device the tree has every
+    leaf's shape and dtype and holds no data: no generator draws there."""
     check_config(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     adt = torch.float32 if keep_f32 else cfg.adtype
     d = cfg.d_model
 

@@ -11,10 +11,11 @@ log10(active params), scaled to a 0..100 'mAP-like' range and saturating
 per bucket (easy requests do not reward capacity), so no backend
 dominates every bucket.  ``synthetic_pool_table`` builds the analytic
 profile of the JAX package's ``launch/serve.py``; ``pool_table_from_dryrun``
-reads the rows of a dry-run roofline artifact (``dryrun.jsonl``, written
-by the JAX package's ``launch/dryrun.py``), which the serve driver prefers
-when the file exists.  The artifact's costs are those of the mesh it was
-compiled for; routing reads them as given.
+reads the rows of a dry-run roofline artifact (``dryrun.jsonl``), which
+the serve driver prefers when the file exists.  The artifact is the
+port's own (``launch/dryrun.py``: mesh ``1x1``, the steps measured and
+counted on the card, each row with the batch it ran) or the JAX
+package's (a TPU mesh's compiled costs); routing reads either as given.
 """
 from __future__ import annotations
 
@@ -82,8 +83,9 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
                            device="cuda") -> ProfileTable:
     """Build a routing ProfileTable from dry-run roofline rows: the ``ok``
     rows of ``mesh`` at one of ``shapes``, each row's step time and energy
-    split over the requests of its shape.  The profile state lives on
-    ``device``."""
+    split over the requests it served: its ``global_batch`` (a row of the
+    port's dry run), else its shape's (the reference's rows).  The profile
+    state lives on ``device``."""
     with open(dryrun_jsonl) as f:
         rows = [json.loads(line) for line in f]
     entries: List[ProfileEntry] = []
@@ -93,8 +95,9 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
         if r["shape"] not in shapes:
             continue
         cfg = get_config(r["arch"])
-        n_req = {"prefill_32k": 32, "decode_32k": 128, "long_500k": 1,
-                 "train_4k": 256}[r["shape"]]
+        n_req = r.get("global_batch") or {
+            "prefill_32k": 32, "decode_32k": 128, "long_500k": 1,
+            "train_4k": 256}[r["shape"]]
         time_ms = r["t_step_s"] * 1e3 / n_req
         energy_mwh = r["energy_j"] / 3.6 / n_req
         for _, _, bucket in LENGTH_BUCKETS:
