@@ -193,8 +193,10 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None):
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None; got {softcap}")
     if q.device.type == "cpu":
-        return ref.mha_reference(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+        # in the kernel's layout: the output keeps q's strides, so what
+        # follows runs the same ops on either device
+        return torch.empty_like(q).copy_(ref.mha_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, window, softcap)

@@ -83,6 +83,8 @@ MICROBATCHES = {
 MESH = "1x1"
 #: timed steps after the warm-up
 REPS = 3
+#: the seed of the weights and the inputs
+SEED = 0
 #: the share of the card's memory a step's weights and state may take
 FIT = 0.75
 #: bytes a training parameter holds: f32 master, gradient, two moments
@@ -118,18 +120,15 @@ def run_batch(cfg, shape: InputShape, chip: rl.Chip) -> int:
     return batch
 
 
-def skip_reason(cfg, shape, chip: Optional[rl.Chip] = None,
-                counts=None) -> Optional[str]:
+def skip_reason(cfg, shape, chip: rl.Chip) -> Optional[str]:
     """Why a combination is not run on ``chip``, or None."""
     if shape.name == "long_500k" and not cfg.is_subquadratic:
         return ("long_500k requires sub-quadratic attention; "
                 f"{cfg.name} has unbounded full-attention layers "
                 "(see DESIGN.md §5)")
-    if chip is None:
-        return None
     gib = FIT * chip.memory_bytes / 2**30
     if shape.kind == "train":
-        total = (counts or rl.count_params(cfg))["total"]
+        total = rl.count_params(cfg)["total"]
         if TRAIN_BYTES_PER_PARAM * total > FIT * chip.memory_bytes:
             return (f"train: {total / 1e9:.2f} G parameters hold "
                     f"{TRAIN_BYTES_PER_PARAM * total / 2**30:.1f} GiB in "
@@ -141,14 +140,14 @@ def skip_reason(cfg, shape, chip: Optional[rl.Chip] = None,
     return None
 
 
-def _step(cfg, shape, batch, params, dev, seed):
+def _step(cfg, shape, batch, params, dev):
     """(run, check): ``run()`` takes one step and returns its output;
     ``check(out)`` raises unless the output is finite and shaped right."""
     if shape.kind == "train":
         step = st.make_train_step(
             cfg, AdamWConfig(),
             num_microbatches=min(MICROBATCHES.get(cfg.name, 4), batch))
-        data = st.batch_inputs(cfg, shape, batch, seed=seed, device=dev)
+        data = st.batch_inputs(cfg, shape, batch, seed=SEED, device=dev)
         state = [params, init_opt_state(params)]
 
         def run():
@@ -162,14 +161,14 @@ def _step(cfg, shape, batch, params, dev, seed):
 
     if shape.kind == "prefill":
         step = st.make_prefill_step(cfg)
-        data = st.batch_inputs(cfg, shape, batch, seed=seed, device=dev)
+        data = st.batch_inputs(cfg, shape, batch, seed=SEED, device=dev)
 
         def run():
             with torch.no_grad():
                 return step(params, data)[0]
     else:
         step = st.make_decode_step(cfg)
-        token, cache = st.decode_inputs(cfg, shape, batch, seed=seed,
+        token, cache = st.decode_inputs(cfg, shape, batch, seed=SEED,
                                         device=dev)
         pos = cache["pos"]
 
@@ -212,19 +211,19 @@ def _sync(dev):
 
 
 def run_combo(arch: str, shape, *, cfg=None, device="cuda",
-              chip: Optional[rl.Chip] = None, params=None, seed: int = 0,
-              reps: int = REPS, verbose: bool = True):
+              chip: Optional[rl.Chip] = None, params=None,
+              verbose: bool = True):
     """One row for ``arch`` (``cfg``, when given, in place of its
     published config) at ``shape`` (a name of ``INPUT_SHAPES`` or an
     ``InputShape``) on ``device``.  ``chip`` defaults to the card's record
     (``roofline.h100``); ``params`` are serving weights to reuse (drawn
-    from ``seed`` when None; a training row always draws f32 masters)."""
+    from ``SEED`` when None; a training row always draws f32 masters).
+    The inputs are drawn from ``SEED`` too."""
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     dev = resolve_device(device)
     chip = chip or rl.h100(dev)
-    counts = rl.count_params(cfg)
-    reason = skip_reason(cfg, shape, chip, counts)
+    reason = skip_reason(cfg, shape, chip)
     if reason:
         return {"arch": arch, "shape": shape.name, "mesh": MESH,
                 "status": "skip", "reason": reason}
@@ -233,22 +232,23 @@ def run_combo(arch: str, shape, *, cfg=None, device="cuda",
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     if shape.kind == "train":
-        params = init_params(cfg, seed, dev, keep_f32=True)
+        params = init_params(cfg, SEED, dev, keep_f32=True)
     elif params is None:
-        params = init_params(cfg, seed, dev)
-    run, check = _step(cfg, shape, batch, params, dev, seed)
+        params = init_params(cfg, SEED, dev)
+    run, check = _step(cfg, shape, batch, params, dev)
     _sync(dev)
     t1 = time.perf_counter()
     check(run())
     _sync(dev)
     t2 = time.perf_counter()
-    measured = _timed(run, dev, max(reps, 1))
+    measured = _timed(run, dev, REPS)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     with StepCost() as cost:
         check(run())
     del run, check
 
+    counts = rl.count_params(cfg)
     ran = dataclasses.replace(shape, global_batch=batch)
     r = rl.Roofline(
         arch=arch, shape=shape.name, mesh=MESH, chips=1,
@@ -276,7 +276,7 @@ def run_combo(arch: str, shape, *, cfg=None, device="cuda",
               f"useful-flops={r.useful_flops_ratio:.2f}; "
               f"energy={r.energy_j:.4g} J")
         print(f"measured: {measured*1e3:.3f} ms a step (median of "
-              f"{max(reps, 1)}), roofline share "
+              f"{REPS}), roofline share "
               f"{r.t_step / measured:.1%}, peak memory "
               + ("not measured" if peak is None else
                  f"{peak / 2**30:.2f} GiB"))
@@ -317,7 +317,7 @@ def main(argv=None):
                     if (params is None and INPUT_SHAPES[shape].kind
                             != "train" and not skip_reason(
                                 cfg, INPUT_SHAPES[shape], chip)):
-                        params = init_params(cfg, 0, dev)
+                        params = init_params(cfg, SEED, dev)
                     row = run_combo(arch, shape, device=dev, chip=chip,
                                     params=params)
                 except Exception as e:  # a failure here is a bug: report

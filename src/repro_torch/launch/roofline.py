@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import init_params
+from repro_torch.optim.adamw import tree_leaves, tree_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,25 +157,12 @@ def model_flops(cfg, shape, n_params: int, n_active: int) -> float:
     return mult * n_active * tokens
 
 
-def _leaves(tree, path=()):
-    """(path, tensor) of every leaf of nested dicts and lists; list
-    indices are not part of the path."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v, path)
-    else:
-        yield path, tree
-
-
 def count_params(cfg) -> Dict[str, int]:
     """Total and active (MoE top-k weighted) param counts from the
     shapes of ``init_params`` on the meta device: nothing is allocated."""
+    params = init_params(cfg, device="meta")
     total = active = 0
-    for path, leaf in _leaves(init_params(cfg, device="meta")):
-        keys = "/".join(path)
+    for keys, leaf in zip(tree_paths(params), tree_leaves(params)):
         n = math.prod(leaf.shape)
         total += n
         if "moe/w_" in keys and cfg.num_experts:

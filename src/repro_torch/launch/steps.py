@@ -158,14 +158,8 @@ def batch_inputs(cfg: ModelConfig, shape: InputShape, batch: int, *,
 
 
 def cache_tensors(cache):
-    """The tensors of a decode cache, in a fixed order."""
-    if isinstance(cache, torch.Tensor):
-        return [cache]
-    if isinstance(cache, dict):
-        return [t for k in sorted(cache) for t in cache_tensors(cache[k])]
-    if isinstance(cache, (list, tuple)):
-        return [t for c in cache for t in cache_tensors(c)]
-    return []
+    """The tensors of a decode cache, in ``tree_leaves``' order."""
+    return [t for t in tree_leaves(cache) if isinstance(t, torch.Tensor)]
 
 
 def decode_inputs(cfg: ModelConfig, shape: InputShape, batch: int, *,
