@@ -4403,14 +4403,16 @@ def dry_run(dev):
             print(f"  {r['arch']} {r['shape']}: {r['status']} ({r['reason']})")
             continue
         share = r["t_step_s"] / r["measured_step_s"]
+        peak = ("not measured" if r["peak_memory_gb"] is None
+                else f"{r['peak_memory_gb']:.2f} GiB")
         print(f"  {r['arch']} {r['shape']} on {r['device']}: batch "
               f"{r['global_batch']}; counted {r['flops_per_chip']:.4e} ops, "
               f"{r['bytes_per_chip']:.4e} B; compute {r['t_compute_s']:.6f} "
               f"s, memory {r['t_memory_s']:.6f} s, collective "
               f"{r['t_collective_s']} s ({r['bottleneck']}); t_step "
               f"{r['t_step_s']:.6f} s, measured {r['measured_step_s']:.6f} "
-              f"s: roofline share {share:.1%}; peak {r['peak_memory_gb']}"
-              f" GiB; energy {r['energy_j']:.4f} J; useful flops "
+              f"s: roofline share {share:.1%}; peak {peak}; energy "
+              f"{r['energy_j']:.4f} J; useful flops "
               f"{r['useful_flops_ratio']:.3f}")
         if not (r["mesh"] == "1x1" and r["chips"] == 1 and card in
                 r["device"] and r["measured_step_s"] > 0 and 0 < share):

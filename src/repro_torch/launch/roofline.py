@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import subprocess
+import time
 from typing import Dict, Optional
 
 import torch
@@ -50,27 +51,45 @@ def _watts(field: str) -> float:
     return float(field.strip().split()[0])
 
 
+#: the idle draw: the least of this many samples of ``power.draw``, one
+#: every ``REST_INTERVAL_S`` after the card's queue has drained, so that a
+#: card still settling from earlier work reads its rest
+REST_SAMPLES = 8
+REST_INTERVAL_S = 0.25
+
+
+def _query(index: int):
+    """(name, power limit, power draw) of card ``index`` as ``nvidia-smi``
+    prints them; raises if it fails."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}",
+         "--query-gpu=name,power.limit,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [f.strip() for f in out.strip().splitlines()[0].split(",")]
+
+
 def h100(device="cuda") -> Chip:
     """The card's record.  On a CUDA device: its name, power limit (the
-    peak power), power draw sampled now (the idle power: call it at rest,
-    before the first step) and memory.  Raises if ``nvidia-smi`` fails.
-    On the CPU: the data sheet's rates with ``H100_POWER_LIMIT`` and an
-    idle draw of 0 W, named so."""
+    peak power), idle draw (the least of ``REST_SAMPLES`` samples of the
+    power draw over ~2 s at rest: call it before the first step) and
+    memory.  Raises if ``nvidia-smi`` fails.  On the CPU: the data
+    sheet's rates with ``H100_POWER_LIMIT`` and an idle draw of 0 W, named
+    so."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return Chip("NVIDIA H100 data sheet (no card read)",
                     H100_PEAK_FLOPS, H100_HBM_BW, None, 0.0,
                     H100_POWER_LIMIT)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    out = subprocess.run(
-        ["nvidia-smi", f"--id={index}",
-         "--query-gpu=name,power.limit,power.draw",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout
-    name, limit, draw = [f.strip() for f in out.strip().splitlines()[0]
-                         .split(",")]
+    torch.cuda.synchronize(index)
+    draws = []
+    for _ in range(REST_SAMPLES):
+        time.sleep(REST_INTERVAL_S)
+        name, limit, draw = _query(index)
+        draws.append(_watts(draw))
     return Chip(f"{name}, {limit}", H100_PEAK_FLOPS, H100_HBM_BW, None,
-                _watts(draw), _watts(limit),
+                min(draws), _watts(limit),
                 float(torch.cuda.get_device_properties(index).total_memory))
 
 

@@ -15,6 +15,8 @@ The step cost counter's matrix products are held to a hand count within
 import dataclasses
 import json
 import math
+import subprocess
+import types
 
 import jax
 import jax.numpy as jnp
@@ -108,6 +110,35 @@ def test_one_card_has_no_collective_term():
                     chip=rl.h100("cpu"))
     assert r.t_collective == 0.0 and r.bottleneck == "compute"
     assert r.t_compute == pytest.approx(1e12 / 989e12, rel=1e-12)
+
+
+def test_the_card_record_reads_its_rest(monkeypatch):
+    """``h100`` on a card: nvidia-smi's name and limit, the least of its
+    draws as the idle power, the card's memory; a failing nvidia-smi
+    raises.  (nvidia-smi and the card stubbed: this machine has none.)"""
+    draws = iter([353.66, 210.4, 140.2, 135.4, 151.0, 136.0, 135.9, 139.0])
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return types.SimpleNamespace(stdout=f"NVIDIA H100 80GB HBM3, "
+                                     f"700.00 W, {next(draws)} W\n")
+    monkeypatch.setattr(rl.subprocess, "run", run)
+    monkeypatch.setattr(rl.time, "sleep", lambda s: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda i=None: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(total_memory=85e9))
+    chip = rl.h100(torch.device("cuda", 0))
+    assert chip.name == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert (chip.power_idle, chip.power_peak) == (135.4, 700.0)
+    assert chip.memory_bytes == 85e9 and chip.link_bw is None
+    assert len(calls) == rl.REST_SAMPLES and "--id=0" in calls[0]
+
+    def broken(cmd, **kw):
+        raise subprocess.CalledProcessError(9, cmd)
+    monkeypatch.setattr(rl.subprocess, "run", broken)
+    with pytest.raises(subprocess.CalledProcessError):
+        rl.h100(torch.device("cuda", 0))
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llama3-8b",
