@@ -35,7 +35,8 @@ def gateway_cost(flops: float) -> Dict[str, float]:
             "energy_mwh": GATEWAY_DEVICE.watts * t_ms / 1e3 / 3600.0 * 1e3}
 
 
-def roofline_backend_profile(row: Dict, *, requests_per_step: int = 1) -> Dict[str, float]:
+def roofline_backend_profile(row: Dict, *,
+                             requests_per_step: int = 1) -> Dict[str, float]:
     """Convert a dry-run roofline row (launch.roofline.Roofline.row()) into
     per-request latency/energy for the serving pool."""
     t = row["t_step_s"]

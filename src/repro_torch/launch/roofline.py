@@ -171,7 +171,8 @@ class Roofline:
 
 def model_flops(cfg, shape, n_params: int, n_active: int) -> float:
     """6·N·D for training, 2·N·D for inference (N = active params)."""
-    tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
     mult = 6.0 if shape.kind == "train" else 2.0
     return mult * n_active * tokens
 

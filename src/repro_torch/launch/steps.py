@@ -1,10 +1,10 @@
 """The steps of ``repro.launch.steps`` without a mesh: training, prefill
 and decode, and their inputs for an ``InputShape``.
 
-The training step differentiates ``loss_fn`` by autograd with respect to the f32
-master parameters (``init_params(..., keep_f32=True)``), which the loss
-casts to the layers' dtypes once a step (``models.cast_params``), and
-hands the gradients to ``adamw_update``.  On the card the attention layers
+The training step differentiates ``loss_fn`` by autograd with respect to
+the f32 master parameters (``init_params(..., keep_f32=True)``), which
+the loss casts to the layers' dtypes once a step (``models.cast_params``),
+and hands the gradients to ``adamw_update``.  On the card the attention layers
 run the flash kernel and its backward kernel.
 
 Torch has no ``ShapeDtypeStruct``: where the reference builds input
