@@ -363,8 +363,15 @@ Phases, each printed as it ends; any failure exits non-zero:
     launches counted per call and held to the rows' layers (warm-up, 3
     timed and 1 counted step a row); one line a row (batch, counted
     operations and bytes, each roofline term, t_step, the measured step
-    and their ratio, peak memory, energy); the counts of three reduced
-    combinations (``DRYRUN_SAME``) equal on the card and the CPU.  Then
+    and their ratio, at most ``ROOFLINE_SHARE_MAX``, peak memory,
+    energy); each kernel held to its plain version at every shape and
+    option its rows launched it at (``MainPathShapes``: flash at 32 768
+    rows, decode over 32 768 cache rows, the SSD at 4096 and 32 768
+    tokens, the RG-LRU at 32 768), on seeded inputs, the plain versions
+    run by pieces (``flash_plain_rows``, the SSD a group of heads at a
+    time);
+    the counts of five reduced combinations (``DRYRUN_SAME``: prefill,
+    decode and training) equal on the card and the CPU.  Then
     phase 31's run (i): the serve driver on phase 48's rows
     (``--dryrun-mesh 1x1 --requests 24 --delta 5``), over the 5 backends,
     its routes equal to the CPU policy's over the same rows and printed
@@ -4283,16 +4290,243 @@ DRYRUN_CALLS = (("pool", None, ("prefill_32k", "decode_32k")),
                 ("mamba2", ("mamba2-370m",), ("train_4k", "long_500k")),
                 ("skip", ("llama3-8b",), ("long_500k",)))
 #: the reduced combinations whose counts must be equal on the card and the
-#: CPU: a dense prefill (the flash kernel), its decode (the decode kernel)
-#: and an ssm prefill (the SSD kernel)
+#: CPU: a dense prefill (the flash kernel), its decode (the decode kernel),
+#: an ssm prefill (the SSD kernel), and a training step of each (the
+#: backward kernels on the card, autograd through the plain versions on
+#: the CPU)
 DRYRUN_SAME = (("llama3-8b", "prefill", 48), ("llama3-8b", "decode", 48),
-               ("mamba2-370m", "prefill", 300))
+               ("mamba2-370m", "prefill", 300), ("llama3-8b", "train", 48),
+               ("mamba2-370m", "train", 300))
+#: a dry-run row's roofline share (t_step / measured step) may pass 1 by
+#: the timer's spread, not more: a larger share means the counts are wrong
+ROOFLINE_SHARE_MAX = 1.05
+#: bytes of f32 scores (of f64 decays, for the SSD) that a plain version
+#: holds at once in phase 48's kernel checks
+PLAIN_PIECE_BYTES = 2**31
+
+
+class MainPathShapes:
+    """While entered, records the LLM kernels' launches by shape, dtype
+    and options (the decode kernel's with its first ``lengths``), so that
+    ``check`` holds each kernel to its plain version at every shape the
+    main path gave it, on seeded inputs of those shapes."""
+
+    def __init__(self, mods):
+        self.mods, self.seen, self._real = mods, {}, {}
+
+    @staticmethod
+    def key(name, args):
+        if name == "flash_attention":
+            q, k, _, causal, window, softcap = args
+            return (tuple(q.shape), tuple(k.shape), q.dtype, causal, window,
+                    softcap)
+        if name == "decode_attention":
+            q, k, _, _, window, softcap = args
+            return tuple(q.shape), tuple(k.shape), q.dtype, window, softcap
+        if name == "ssd_scan":
+            x, _, _, B, _, _, chunk = args
+            return tuple(x.shape), B.shape[-1], x.dtype, chunk
+        a, _, h0 = args
+        return tuple(a.shape), a.dtype, h0 is not None
+
+    def __enter__(self):
+        for name, m in self.mods.items():
+            self._real[name] = m._launch
+            m._launch = self._recording(name, m._launch)
+        return self
+
+    def _recording(self, name, launch):
+        def recorded(*args):
+            key = (name, self.key(name, args))
+            if key not in self.seen:
+                self.seen[key] = (args[3].clone() if name == "decode_attention"
+                                  else None)
+            return launch(*args)
+        return recorded
+
+    def __exit__(self, *exc):
+        for name, m in self.mods.items():
+            m._launch = self._real[name]
+
+    def check(self, dev) -> None:
+        import torch
+        missing = set(self.mods) - {name for name, _ in self.seen}
+        if missing:
+            fail(f"dry run: no launch of {sorted(missing)} recorded")
+        for (name, key), lengths in self.seen.items():
+            t0 = time.perf_counter()
+            what = {"flash_attention": flash_at, "decode_attention": decode_at,
+                    "ssd_scan": ssd_at, "rglru_scan": lru_at}[name](
+                        dev, key, lengths)
+            print(f"  {name} {what} ({time.perf_counter() - t0:.1f} s)")
+            torch.cuda.empty_cache()
+
+
+def flash_plain_rows(q, k, v, *, causal=True, window=None, softcap=None):
+    """The flash kernel's plain version (``ref.mha_reference``'s
+    arithmetic) in f32, a block of query rows at a time against only the
+    key columns the block can see, each block's scores within
+    ``PLAIN_PIECE_BYTES``: phase 48's 32 768-row prompts."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    rows = max(1, PLAIN_PIECE_BYTES // (4 * b * h * t))
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for r0 in range(0, s, rows):
+        r1 = min(s, r0 + rows)
+        lo = 0 if window is None else max(0, r0 - window + 1)
+        hi = min(t, r1) if causal else t
+        qg = q[:, :, r0:r1].float().reshape(b, kv, h // kv, r1 - r0, d)
+        scores = torch.einsum("bkgsd,bktd->bkgst", qg,
+                              k[:, :, lo:hi].float()) * d ** -0.5
+        if softcap is not None:
+            scores = torch.tanh(scores / softcap) * softcap
+        i = torch.arange(r0, r1, device=q.device)[:, None]
+        j = torch.arange(lo, hi, device=q.device)[None, :]
+        ok = j <= i if causal else j < hi
+        if window is not None:
+            ok = ok & (j > i - window)
+        p = torch.softmax(torch.where(ok, scores, fl_ref.NEG_INF), dim=-1)
+        out[:, :, r0:r1] = torch.einsum(
+            "bkgst,bktd->bkgsd", p, v[:, :, lo:hi].float()).reshape(
+                b, h, r1 - r0, d)
+    return out
+
+
+def flash_at(dev, key, _):
+    """The flash kernel at a main-path launch's shapes and options on
+    seeded inputs, against ``flash_plain_rows``: the JAX tests' bar
+    against the plain version in the inputs' dtype and, in bf16, 2^-8
+    relative + 1e-4 against it in f32."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    qs, ks, dtype, causal, window, softcap = key
+    q, k, v = randn([qs, ks, ks], dtype, 48, dev)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fl_ops.attention(q, k, v, **kw)
+    want32 = flash_plain_rows(q, k, v, **kw)
+    err = attention_close(f"flash at {qs} over {ks}", got,
+                          want32.to(dtype))
+    err32 = (attention_close_f32(f"flash at {qs} over {ks}", got, want32)
+             if dtype == torch.bfloat16 else err)
+    return (f"{qs} over {ks} {dtype} causal {causal} window {window} "
+            f"softcap {softcap}: max err {err:.3g} (plain in {dtype}), "
+            f"{err32:.3g} (f32)")
+
+
+def decode_at(dev, key, lengths):
+    """The decode kernel at a main-path launch's shapes, options and
+    lengths on seeded inputs, against its plain version: the JAX tests'
+    bar and, in bf16, the f32 plain version's."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    qs, ks, dtype, window, softcap = key
+    q, k, v = randn([qs, ks, ks], dtype, 48, dev)
+    kw = dict(window=window, softcap=softcap)
+    got = dec_ops.decode(q, k, v, lengths, **kw)
+    err = attention_close(f"decode at {qs} over {ks}", got,
+                          dec_ref.decode_reference(q, k, v, lengths, **kw))
+    err32 = err
+    if dtype == torch.bfloat16:
+        err32 = attention_close_f32(
+            f"decode at {qs} over {ks}", got, dec_ref.decode_reference(
+                q.float(), k.float(), v.float(), lengths, **kw))
+    lens = sorted(set(lengths.tolist()))
+    return (f"{qs} over {ks} {dtype} lengths {lens[0]}..{lens[-1]} window "
+            f"{window} softcap {softcap}: max err {err:.3g} (plain in "
+            f"{dtype}), {err32:.3g} (f32)")
+
+
+def ssd_at(dev, key, _):
+    """The SSD kernel at a main-path launch's shape, state size, dtype and
+    chunk, on inputs drawn as phase 13 draws them (mamba2-370m's decays;
+    x, B and C column views of one tensor) but on the card, against its
+    plain version run a group of heads at a time: in f32, y within twice
+    the f32 plain version's own error against f64; in bf16, within one
+    bf16 ulp of the f32 plain version plus that (phase 13's bars)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    (b, s, h, p), n, dtype, chunk = key
+    gen = torch.Generator(device=dev).manual_seed(48)
+    xbc = torch.randn((b, s, h * p + 2 * n), generator=gen,
+                      device=dev).to(dtype)
+    x, B, C = (xbc[..., :h * p].view(b, s, h, p), xbc[..., h * p:h * p + n],
+               xbc[..., h * p + n:])
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    D = torch.randn(h, generator=gen, device=dev)
+    y = ssd_ops.ssd(x, dt, A, B, C, D, chunk=chunk)
+    q = min(chunk, s)
+    heads = max(1, min(h, PLAIN_PIECE_BYTES // (8 * b * -(-s // q) * q * q)))
+    own, err, pieces = 0.0, 0.0, []
+    for i in range(0, h, heads):
+        g = slice(i, i + heads)
+
+        def plain(f):
+            return ssd_ref.ssd_chunked(
+                x[:, :, g].to(f), dt[:, :, g].to(f), A[g].to(f), B.to(f),
+                C.to(f), D[g].to(f), chunk=chunk)
+        y32, y64 = plain(torch.float32), plain(torch.float64)
+        own = max(own, float((y32.double() - y64).abs().max()))
+        err = max(err, float((y[:, :, g].double() - y64).abs().max()))
+        pieces.append(y32)
+        del y64
+    if dtype == torch.float32:
+        if err > 2 * own:
+            fail(f"ssd at {key}: the kernel's y is {err:.4g} from f64, over "
+                 f"twice the f32 plain version's {own:.4g}")
+        return (f"{(b, s, h, p)} state {n} f32 chunk {chunk}: max err "
+                f"against f64 {err:.4g}, bar 2 x {own:.4g}")
+    want = torch.cat(pieces, dim=2)
+    del pieces
+    _, e = torch.frexp(want.abs())
+    ulp = torch.where(want == 0, 0.0,
+                      torch.ldexp(torch.ones_like(want), e - 8))
+    del e
+    miss = (y.float() - want.bfloat16().float()).abs() - ulp - 2 * own
+    worst = float(miss.max())
+    if worst > 0:
+        fail(f"ssd at {key}: the bf16 kernel misses one bf16 ulp + "
+             f"{2 * own:.4g} by up to {worst:.4g}")
+    return (f"{(b, s, h, p)} state {n} bf16 chunk {chunk} ({-(-s // q)} "
+            f"chunks, plain {heads} heads at a time): within one bf16 ulp "
+            f"of the f32 plain version + {2 * own:.4g} (twice its error "
+            f"against f64); max err against f64 {err:.4g}")
+
+
+def lru_at(dev, key, _):
+    """The RG-LRU kernel at a main-path launch's shape on phase 17's gate
+    inputs, against its plain version: within twice the f32 plain
+    version's own error against f64."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    shape, dtype, with_h0 = key
+    a, b = (t.to(dtype) for t in lru_gate_inputs(shape, 48, dev))
+    h0 = (randn([(shape[0], shape[2])], dtype, 48, dev)[0] if with_h0
+          else None)
+    got = lru_ops.linear_scan(a, b, h0)
+    plain = lru_ref.linear_scan(a, b, h0)
+    ref = lru_ref.linear_scan(a.double(), b.double(),
+                              None if h0 is None else h0.double())
+    own = float((plain.double() - ref).abs().max())
+    err = float((got.double() - ref).abs().max())
+    if err > 2 * own:
+        fail(f"rglru at {key}: the kernel is {err:.4g} from f64, over twice "
+             f"the f32 plain version's {own:.4g}")
+    return (f"{shape} {dtype} h0 {with_h0}: max err against f64 {err:.4g}, "
+            f"bar 2 x {own:.4g}; against the plain version "
+            f"{float((got - plain).abs().max()):.4g}")
 
 
 def dryrun_counts_on_both(dev) -> None:
-    """The step cost counter of three reduced combinations, bf16, on the
-    card and on the CPU: operations and bytes equal, and every kind of
-    aten op and kernel counted alike."""
+    """The step cost counter of the reduced combinations of
+    ``DRYRUN_SAME``, bf16, on the card and on the CPU: operations and bytes
+    equal, and every kind of aten op and kernel counted alike."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
@@ -4305,21 +4539,24 @@ def dryrun_counts_on_both(dev) -> None:
         shape = InputShape(kind, seq, 2, kind)
         counts = []
         for device in (dev, torch.device("cpu")):
-            run, _ = dryrun._step(cfg, shape, 2,
-                                  init_params(cfg, dryrun.SEED, device),
-                                  device)
+            run, _ = dryrun._step(cfg, shape, 2, init_params(
+                cfg, dryrun.SEED, device, keep_f32=kind == "train"), device)
             with StepCost() as cost:
                 run()
             counts.append(cost)
         card, cpu = counts
         if (card.flops, card.bytes) != (cpu.flops, cpu.bytes) or \
-                card.by_kind != cpu.by_kind:
-            diff = {k: (card.by_kind[k], cpu.by_kind[k])
+                card.by_kind != cpu.by_kind or \
+                card.bytes_by_kind != cpu.bytes_by_kind:
+            diff = {k: (card.by_kind[k], cpu.by_kind[k],
+                        card.bytes_by_kind[k], cpu.bytes_by_kind[k])
                     for k in set(card.by_kind) | set(cpu.by_kind)
-                    if card.by_kind[k] != cpu.by_kind[k]}
+                    if (card.by_kind[k], card.bytes_by_kind[k])
+                    != (cpu.by_kind[k], cpu.bytes_by_kind[k])}
             bad.append(f"reduced {arch} {kind}: card {card.flops:.6e} ops "
                        f"{card.bytes:.6e} B, cpu {cpu.flops:.6e} ops "
-                       f"{cpu.bytes:.6e} B; by kind {diff}")
+                       f"{cpu.bytes:.6e} B; by kind (card ops, cpu ops, "
+                       f"card bytes, cpu bytes) {diff}")
             continue
         print(f"dry run counts, reduced {arch} {kind} (2 x {seq}, bf16): "
               f"{card.flops:.6e} ops, {card.bytes:.6e} B on the card == "
@@ -4353,9 +4590,11 @@ def dryrun_launches(cfg, kind, steps):
 def dry_run(dev):
     """Phase 48: ``repro_torch.launch.dryrun.main`` on the card over
     ``DRYRUN_CALLS`` (13 rows), each kernel's launches set to 0 before a
-    call and held to the rows' layers after it; one line a row; the
-    counts of ``DRYRUN_SAME`` equal on the card and the CPU.  Returns the
-    artifact's path and the launches ({name: (forward, backward)})."""
+    call and held to the rows' layers after it; one line a row, its
+    roofline share within ``ROOFLINE_SHARE_MAX``; each kernel held to its
+    plain version at every shape the rows launched it at; the counts of
+    ``DRYRUN_SAME`` equal on the card and the CPU.  Returns the artifact's
+    path and the launches ({name: (forward, backward)})."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
@@ -4366,6 +4605,7 @@ def dry_run(dev):
     steps = 1 + dryrun.REPS + 1   # warm-up, timed, counted
     total = {k: (0, 0) for k in mods}
     rows = []
+    shapes_seen = MainPathShapes(mods)
     for label, archs, shapes in DRYRUN_CALLS:
         archs = archs or DEFAULT_POOL
         for m in mods.values():
@@ -4373,8 +4613,9 @@ def dry_run(dev):
             if hasattr(m, "backward_launches"):
                 m.backward_launches = 0
         t1 = time.perf_counter()
-        rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--out",
-                          str(out_dir)])
+        with shapes_seen:
+            rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--out",
+                              str(out_dir)])
         got = {k: (m.launches, getattr(m, "backward_launches", 0))
                for k, m in mods.items()}
         lines = (out_dir / "dryrun.jsonl").read_text().splitlines()
@@ -4417,10 +4658,19 @@ def dry_run(dev):
         if not (r["mesh"] == "1x1" and r["chips"] == 1 and card in
                 r["device"] and r["measured_step_s"] > 0 and 0 < share):
             fail(f"dry run row {r['arch']} {r['shape']} is malformed: {r}")
+        if share > ROOFLINE_SHARE_MAX:
+            fail(f"dry run row {r['arch']} {r['shape']}: t_step "
+                 f"{r['t_step_s']} s over the measured "
+                 f"{r['measured_step_s']} s ({share:.1%}): the counts are "
+                 f"too large (its largest kinds are printed above)")
     status = {(r["arch"], r["shape"]): r["status"] for r in rows}
     if len(rows) != 13 or status.pop(("llama3-8b", "long_500k")) != "skip" \
             or set(status.values()) != {"ok"}:
         fail(f"dry run: rows {status}")
+    print(f"dry run: each kernel at the {len(shapes_seen.seen)} (shape, "
+          f"options) its rows launched it at, on seeded inputs, against "
+          f"its plain version:")
+    shapes_seen.check(dev)
     dryrun_counts_on_both(dev)
     device_memory("cuda")
     phase("48 the dry run on the card", t0)

@@ -179,6 +179,24 @@ class _Attention(torch.autograd.Function):
                 None)
 
 
+class _GradsInLayout(torch.autograd.Function):
+    """Identity on q, k and v of the CPU path when autograd records it:
+    its backward hands each gradient on in its input's strides, as the
+    backward kernel writes them (``torch.empty_like``), so that the ops
+    autograd runs after it are the same on either device."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.save_for_backward(*xs)
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(None if g is None else torch.empty_like(x).copy_(g)
+                     for x, g in zip(ctx.saved_tensors, grads))
+
+
 @_build.counted(cost, backward_cost)
 def attention(q, k, v, *, causal=True, window=None, softcap=None):
     """Attention at scale D ** -0.5.  q [B,H,S,D]; k, v [B,KV,T,D] ->
@@ -192,12 +210,16 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None):
         raise ValueError(f"window must be >= 1 or None; got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None; got {softcap}")
+    recorded = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cpu":
-        # in the kernel's layout: the output keeps q's strides, so what
-        # follows runs the same ops on either device
+        # in the kernel's layout: the output keeps q's strides, and the
+        # gradients those of q, k and v, so what follows runs the same ops
+        # on either device
+        if recorded:
+            q, k, v = _GradsInLayout.apply(q, k, v)
         return torch.empty_like(q).copy_(ref.mha_reference(
             q, k, v, causal=causal, window=window, softcap=softcap))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if recorded:
         return _Attention.apply(q, k, v, causal, window, softcap)
     return _launch(q, k, v, causal, window, softcap)

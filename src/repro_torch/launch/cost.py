@@ -66,14 +66,15 @@ def _bytes(tree) -> int:
 class StepCost(TorchDispatchMode):
     """Operations and bytes of everything run under it (its backward
     too: the autograd engine carries the mode into its threads).
-    ``by_kind`` splits both by aten op, or by ``kernel`` for the
-    hand-written kernels' analytic counts."""
+    ``by_kind`` and ``bytes_by_kind`` split them by aten op, or by
+    ``kernel`` for the hand-written kernels' analytic counts."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
         self.by_kind: Counter = Counter()
+        self.bytes_by_kind: Counter = Counter()
         #: > 0 while a counted kernel's own ops run (``_build.counted``)
         self.held = 0
 
@@ -81,6 +82,7 @@ class StepCost(TorchDispatchMode):
         self.flops += flops
         self.bytes += nbytes
         self.by_kind["kernel"] += flops
+        self.bytes_by_kind["kernel"] += nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -96,7 +98,9 @@ class StepCost(TorchDispatchMode):
             flops = formula(*args, **kwargs, out_val=out)
         else:
             flops = sum(x.numel() for x in _tensors(out))
+        nbytes = _bytes((args, kwargs)) + _bytes(out)
         self.flops += flops
-        self.bytes += _bytes((args, kwargs)) + _bytes(out)
+        self.bytes += nbytes
         self.by_kind[name] += flops
+        self.bytes_by_kind[name] += nbytes
         return out

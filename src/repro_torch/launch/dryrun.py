@@ -15,7 +15,10 @@ entry points (``launch/steps.py``) on ``--device`` (default ``cuda``):
 - operations and bytes are counted as the step runs
   (``launch/cost.py``), the hand-written kernels by their analytic counts;
 - ``measured_step_s`` is the median of ``REPS`` timed steps after one
-  warm-up (CUDA events on the card, the host clock on the CPU);
+  warm-up (CUDA events on the card, the host clock on the CPU), and
+  ``measured_energy_j`` the roofline's first-order energy over that
+  time (``Roofline.energy_over``): the idle draw over the measured step
+  plus the draw above idle over its compute term;
 - ``peak_memory_gb`` is ``torch.cuda.max_memory_allocated`` over the
   steps, after ``reset_peak_memory_stats`` (not measured on the CPU);
 - the roofline terms (``launch/roofline.py``) use the card's record: the
@@ -28,9 +31,10 @@ Each row has the reference's keys with the same meanings: ``mesh`` is
 given), ``compile_s`` the warm-up step's (it builds or loads the
 kernels).  It drops ``xla_flops`` and ``xla_bytes`` and adds
 ``global_batch`` (the batch it ran), ``measured_step_s``,
-``peak_memory_gb`` and ``device`` (the card's name and power limit; on
-the CPU, ``cpu``).  Rows are appended to ``--out``/dryrun.jsonl, which
-``serving/pool.py::pool_table_from_dryrun`` reads.
+``measured_energy_j``, ``peak_memory_gb`` and ``device`` (the card's
+name and power limit; on the CPU, ``cpu``).  Rows are appended to
+``--out``/dryrun.jsonl, which ``serving/pool.py::pool_table_from_dryrun``
+reads: it routes on the measured step where a row has one.
 
 Batch size: a train or prefill row runs batch 1 (one sequence is one
 request).  A decode row runs the largest power of two up to the shape's
@@ -210,9 +214,15 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _largest(counts, total, n=3) -> str:
+    """The ``n`` largest kinds of ``counts`` with their shares of
+    ``total``."""
+    return ", ".join(f"{k} {v / total:.1%}" for k, v in
+                     counts.most_common(n)) if total else "none"
+
+
 def run_combo(arch: str, shape, *, cfg=None, device="cuda",
-              chip: Optional[rl.Chip] = None, params=None,
-              verbose: bool = True):
+              chip: Optional[rl.Chip] = None, params=None):
     """One row for ``arch`` (``cfg``, when given, in place of its
     published config) at ``shape`` (a name of ``INPUT_SHAPES`` or an
     ``InputShape``) on ``device``.  ``chip`` defaults to the card's record
@@ -262,24 +272,25 @@ def run_combo(arch: str, shape, *, cfg=None, device="cuda",
                compile_s=round(t2 - t1, 1),
                params_total=counts["total"], params_active=counts["active"],
                global_batch=batch, measured_step_s=measured,
+               measured_energy_j=r.energy_over(measured),
                peak_memory_gb=None if peak is None else peak / 2**30,
                device=chip.name if dev.type == "cuda" else "cpu")
     if peak is None:
         row["per_device_memory_gb"] = None   # not measured on the CPU
-    if verbose:
-        print(f"--- {arch} x {shape.name} x {MESH} on {row['device']}, "
-              f"batch {batch} ---")
-        print(f"counted: flops={r.flops:.4e} bytes={r.bytes_accessed:.4e}")
-        print(f"roofline: compute={r.t_compute*1e3:.3f}ms "
-              f"memory={r.t_memory*1e3:.3f}ms collective="
-              f"{r.t_collective*1e3:.3f}ms -> {r.bottleneck}-bound; "
-              f"useful-flops={r.useful_flops_ratio:.2f}; "
-              f"energy={r.energy_j:.4g} J")
-        print(f"measured: {measured*1e3:.3f} ms a step (median of "
-              f"{REPS}), roofline share "
-              f"{r.t_step / measured:.1%}, peak memory "
-              + ("not measured" if peak is None else
-                 f"{peak / 2**30:.2f} GiB"))
+    print(f"--- {arch} x {shape.name} x {MESH} on {row['device']}, "
+          f"batch {batch} ---")
+    print(f"counted: flops={r.flops:.4e} bytes={r.bytes_accessed:.4e}; "
+          f"largest ops {_largest(cost.by_kind, cost.flops)}; largest "
+          f"bytes {_largest(cost.bytes_by_kind, cost.bytes)}")
+    print(f"roofline: compute={r.t_compute*1e3:.3f}ms "
+          f"memory={r.t_memory*1e3:.3f}ms collective="
+          f"{r.t_collective*1e3:.3f}ms -> {r.bottleneck}-bound; "
+          f"useful-flops={r.useful_flops_ratio:.2f}; "
+          f"energy={r.energy_j:.4g} J")
+    print(f"measured: {measured*1e3:.3f} ms a step (median of {REPS}), "
+          f"roofline share {r.t_step / measured:.1%}, energy "
+          f"{row['measured_energy_j']:.4g} J, peak memory "
+          + ("not measured" if peak is None else f"{peak / 2**30:.2f} GiB"))
     return row
 
 

@@ -149,6 +149,14 @@ class Roofline:
                                     - self.chip.power_idle) * util
         return t * p * self.chips
 
+    def energy_over(self, seconds: float) -> float:
+        """The same first-order energy for a step that took ``seconds``:
+        the idle draw over that time, plus the draw above idle over the
+        compute term.  ``energy_over(t_step)`` is ``energy_j``."""
+        return (seconds * self.chip.power_idle + (
+            self.chip.power_peak - self.chip.power_idle)
+            * self.t_compute) * self.chips
+
     def row(self) -> Dict:
         return {
             "arch": self.arch, "shape": self.shape, "mesh": self.mesh,

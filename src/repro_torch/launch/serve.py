@@ -15,7 +15,8 @@ routing profile comes from the dry-run roofline (``--dryrun-artifact``)
 when that file exists, else from the analytic ``synthetic_pool_table``.
 The artifact is the JAX package's (its TPU mesh's rows, ``--dryrun-mesh``
 16x16 by default) or the port's own (``python -m
-repro_torch.launch.dryrun``: the card's rows, ``--dryrun-mesh 1x1``).
+repro_torch.launch.dryrun``: the card's rows, ``--dryrun-mesh 1x1``,
+routed on their measured steps).
 
 The driver is a thin loop over ``EcoreService``: it builds a ``PoolPolicy``
 (Algorithm 1 over prompt-length buckets), submits ``RouteRequest``s, and

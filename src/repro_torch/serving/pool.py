@@ -13,9 +13,9 @@ dominates every bucket.  ``synthetic_pool_table`` builds the analytic
 profile of the JAX package's ``launch/serve.py``; ``pool_table_from_dryrun``
 reads the rows of a dry-run roofline artifact (``dryrun.jsonl``), which
 the serve driver prefers when the file exists.  The artifact is the
-port's own (``launch/dryrun.py``: mesh ``1x1``, the steps measured and
-counted on the card, each row with the batch it ran) or the JAX
-package's (a TPU mesh's compiled costs); routing reads either as given.
+port's own (``launch/dryrun.py``: mesh ``1x1``, each row with the batch
+it ran and the step measured on the card, which routing reads) or the
+JAX package's (a TPU mesh's compiled costs: the roofline estimate).
 """
 from __future__ import annotations
 
@@ -84,8 +84,11 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
     """Build a routing ProfileTable from dry-run roofline rows: the ``ok``
     rows of ``mesh`` at one of ``shapes``, each row's step time and energy
     split over the requests it served: its ``global_batch`` (a row of the
-    port's dry run), else its shape's (the reference's rows).  The profile
-    state lives on ``device``."""
+    port's dry run), else its shape's (the reference's rows).  The step
+    is the measured one where the row has it (``measured_step_s`` and
+    ``measured_energy_j``, the port's rows), else the roofline estimate
+    (``t_step_s`` and ``energy_j``).  The profile state lives on
+    ``device``."""
     with open(dryrun_jsonl) as f:
         rows = [json.loads(line) for line in f]
     entries: List[ProfileEntry] = []
@@ -98,8 +101,12 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
         n_req = r.get("global_batch") or {
             "prefill_32k": 32, "decode_32k": 128, "long_500k": 1,
             "train_4k": 256}[r["shape"]]
-        time_ms = r["t_step_s"] * 1e3 / n_req
-        energy_mwh = r["energy_j"] / 3.6 / n_req
+        if "measured_step_s" in r:
+            time_ms = r["measured_step_s"] * 1e3 / n_req
+            energy_mwh = r["measured_energy_j"] / 3.6 / n_req
+        else:
+            time_ms = r["t_step_s"] * 1e3 / n_req
+            energy_mwh = r["energy_j"] / 3.6 / n_req
         for _, _, bucket in LENGTH_BUCKETS:
             entries.append(ProfileEntry(
                 model=r["arch"], device=f"pod-{mesh}", group=bucket,

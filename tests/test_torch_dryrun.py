@@ -35,6 +35,7 @@ from repro.models.base import INPUT_SHAPES as JAX_SHAPES
 from repro_torch.configs import get_config
 from repro_torch.core.energy import roofline_backend_profile
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch import dryrun, roofline as rl, serve
 from repro_torch.launch import steps as st
 from repro_torch.launch.cost import StepCost
@@ -110,6 +111,20 @@ def test_one_card_has_no_collective_term():
                     chip=rl.h100("cpu"))
     assert r.t_collective == 0.0 and r.bottleneck == "compute"
     assert r.t_compute == pytest.approx(1e12 / 989e12, rel=1e-12)
+
+
+@pytest.mark.parametrize("flops,bytes_", [(1e12, 1e9), (1e9, 1e12),
+                                          (0.0, 0.0)])
+def test_energy_over_a_measured_step(flops, bytes_):
+    """``energy_over(t_step)`` is ``energy_j``; a longer step adds the idle
+    draw over the difference."""
+    chip = rl.Chip("card", 989e12, 3.35e12, None, 120.0, 700.0)
+    r = rl.Roofline("a", "s", dryrun.MESH, 1, flops, bytes_, 0.0, {}, 0.0,
+                    flops, chip=chip)
+    assert r.energy_over(r.t_step) == pytest.approx(r.energy_j, rel=1e-12,
+                                                    abs=1e-15)
+    assert r.energy_over(r.t_step + 0.5) == pytest.approx(
+        r.energy_j + 0.5 * 120.0, rel=1e-12)
 
 
 def test_the_card_record_reads_its_rest(monkeypatch):
@@ -282,11 +297,12 @@ def test_run_combo_writes_ok_and_skip_rows():
     cfg = get_config("llama3-8b").reduced(num_layers=2)
     for kind, shape in SMALL.items():
         row = dryrun.run_combo("llama3-8b", shape, cfg=cfg, device="cpu",
-                               chip=chip, verbose=False)
+                               chip=chip)
         assert row["status"] == "ok" and row["mesh"] == "1x1"
         assert row["chips"] == 1 and row["device"] == "cpu"
         assert set(row) == REF_KEYS - {"xla_flops", "xla_bytes"} | {
-            "global_batch", "measured_step_s", "peak_memory_gb", "device"}
+            "global_batch", "measured_step_s", "measured_energy_j",
+            "peak_memory_gb", "device"}
         assert row["global_batch"] == (shape.global_batch
                                        if kind == "decode" else 1)
         assert row["flops_per_chip"] > 0 and row["measured_step_s"] > 0
@@ -339,8 +355,9 @@ def test_main_writes_rows_the_driver_routes_on(monkeypatch, capsys,
                                         device="cpu")
     for r in rows:
         e = next(e for e in table.entries if e.model == r["arch"])
-        assert e.time_ms == r["t_step_s"] * 1e3 / r["global_batch"]
-        assert e.energy_mwh == r["energy_j"] / 3.6 / r["global_batch"]
+        assert e.time_ms == r["measured_step_s"] * 1e3 / r["global_batch"]
+        assert e.energy_mwh == \
+            r["measured_energy_j"] / 3.6 / r["global_batch"]
     capsys.readouterr()
     assert serve.main(["--requests", "6", "--dryrun-artifact", str(path),
                        "--dryrun-mesh", "1x1", "--archs", *archs,
@@ -366,3 +383,50 @@ def test_pool_table_divides_a_port_row_by_its_batch(tmp_path):
     assert got == {"qwen2.5-3b": (1.0, 8.0 / 3.6 / 32, "pod-1x1"),
                    "llama3-8b": (2.0, 4.0 / 3.6 / 8, "pod-1x1")}
     assert math.isclose(got["qwen2.5-3b"][0], 0.032 * 1e3 / 32)
+
+
+def test_pool_table_routes_a_port_row_on_its_measured_step(tmp_path):
+    """A row with ``measured_step_s`` is routed on the measured step and
+    its energy, split over its batch; the roofline estimate is not
+    read."""
+    rows = [dict(arch="qwen2.5-3b", mesh="1x1", shape="prefill_32k",
+                 status="ok", t_step_s=0.3, energy_j=90.0,
+                 measured_step_s=0.9, measured_energy_j=270.0,
+                 params_active=2_774_773_760, global_batch=1),
+            dict(arch="llama3-8b", mesh="1x1", shape="decode_32k",
+                 status="ok", t_step_s=0.016, energy_j=4.0,
+                 measured_step_s=0.04, measured_energy_j=8.0,
+                 params_active=6_979_588_096, global_batch=8)]
+    path = tmp_path / "dryrun.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    table = pool.pool_table_from_dryrun(
+        str(path), ("prefill_32k", "decode_32k"), "1x1", device="cpu")
+    got = {e.model: (e.time_ms, e.energy_mwh) for e in table.entries}
+    assert got == {"qwen2.5-3b": (0.9 * 1e3, 270.0 / 3.6),
+                   "llama3-8b": (0.04 * 1e3 / 8, 8.0 / 3.6 / 8)}
+
+
+def test_flash_cpu_gradients_keep_the_inputs_strides():
+    """The CPU path hands q's, k's and v's gradients on in their strides,
+    as the backward kernel writes them, so that a training step runs (and
+    counts) the same ops after it on either device: no ``clone`` of a
+    transposed gradient."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 12, h, 16), generator=gen)
+               for h in (4, 2, 2))
+    qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+    out = flash_ops.attention(qt, kt, vt)
+    grads = torch.autograd.grad(out.square().sum(), (qt, kt, vt))
+    for x, g in zip((qt, kt, vt), grads):
+        assert g.stride() == x.stride()
+    want = torch.autograd.grad(
+        flash_ref.mha_reference(qt, kt, vt).square().sum(), (qt, kt, vt))
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    run, _ = dryrun._step(cfg, InputShape("train", 16, 2, "train"), 2,
+                          init_params(cfg, dryrun.SEED, "cpu",
+                                      keep_f32=True), torch.device("cpu"))
+    with StepCost() as cost:
+        run()
+    assert cost.by_kind["clone"] == 0
