@@ -540,6 +540,17 @@ FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
 #: phase 45: launch/train.py at full width and depth, as a user calls it
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "20", "--batch",
               "8", "--seq", "128", "--device", "cuda"]
+#: phase 49: the same for the MoE family: 8 x 512 = 4096 tokens a
+#: forward, so T E d ff (6.87e10) reaches ``moe.SORTED_MIN_MACS`` and
+#: granite's MoE layers run the sorted form and its backward (at 8 x 128
+#: they would run the every-expert form)
+MOE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--steps", "20", "--batch",
+                  "8", "--seq", "512", "--device", "cuda"]
+#: phase 44's bf16 MoE step: 2 x 2048 tokens, the sorted form on the card
+MOE_BF16_BATCH = (2, 2048)
+#: phase 44's llava-next-34b prefix: 64 embeddings in place of 2880 (two
+#: f32 layers over 2 x 2912 rows at d 7168 take minutes on the CPU side)
+LLAVA_TRAIN_PREFIX = 64
 #: phase 47: the same for the two state-space families
 SCAN_TRAIN_ARGV = (["--arch", "mamba2-370m", "--full", "--steps", "20",
                     "--batch", "8", "--seq", "512", "--device", "cuda"],
@@ -1737,23 +1748,84 @@ def trained_kernels(cfg):
     return mods, per
 
 
-def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
+class ExpertIds:
+    """While entered, records the expert ids [T, k] of every
+    ``route_topk`` call, on the host, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.ids, self._mod, self._real = [], moe, moe.route_topk
+
+        def recorded(*args):
+            out = self._real(*args)
+            self.ids.append(out[1].detach().cpu())
+            return out
+        moe.route_topk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route_topk = self._real
+
+
+class MoeForms:
+    """While entered, counts the calls of each MoE form
+    (``moe._experts_sorted``, ``moe._experts_all``) and the grouped
+    products (``torch._grouped_mm``) whose output autograd records on the
+    card: each such product's backward (``GroupedMmBackward0``) runs in
+    the step's backward."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.sorted = self.every = self.grouped = 0
+        self._real = [(moe, "_experts_sorted"), (moe, "_experts_all"),
+                      (torch, "_grouped_mm")]
+        self._real = [(m, name, getattr(m, name)) for m, name in self._real]
+        (_, _, srt), (_, _, every), (_, _, grouped) = self._real
+
+        def sorted_form(*args):
+            self.sorted += 1
+            return srt(*args)
+
+        def every_form(*args):
+            self.every += 1
+            return every(*args)
+
+        def grouped_mm(*args, **kwargs):
+            out = grouped(*args, **kwargs)
+            self.grouped += int(out.is_cuda and out.requires_grad)
+            return out
+        moe._experts_sorted, moe._experts_all = sorted_form, every_form
+        torch._grouped_mm = grouped_mm
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._real:
+            setattr(m, name, fn)
+
+
+def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
+                           microbatches=1, prefix=None) -> None:
     """Phase 44: one training step of ``arch`` cut to ``num_layers``
-    layers (an encdec model's halves encoder and half decoder layers) at
-    full width, f32 activations, TF32 off, on the card (the kernels and
-    their backwards) and on the CPU (the plain versions), from the same
-    f32 masters, a batch of 2 x ``seq`` tokens (and the family's frames):
-    the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
-    largest |value|; then ``make_train_step`` on both: the metrics within
-    1e-5 relative, the first moments within 1e-4, and the updated
-    parameters within 1e-4 of each leaf's largest |value| plus the
-    gradient bar carried through Adam's first step (``first_step_spread``:
-    the step moves a parameter by about lr times its gradient's sign, so
-    a gradient near zero or near eps moves it by up to 2 lr).  The card is
-    held to the CPU's run, except in ``DECAY_LEAVES``: there the CPU's f32
-    gradient is itself ~1e-4 from the exact one, and the card is held at
-    the same bars to the f64 gradient and to the step taken from it
-    (``decay_reference``)."""
+    layers (an encdec model's halves encoder and half decoder layers; a
+    vlm's prefix cut to ``prefix`` embeddings) at full width, f32
+    activations, TF32 off, on the card (the kernels and their backwards)
+    and on the CPU (the plain versions), from the same f32 masters, a
+    batch of ``batch`` x ``seq`` tokens (and the family's frames or prefix
+    embeddings): the loss within 1e-5 relative, each gradient leaf within
+    1e-4 of its largest |value|; a MoE model's expert ids of every
+    ``route_topk`` equal on both (the card runs the every-expert form in
+    f32, the CPU the sorted form: equal ids make the two one function);
+    then ``make_train_step`` (``microbatches`` micro-batches) on both: the
+    metrics within 1e-5 relative, the first moments within 1e-4, and the
+    updated parameters within 1e-4 of each leaf's largest |value| plus
+    the gradient bar carried through Adam's first step
+    (``first_step_spread``: the step moves a parameter by about lr times
+    its gradient's sign, so a gradient near zero or near eps moves it by
+    up to 2 lr).  The card is held to the CPU's run, except in
+    ``DECAY_LEAVES``: there the CPU's f32 gradient is itself ~1e-4 from
+    the exact one, and the card is held at the same bars to the f64
+    gradient and to the step taken from it (``decay_reference``)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1770,26 +1842,30 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
     if cfg.family == "encdec":
         cfg = dataclasses.replace(cfg, enc_layers=num_layers // 2,
                                   dec_layers=num_layers // 2)
+    if prefix is not None:
+        cfg = dataclasses.replace(cfg, num_prefix_embeds=prefix)
     masters = {"cpu": init_params(cfg, seed=13, device="cpu",
                                   keep_f32=True)}
     masters["cuda"] = to_device(masters["cpu"], "cuda")
     t_setup = time.perf_counter() - t0
     rng = np.random.default_rng(44)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (2, seq))),
-             "labels": torch.from_numpy(rng.integers(
-                 0, cfg.vocab_size, (2, seq)))}
-    batch.update(modality_inputs(cfg, 2, rng, device="cpu"))
+    data = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, seq))),
+            "labels": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (batch, seq)))}
+    data.update(modality_inputs(cfg, batch, rng, device="cpu"))
     mods, per = trained_kernels(cfg)
-    losses, grads, launches, secs = {}, {}, {}, {}
+    losses, grads, launches, secs, ids, forms = {}, {}, {}, {}, {}, {}
     for dev, p in masters.items():
         t1 = time.perf_counter()
         leaves = tree_leaves(p)
         for x in leaves:
             x.requires_grad_(True)
         zero_counts(mods)
-        loss, _ = loss_fn(p, cfg, to_device(batch, dev))
-        grads[dev] = torch.autograd.grad(loss, leaves)
+        with ExpertIds() as rec, MoeForms() as form:
+            loss, _ = loss_fn(p, cfg, to_device(data, dev))
+            grads[dev] = torch.autograd.grad(loss, leaves)
+        ids[dev], forms[dev] = rec.ids, (form.sorted, form.every)
         launches[dev] = kernel_counts(mods)
         losses[dev] = float(loss.detach())
         for x in leaves:
@@ -1801,7 +1877,15 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
     if rel > 1e-5:
         fail(f"phase 44: {arch} loss {losses['cuda']} on the card, "
              f"{losses['cpu']} on the cpu")
-    exact = decay_reference(cfg, masters["cpu"], batch, grads, opt)
+    moe_layers = len(cfg.layer_kinds) if cfg.num_experts else 0
+    if cfg.num_experts and (
+            len(ids["cuda"]) != moe_layers or forms["cuda"] != (
+                0, moe_layers) or forms["cpu"] != (moe_layers, 0)
+            or not all(map(torch.equal, ids["cuda"], ids["cpu"]))):
+        fail(f"phase 44: {arch}'s expert ids differ between the card and "
+             f"the cpu, or a form other than the size rule's ran: (sorted, "
+             f"every-expert) calls {forms}")
+    exact = decay_reference(cfg, masters["cpu"], data, grads, opt)
     want_g = [exact[i][0] if i in exact else g
               for i, g in enumerate(grads["cpu"])]
     worst = leaves_close(f"{arch} gradient", grads["cuda"], (paths, want_g))
@@ -1813,8 +1897,8 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
     out = {}
     for dev, p in masters.items():
         t1 = time.perf_counter()
-        out[dev] = make_train_step(cfg, opt)(p, init_opt_state(p),
-                                             to_device(batch, dev))
+        out[dev] = make_train_step(cfg, opt, num_microbatches=microbatches)(
+            p, init_opt_state(p), to_device(data, dev))
         torch.cuda.synchronize()
         secs[dev] += time.perf_counter() - t1
     for k in out["cpu"][2]:
@@ -1841,15 +1925,23 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
             fail(f"phase 44: {arch} updated {path} differs by "
                  f"{float(err.max())} (bar {bar} + the gradient bar "
                  f"carried through the step)")
-    print(f"{arch}, {num_layers} layers, f32, 2 x {seq} tokens: loss "
+    extra = (f"{prefix} prefix embeddings + " if prefix is not None
+             else "")
+    print(f"{arch}, {num_layers} layers, f32, {batch} x {extra}{seq} "
+          f"tokens: loss "
           f"{losses['cuda']:.6f} on the card, {losses['cpu']:.6f} on the "
           f"cpu (rel {rel:.2e}, tolerance 1e-5); gradients within "
           f"{worst:.2e} of each leaf's largest |value| (tolerance 1e-4"
           + (f"; {len(exact)} decay leaves against f64" if exact else "")
           + "), "
-          f"first moments {worst_mu:.2e}; (forward, backward) launches "
+          + (f"expert ids of {moe_layers} MoE layers equal (the card's "
+             f"every-expert form, the cpu's sorted form), "
+             if cfg.num_experts else "")
+          + f"first moments {worst_mu:.2e}; (forward, backward) launches "
           f"{ {k: c for k, c in launches['cuda'].items() if any(c)} }; one "
-          f"step's metrics within 1e-5, parameters within the bar ({loose} "
+          f"step ({microbatches} micro-batch"
+          f"{'es' if microbatches > 1 else ''}): metrics within 1e-5, "
+          f"parameters within the bar ({loose} "
           f"elements past 1e-4 of their leaf's largest |value|, each "
           f"within the gradient bar carried through the step); gradient "
           f"and step {secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s "
@@ -1859,6 +1951,92 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32) -> None:
     del masters, grads, out
     torch.cuda.empty_cache()
     phase(name, t0)
+
+
+def moe_bf16_train_step(dev) -> None:
+    """Phase 44's bf16 case: granite-moe-1b-a400m cut to two layers at full
+    width, its layers in bf16 from the same f32 masters on the card and
+    the CPU, ``MOE_BF16_BATCH`` tokens: T E d ff = 6.87e10 reaches
+    ``SORTED_MIN_MACS``, so the card runs the sorted form (grouped
+    products, their backward ``GroupedMmBackward0`` and the gathers of
+    ``_add_in_order``), as the CPU does.  The loss within the bf16 logits'
+    bar (6.25e-2 + 3e-2 relative) and each gradient leaf within 6.25e-2
+    of its largest |value| (``tests/test_torch_lm_bf16_moe.py``'s bar);
+    the grouped products autograd records counted on the card (3 a
+    layer); the card's host syncs in the loss and its gradient, by line;
+    the tokens whose expert ids differ counted (bf16 rounding upstream
+    of a router may move a token across a tie: not a bar)."""
+    import collections
+    import dataclasses
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.moe import SORTED_MIN_MACS
+    from repro_torch.optim.adamw import tree_leaves, tree_paths
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(GRANITE), num_layers=2)
+    b, s = MOE_BF16_BATCH
+    if b * s * cfg.num_experts * cfg.d_model * cfg.moe_d_ff < SORTED_MIN_MACS:
+        fail(f"phase 44: {b} x {s} tokens do not reach SORTED_MIN_MACS")
+    masters = {"cpu": init_params(cfg, seed=13, device="cpu",
+                                  keep_f32=True)}
+    masters["cuda"] = to_device(masters["cpu"], "cuda")
+    rng = np.random.default_rng(44)
+    data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+            for k in ("tokens", "labels")}
+    losses, grads, secs, ids, forms = {}, {}, {}, {}, {}
+    syncs = collections.Counter()
+    for d, p in masters.items():
+        t1 = time.perf_counter()
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        with ExpertIds() as rec, MoeForms() as form, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if d == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loss, _ = loss_fn(p, cfg, to_device(data, d))
+                grads[d] = torch.autograd.grad(loss, leaves)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.update(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                     if d == "cuda" and "synchroniz" in str(w.message))
+        for x in leaves:
+            x.requires_grad_(False)
+        ids[d], forms[d] = rec.ids, (form.sorted, form.every, form.grouped)
+        losses[d] = float(loss.detach())
+        torch.cuda.synchronize()
+        secs[d] = time.perf_counter() - t1
+    if forms["cuda"] != (2, 0, 6) or forms["cpu"][:2] != (2, 0):
+        fail(f"phase 44: bf16 {GRANITE} ran (sorted, every-expert, grouped "
+             f"products recorded on the card) {forms}, not the sorted form "
+             f"on both with 6 grouped products on the card")
+    if abs(losses["cuda"] - losses["cpu"]) > 6.25e-2 + 3e-2 * abs(
+            losses["cpu"]):
+        fail(f"phase 44: bf16 {GRANITE} loss {losses['cuda']} on the card, "
+             f"{losses['cpu']} on the cpu")
+    worst = leaves_close(f"bf16 {GRANITE} gradient", grads["cuda"],
+                         (tree_paths(masters["cpu"]), grads["cpu"]),
+                         bar=6.25e-2)
+    moved = sum(int((a != w).any(dim=-1).sum())
+                for a, w in zip(ids["cuda"], ids["cpu"]))
+    print(f"{GRANITE}, 2 layers, bf16 layers, f32 masters, {b} x {s} "
+          f"tokens, the sorted form on both (grouped products recorded "
+          f"on the card: {forms['cuda'][2]}): loss {losses['cuda']:.6f} on "
+          f"the card, {losses['cpu']:.6f} on the cpu (tolerance 6.25e-2 + "
+          f"3e-2 relative); gradients within {worst:.2e} of each leaf's "
+          f"largest |value| (tolerance 6.25e-2); tokens routed to other "
+          f"experts {moved} of {2 * b * s} (two layers); host syncs in the "
+          f"card's loss and gradient {sum(syncs.values())}, by line "
+          f"{dict(syncs)}; {secs['cuda']:.1f} s on the card, "
+          f"{secs['cpu']:.1f} s on the cpu (host clock)")
+    del masters, grads
+    torch.cuda.empty_cache()
+    phase(f"44 {GRANITE} bf16 train step, the sorted form", t0)
 
 
 def train_main(argv, where):
@@ -1969,6 +2147,32 @@ def train_scans_full(dev):
     phase("47 train.py, mamba2-370m and recurrentgemma-2b at full width",
           t0)
     return total
+
+
+def train_moe_full(dev):
+    """Phase 49: ``train_main`` at ``MOE_TRAIN_ARGV``: granite-moe-1b-a400m
+    at full width and depth, 20 steps of 8 x 512 tokens.  Beside
+    ``train_main``'s checks (24 flash forward and backward launches a
+    step), every MoE layer of every step runs the sorted form (24 a step,
+    no every-expert call) and its three grouped products on the card under
+    autograd, whose backward runs in the step.  Returns the flash
+    launches."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    steps = int(MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--steps") + 1])
+    layers = get_config(GRANITE).num_layers
+    with MoeForms() as forms:
+        launches = train_main(MOE_TRAIN_ARGV, "phase 49")
+    want = (layers * steps, 0, 3 * layers * steps)
+    got = (forms.sorted, forms.every, forms.grouped)
+    if got != want:
+        fail(f"phase 49: {GRANITE} ran (sorted, every-expert, grouped "
+             f"products under autograd) {got}, not {want}")
+    print(f"phase 49: {GRANITE}'s MoE layers ran the sorted form "
+          f"{got[0]} times, the every-expert form 0, grouped products "
+          f"under autograd {got[2]} (their backward in each step)")
+    phase(f"49 train.py, {GRANITE} at full width", t0)
+    return launches["flash_attention"]
 
 
 def moe_layer_check(dev) -> None:
@@ -4285,10 +4489,15 @@ def examples_on_card(testbed, canny_ops, canny_ref, device="cuda",
 
 
 #: phase 48's rows: the default pool at the two serving shapes, then
-#: mamba2-370m's training and 500k-token rows and llama3-8b's skip row
+#: mamba2-370m's training and 500k-token rows, the training rows of
+#: granite-moe-1b-a400m and whisper-small, and llama3-8b's skip row
 DRYRUN_CALLS = (("pool", None, ("prefill_32k", "decode_32k")),
                 ("mamba2", ("mamba2-370m",), ("train_4k", "long_500k")),
+                ("train", (GRANITE, WHISPER), ("train_4k",)),
                 ("skip", ("llama3-8b",), ("long_500k",)))
+#: phase 48's rows: 5 x 2 of the pool, 2 of mamba2-370m, 2 training rows
+#: and the skip row
+DRYRUN_ROWS = 15
 #: the reduced combinations whose counts must be equal on the card and the
 #: CPU: a dense prefill (the flash kernel), its decode (the decode kernel),
 #: an ssm prefill (the SSD kernel), and a training step of each (the
@@ -4566,32 +4775,58 @@ def dryrun_counts_on_both(dev) -> None:
              + "; ".join(bad))
 
 
-def dryrun_launches(cfg, kind, steps):
+def dryrun_launches(cfg, kind, steps, batch):
     """(forward, backward) launches of each LLM kernel over ``steps``
-    steps of one dry-run row of ``cfg``: a prefill launches flash once an
-    attention layer and the scans once a layer; a decode step the decode
-    kernel once an attention layer; a training step the forward kernels
-    and their backwards once a layer each."""
+    steps of one dry-run row of ``cfg`` at ``batch``: a prefill launches
+    flash once an attention layer (an encdec model's encoder, self- and
+    cross-attention) and the scans once a layer; a decode step the decode
+    kernel once a cached attention layer; a training step the forward
+    kernels and their backwards once a layer each, a micro-batch
+    (``batch`` of them)."""
     kinds = launch_kinds(cfg)
-    attn = sum(k in ("attn", "local") for k in kinds)
     fwd = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
            "rglru_scan": 0}
     if kind == "decode":
-        fwd["decode_attention"] = attn * steps
+        fwd["decode_attention"] = steps * sum(
+            k in ("attn", "local", "cross") for k in kinds)
     else:
-        fwd.update(flash_attention=attn * steps,
-                   ssd_scan=kinds.count("ssm") * steps,
-                   rglru_scan=kinds.count("rec") * steps)
+        n = steps * (batch if kind == "train" else 1)
+        fwd.update(flash_attention=n * sum(
+            k in ("attn", "local", "enc", "cross") for k in kinds),
+                   ssd_scan=kinds.count("ssm") * n,
+                   rglru_scan=kinds.count("rec") * n)
     bwd = {k: (n if kind == "train" else 0) for k, n in fwd.items()
            if k != "decode_attention"}
     return fwd, bwd
 
 
+def train_row_memory(r) -> None:
+    """A dry-run training row: ``MICROBATCHES[arch]`` micro-batches ran,
+    and its peak holds at least the state the skip rule counts
+    (``TRAIN_BYTES_PER_PARAM`` bytes a parameter); the rest, printed, is
+    one micro-batch's activations and temporaries."""
+    from repro_torch.launch import dryrun
+    state = dryrun.TRAIN_BYTES_PER_PARAM * r["params_total"]
+    peak = r["peak_memory_gb"] * 2**30
+    if r["global_batch"] != dryrun.MICROBATCHES[r["arch"]] or peak < state:
+        fail(f"dry run row {r['arch']} train_4k ran {r['global_batch']} "
+             f"micro-batches (not {dryrun.MICROBATCHES[r['arch']]}), or its "
+             f"peak {peak / 2**30:.2f} GiB is under the state the skip rule "
+             f"counts, {state / 2**30:.2f} GiB")
+    print(f"  {r['arch']} train_4k: {r['global_batch']} micro-batches of "
+          f"one sequence; peak {peak / 2**30:.2f} GiB = the state the skip "
+          f"rule counts ({dryrun.TRAIN_BYTES_PER_PARAM} B a parameter, "
+          f"{state / 2**30:.2f} GiB) + {(peak - state) / 2**30:.2f} GiB of "
+          f"one micro-batch's activations and temporaries")
+
+
 def dry_run(dev):
     """Phase 48: ``repro_torch.launch.dryrun.main`` on the card over
-    ``DRYRUN_CALLS`` (13 rows), each kernel's launches set to 0 before a
-    call and held to the rows' layers after it; one line a row, its
-    roofline share within ``ROOFLINE_SHARE_MAX``; each kernel held to its
+    ``DRYRUN_CALLS`` (``DRYRUN_ROWS`` rows), each kernel's launches set to
+    0 before a call and held to the rows' layers (a training row's per
+    micro-batch) after it; one line a row, its roofline share within
+    ``ROOFLINE_SHARE_MAX``; a training row's micro-batches and memory
+    (``train_row_memory``); each kernel held to its
     plain version at every shape the rows launched it at; the counts of
     ``DRYRUN_SAME`` equal on the card and the CPU.  Returns the artifact's
     path and the launches ({name: (forward, backward)})."""
@@ -4627,7 +4862,7 @@ def dry_run(dev):
                 continue
             fwd, bwd = dryrun_launches(get_config(r["arch"]),
                                        dryrun.INPUT_SHAPES[r["shape"]].kind,
-                                       steps)
+                                       steps, r["global_batch"])
             want = {k: (want[k][0] + fwd[k], want[k][1] + bwd.get(k, 0))
                     for k in want}
         print(f"dry run ({label}): rc {rc}, {len(new)} rows in "
@@ -4663,8 +4898,11 @@ def dry_run(dev):
                  f"{r['t_step_s']} s over the measured "
                  f"{r['measured_step_s']} s ({share:.1%}): the counts are "
                  f"too large (its largest kinds are printed above)")
+        if r["shape"] == "train_4k":
+            train_row_memory(r)
     status = {(r["arch"], r["shape"]): r["status"] for r in rows}
-    if len(rows) != 13 or status.pop(("llama3-8b", "long_500k")) != "skip" \
+    if len(rows) != DRYRUN_ROWS or status.pop(
+            ("llama3-8b", "long_500k")) != "skip" \
             or set(status.values()) != {"ok"}:
         fail(f"dry run: rows {status}")
     print(f"dry run: each kernel at the {len(shapes_seen.seen)} (shape, "
@@ -5077,6 +5315,13 @@ def main() -> None:
                            "cuda vs cpu", seq=288)
     train_step_cuda_vs_cpu("recurrentgemma-2b", 2, "44 recurrentgemma-2b "
                            "train step cuda vs cpu")
+    for arch, extra in ((GRANITE, {}), (DSV2, {}),
+                        (LLAVA, {"prefix": LLAVA_TRAIN_PREFIX})):
+        train_step_cuda_vs_cpu(arch, 2, f"44 {arch} train step cuda vs cpu",
+                               **extra)
+    moe_bf16_train_step(dev)
+    train_step_cuda_vs_cpu("qwen2.5-3b", 2, "44 qwen2.5-3b two micro-batches "
+                           "cuda vs cpu", batch=4, microbatches=2)
     fwd_launches, bwd_launches = train_lm_full(dev)
     served_launches["flash_attention"] += fwd_launches
 
@@ -5096,6 +5341,11 @@ def main() -> None:
             trained_bwd[k] = trained_bwd.get(k, 0) + b
     for k, n in serve_on_dryrun(artifact, synthetic_routes).items():
         served_launches[k] += n
+
+    # 49 ------------------------------ the MoE family's training, full
+    moe_fwd, moe_bwd = train_moe_full(dev)
+    served_launches["flash_attention"] += moe_fwd
+    trained_bwd["flash_attention"] += moe_bwd
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -36,16 +36,21 @@ name and power limit; on the CPU, ``cpu``).  Rows are appended to
 ``--out``/dryrun.jsonl, which ``serving/pool.py::pool_table_from_dryrun``
 reads: it routes on the measured step where a row has one.
 
-Batch size: a train or prefill row runs batch 1 (one sequence is one
-request).  A decode row runs the largest power of two up to the shape's
+Batch size: a prefill row runs batch 1 (one sequence is one request).
+A training row runs the reference's gradient accumulation,
+``MICROBATCHES[arch]`` micro-batches (4 for an arch it does not name, at
+most the shape's ``global_batch``), each of one sequence: the
+activation memory of one sequence, and the accumulation loop the
+reference lowers; ``global_batch`` is then the micro-batch count.  A
+decode row runs the largest power of two up to the shape's
 ``global_batch`` whose weights and cache fit in 3/4 of the card's
 memory, counted from the shapes (``init_params`` and ``init_cache`` on
-the meta device) before anything is allocated.  ``train_4k`` takes
-``make_train_step`` with ``MICROBATCHES`` capped at the batch.
+the meta device) before anything is allocated.
 
 Skip rows: ``long_500k`` for a model that is not sub-quadratic, with the
-reference's reason; a training row whose f32 parameters, gradients and
-AdamW moments (16 bytes a parameter) do not fit in 3/4 of the card's
+reference's reason; a training row whose f32 parameters, gradient and
+AdamW moments (16 bytes a parameter: ``make_train_step`` accumulates the
+micro-batches in the one gradient) do not fit in 3/4 of the card's
 memory; a decode row whose weights and one sequence's cache do not.  Any
 other exception writes a ``"fail"`` row, and ``main`` returns 1.
 """
@@ -91,7 +96,8 @@ REPS = 3
 SEED = 0
 #: the share of the card's memory a step's weights and state may take
 FIT = 0.75
-#: bytes a training parameter holds: f32 master, gradient, two moments
+#: bytes a training parameter holds: f32 master, gradient (the
+#: micro-batches' sum, accumulated in place), two moments
 TRAIN_BYTES_PER_PARAM = 16
 
 
@@ -113,9 +119,12 @@ def cache_bytes(cfg, batch: int, seq_len: int) -> int:
 
 
 def run_batch(cfg, shape: InputShape, chip: rl.Chip) -> int:
-    """The batch a row runs (the module docstring's rule); 0 when a decode
-    row's weights and one sequence's cache do not fit."""
-    if shape.kind != "decode":
+    """The batch a row runs (the module docstring's rule): a training
+    row's micro-batches of one sequence; 0 when a decode row's weights and
+    one sequence's cache do not fit."""
+    if shape.kind == "train":
+        return min(MICROBATCHES.get(cfg.name, 4), shape.global_batch)
+    if shape.kind == "prefill":
         return 1
     room = FIT * chip.memory_bytes - weight_bytes(cfg)
     batch = 1 << (shape.global_batch.bit_length() - 1)
@@ -148,9 +157,8 @@ def _step(cfg, shape, batch, params, dev):
     """(run, check): ``run()`` takes one step and returns its output;
     ``check(out)`` raises unless the output is finite and shaped right."""
     if shape.kind == "train":
-        step = st.make_train_step(
-            cfg, AdamWConfig(),
-            num_microbatches=min(MICROBATCHES.get(cfg.name, 4), batch))
+        step = st.make_train_step(cfg, AdamWConfig(),
+                                  num_microbatches=batch)
         data = st.batch_inputs(cfg, shape, batch, seed=SEED, device=dev)
         state = [params, init_opt_state(params)]
 

@@ -44,29 +44,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     updated in place and returned.  ``num_microbatches > 1`` splits the
     batch along its first dim, accumulates the gradients in f32, divides
     them by the count and averages the losses and metrics, as the
-    reference's ``lax.scan`` does.  Weight decay follows the reference's
-    stacked layers (``decays_as_stacked``).  Raises if a parameter leaf
-    received no gradient."""
+    reference's ``lax.scan`` does.  The gradients accumulate in each
+    master's ``.grad`` (autograd adds a micro-batch's into it leaf by leaf
+    as the backward reaches the leaf, in the reference's order: the first
+    micro-batch's, then each later one's added), so the step holds one
+    f32 gradient a parameter, whatever the count, and none after it
+    returns; micro-batches therefore take f32 masters
+    (``init_params(..., keep_f32=True)``) and raise on another dtype.
+    Weight decay follows the reference's stacked layers
+    (``decays_as_stacked``).  Raises if a parameter leaf received no
+    gradient."""
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1; got "
                          f"{num_microbatches}")
-
-    def grads_of(params, leaves, batch):
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss, metrics = loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        missing = [path for path, g in zip(tree_paths(params), grads)
-                   if g is None]
-        if missing:
-            raise RuntimeError(f"{cfg.name}: no gradient reached the "
-                               f"parameters {missing}")
-        return loss.detach(), {k: m.detach() for k, m in metrics.items()}, \
-            list(grads)
 
     def split(x):
         if x.shape[0] % num_microbatches:
@@ -74,33 +64,60 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                              f"{num_microbatches} microbatches")
         return x.reshape((num_microbatches, -1) + tuple(x.shape[1:]))
 
+    def accumulate(params, leaves, micro):
+        """Each micro-batch's loss and metrics; its gradients added into
+        the leaves' ``.grad``."""
+        losses, ms = [], []
+        for i, mb in enumerate(micro):
+            loss, metrics = loss_fn(params, cfg, mb)
+            loss.backward()
+            if i == 0:
+                missing = [path for path, p in zip(tree_paths(params),
+                                                   leaves) if p.grad is None]
+                if missing:
+                    raise RuntimeError(f"{cfg.name}: no gradient reached the "
+                                       f"parameters {missing}")
+            losses.append(loss.detach())
+            ms.append({k: m.detach() for k, m in metrics.items()})
+        return losses, ms
+
     def train_step(params, opt_state: OptState, batch):
         leaves = tree_leaves(params)
         if num_microbatches == 1:
-            loss, metrics, grads = grads_of(params, leaves, batch)
+            micro = [batch]
         else:
-            micro = {k: split(x) for k, x in batch.items()}
-            grads, losses, ms = None, [], []
-            for i in range(num_microbatches):
-                l, m, g = grads_of(params, leaves,
-                                   {k: x[i] for k, x in micro.items()})
-                if grads is None:
-                    grads = [x.to(torch.float32) for x in g]
-                else:
-                    for acc, x in zip(grads, g):
-                        acc.add_(x.to(torch.float32))
-                losses.append(l)
-                ms.append(m)
-            n = torch.full((), num_microbatches, dtype=torch.float32,
-                           device=losses[0].device)
-            grads = [acc.div_(n) for acc in grads]
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
-        with torch.no_grad():
-            params, opt_state, opt_metrics = adamw_update(
-                opt_cfg, params, tree_unflatten(params, grads), opt_state,
-                decays=decays_as_stacked)
+            if any(p.dtype != torch.float32 for p in leaves):
+                raise ValueError("micro-batches accumulate in the masters' "
+                                 "gradients: pass f32 masters")
+            parts = {k: split(x) for k, x in batch.items()}
+            micro = [{k: x[i] for k, x in parts.items()}
+                     for i in range(num_microbatches)]
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            losses, ms = accumulate(params, leaves, micro)
+            for p in leaves:
+                p.requires_grad_(False)
+            grads = [p.grad for p in leaves]
+            if num_microbatches == 1:
+                loss, metrics = losses[0], ms[0]
+            else:
+                n = torch.full((), num_microbatches, dtype=torch.float32,
+                               device=losses[0].device)
+                for g in grads:
+                    g.div_(n)
+                loss = torch.stack(losses).mean()
+                metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                           for k in ms[0]}
+            with torch.no_grad():
+                params, opt_state, opt_metrics = adamw_update(
+                    opt_cfg, params, tree_unflatten(params, grads),
+                    opt_state, decays=decays_as_stacked)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+                p.grad = None
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step

@@ -17,6 +17,7 @@ import json
 import math
 import subprocess
 import types
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +40,12 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch import dryrun, roofline as rl, serve
 from repro_torch.launch import steps as st
 from repro_torch.launch.cost import StepCost
-from repro_torch.models import init_params, prefill
+from repro_torch.models import init_params, loss_fn, prefill
 from repro_torch.models.base import INPUT_SHAPES, InputShape
-from repro_torch.optim.adamw import tree_leaves
+from repro_torch.optim.adamw import (adamw_update, init_opt_state,
+                                     tree_leaves, tree_unflatten)
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.serving import pool
 
 torch.set_num_threads(1)
@@ -303,8 +307,10 @@ def test_run_combo_writes_ok_and_skip_rows():
         assert set(row) == REF_KEYS - {"xla_flops", "xla_bytes"} | {
             "global_batch", "measured_step_s", "measured_energy_j",
             "peak_memory_gb", "device"}
-        assert row["global_batch"] == (shape.global_batch
-                                       if kind == "decode" else 1)
+        assert row["global_batch"] == {
+            "decode": shape.global_batch, "prefill": 1,
+            "train": min(dryrun.MICROBATCHES["llama3-8b"],
+                         shape.global_batch)}[kind]
         assert row["flops_per_chip"] > 0 and row["measured_step_s"] > 0
         assert row["t_collective_s"] == 0.0 and json.dumps(row)
     skip = dryrun.run_combo("llama3-8b", "long_500k", device="cpu",
@@ -317,6 +323,115 @@ def test_run_combo_writes_ok_and_skip_rows():
     big = dryrun.run_combo("llava-next-34b", "train_4k", device="cpu",
                            chip=chip)
     assert big["status"] == "skip" and "AdamW" in big["reason"]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m"])
+def test_training_row_runs_the_reference_microbatches(arch):
+    """A ``train_4k`` row runs ``MICROBATCHES[arch]`` micro-batches of one
+    sequence (a reduced config at 16 tokens): its counts are one
+    micro-batch's forward and backward times that count, one AdamW
+    update, and the accumulation: the later micro-batches' gradients
+    added to the first's ((n - 1) P additions), one division by n, the
+    losses and metrics stacked and averaged."""
+    cfg = get_config(arch).reduced(num_layers=2)
+    shape = InputShape("train_4k", 16, 256, "train")
+    n = dryrun.MICROBATCHES[arch]
+    assert dryrun.run_batch(cfg, shape, rl.h100("cpu")) == n
+    row = dryrun.run_combo(arch, shape, cfg=cfg, device="cpu",
+                           chip=rl.h100("cpu"))
+    assert row["status"] == "ok" and row["global_batch"] == n
+    run, _ = dryrun._step(cfg, shape, n, init_params(
+        cfg, dryrun.SEED, "cpu", keep_f32=True), torch.device("cpu"))
+    with StepCost() as step:
+        run()
+    params = init_params(cfg, dryrun.SEED, "cpu", keep_f32=True)
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    data = st.batch_inputs(cfg, shape, 1, seed=dryrun.SEED, device="cpu")
+    with StepCost() as one:
+        loss, _ = loss_fn(params, cfg, data)
+        loss.backward()
+    for x in leaves:
+        x.requires_grad_(False)
+    grads = tree_unflatten(params, [x.grad for x in leaves])
+    state = init_opt_state(params)
+    with StepCost() as update, torch.no_grad():
+        adamw_update(dryrun.AdamWConfig(), params, grads, state,
+                     decays=st.decays_as_stacked)
+    p = sum(x.numel() for x in leaves)
+    want = Counter({k: n * c for k, c in one.by_kind.items()})
+    want.update(update.by_kind)
+    want.update({"add_": (n - 1) * p, "div_": p, "full": 1, "stack": 3 * n,
+                 "mean": 3})
+    assert step.by_kind == want
+    assert step.bytes_by_kind["add_"] == n * one.bytes_by_kind["add_"] + \
+        update.bytes_by_kind["add_"] + 12 * (n - 1) * p
+
+
+class LiveBytes(TorchDispatchMode):
+    """The bytes of the storages alive, after each aten op run under it:
+    those of ``held`` (tensors that exist already) and of every op's
+    outputs; ``peak`` the most at once."""
+
+    def __init__(self, held):
+        super().__init__()
+        self.live = {}
+        self._add(held)
+        self.peak = self.now()
+
+    def _add(self, tensors):
+        for t in tensors:
+            st_ = t.untyped_storage()
+            got = self.live.get(st_._cdata)
+            if got is None or got[0].expired():
+                self.live[st_._cdata] = (StorageWeakRef(st_), st_.nbytes())
+
+    def now(self) -> int:
+        self.live = {k: v for k, v in self.live.items()
+                     if not v[0].expired()}
+        return sum(n for _, n in self.live.values())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self._add(x for x in torch.utils._pytree.tree_leaves(out)
+                  if isinstance(x, torch.Tensor))
+        self.peak = max(self.peak, self.now())
+        return out
+
+
+def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
+    """On the meta device, a reduced deepseek-v2-lite-16b (MLA and MoE, no
+    hand-written kernel) in its bf16 layers: when its AdamW update starts,
+    a step of 4 micro-batches holds, beside its batch,
+    ``TRAIN_BYTES_PER_PARAM`` bytes a parameter (``count_params``) and a
+    few scalars, as a step of one does; its peak is a one-micro-batch step's plus the losses' scalars
+    (the gradients accumulate in place, no second copy)."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced(num_layers=2)
+    total = rl.count_params(cfg)["total"]
+    real = st.adamw_update
+    held, peaks = {}, {}
+
+    for n in (1, 4):
+        params = init_params(cfg, dryrun.SEED, "meta", keep_f32=True)
+        state = init_opt_state(params)
+        batch = {k: torch.zeros((n, 16), dtype=torch.long, device="meta")
+                 for k in ("tokens", "labels")}
+
+        data = sum(x.untyped_storage().nbytes() for x in batch.values())
+
+        def at_update(*args, **kwargs):
+            held[n] = mode.now() - data
+            return real(*args, **kwargs)
+        monkeypatch.setattr(st, "adamw_update", at_update)
+        with LiveBytes(tree_leaves(params) + tree_leaves(state)
+                       + list(batch.values())) as mode:
+            st.make_train_step(cfg, dryrun.AdamWConfig(),
+                               num_microbatches=n)(params, state, batch)
+        peaks[n] = mode.peak - data
+    for n in (1, 4):
+        assert 0 <= held[n] - dryrun.TRAIN_BYTES_PER_PARAM * total < 256
+    assert 0 <= peaks[4] - peaks[1] < 256
 
 
 def test_decode_batch_fits_three_quarters_of_the_card():

@@ -1,7 +1,8 @@
 """LM training's step and drivers in the port, on the CPU:
 ``launch/steps.py::make_train_step`` against the JAX package's (one step
-from the same parameters and batch), its micro-batches against one
-batch, its refusal of a leaf without a gradient, and ``launch/train.py``
+from the same parameters and batch; two micro-batches against the
+reference's ``lax.scan`` accumulation under its host mesh), its
+micro-batches against one batch, its refusal of a leaf without a gradient, and ``launch/train.py``
 and ``examples/train_lm.py``: the loss falls and ``--save`` round-trips.
 
 Bars: the loss and metrics within 1e-5 relative, the moments within 1e-4
@@ -24,6 +25,7 @@ import test_torch_llm as llm
 import test_torch_lm_loss as lm
 import torch
 
+from repro.launch.mesh import make_host_mesh
 from repro.launch.steps import make_train_step as jax_make_train_step
 from repro.optim import adamw as jax_adamw
 from repro_torch.checkpoint import ckpt
@@ -156,6 +158,46 @@ def test_microbatches_average_to_the_whole_batch():
     with pytest.raises(ValueError, match="microbatches"):
         make_train_step(tc, cfg, num_microbatches=3)(
             p2, adamw.init_opt_state(p2), tb)
+
+
+def test_microbatched_step_equals_jax():
+    """Two micro-batches of a reduced granite-moe-1b-a400m (batch 4 of 16
+    tokens, f32, three ignored labels in the first micro-batch, so the
+    mean of the halves' losses is not the whole batch's) against the
+    reference's ``lax.scan`` accumulation, jitted under its host mesh as
+    ``repro.launch.train`` runs it: the metrics within 1e-5 relative, the
+    first moments within the gradient bar (1e-4 of each leaf's largest
+    |value|), the second moments within twice it (d(g^2) = 2 g dg), the
+    parameters at the module docstring's bar."""
+    jc, tc, jp, tp = _masters("granite-moe-1b-a400m")
+    b = lm.batch(tc, b=4, s=16, seed=5)
+    with make_host_mesh():
+        jstep = jax.jit(jax_make_train_step(
+            jc, jax_adamw.AdamWConfig(**OPT), num_microbatches=2))
+        jp2, jopt, jm = jstep(jp, jax_adamw.init_opt_state(jp),
+                              {k: jnp.asarray(v) for k, v in b.items()})
+    step = make_train_step(tc, adamw.AdamWConfig(**OPT), num_microbatches=2)
+    tp2, topt, tm = step(tp, adamw.init_opt_state(tp), lm.torch_batch(b))
+    assert float(jm["aux"]) > 0 and set(tm) == set(jm)
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=0, err_msg=k)
+    as_port = lambda tree: params_from_jax(
+        tc, jax.tree_util.tree_map(np.asarray, tree), device="cpu",
+        keep_f32=True)
+    mu, nu = as_port(jopt.mu), as_port(jopt.nu)
+    for bar, got_tree, want_tree in ((1e-4, topt.mu, mu),
+                                     (2e-4, topt.nu, nu)):
+        for path, got, want in zip(tree_paths(want_tree),
+                                   tree_leaves(got_tree),
+                                   tree_leaves(want_tree)):
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=0,
+                atol=bar * float(want.abs().max()) + 1e-30, err_msg=path)
+    updated_close(tp2, as_port(jp2), mu, float(jm["lr"]),
+                  adamw.AdamWConfig(**OPT))
+    assert all(x.grad is None and not x.requires_grad
+               for x in tree_leaves(tp2))
 
 
 def test_a_leaf_without_a_gradient_raises(monkeypatch):
