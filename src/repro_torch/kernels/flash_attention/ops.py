@@ -8,7 +8,9 @@ call, which runs its two kernels: dQ with the row statistics, then dK and
 dV).  The kernels read strided views (each of q, k, v may be a transpose
 or a slice of a larger cache, as long as the last dim is contiguous), and
 each output keeps its input's strides, so the model passes [B, S, H, D]
-activations without copies.  On the card, a call that autograd records
+activations without copies.  A meta tensor takes the card's path up to
+the launch: the outputs and workspaces are allocated, nothing is
+launched or counted (the dry run measures a step's memory there).  On the card, a call that autograd records
 (an input that requires a gradient, with gradients enabled) goes through
 ``_Attention``, whose backward is the backward kernel.  ``cost`` and
 ``backward_cost`` are what a step cost counter adds for a call
@@ -104,7 +106,7 @@ def _launch(q, k, v, causal, window, softcap):
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_rows(name, x)
     o = torch.empty_like(q)
-    if o.numel() == 0:
+    if o.numel() == 0 or q.is_meta:
         return o
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, o) for i in range(3)))
@@ -142,6 +144,8 @@ def _launch_backward(q, k, v, do, causal, window, softcap):
     # 64, which the bf16 kernels copy a 64-row tile at a time
     stats = torch.empty(3 * b * h * (-(-s // 64) * 64), dtype=torch.float32,
                         device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     strides = (ctypes.c_longlong * 21)(
         *(x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)))
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd",

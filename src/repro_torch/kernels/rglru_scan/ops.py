@@ -2,7 +2,9 @@
 backward (``rglru_scan_backward`` in the same source).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
-``ref.py``, which autograd differentiates.  ``launches`` counts the
+``ref.py``, which autograd differentiates; a meta tensor takes the card's
+path up to the launch (outputs allocated, nothing launched or counted).
+``launches`` counts the
 forward kernel's launches, ``backward_launches`` the backward's.  The
 kernels run the recurrence h_t = a_t h_{t-1} + b_t and its reverse in f32,
 one thread per (batch, width) lane, rounding the product and the sum apart
@@ -48,7 +50,7 @@ def _launch(a, b, h0):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the RG-LRU scan needs contiguous a, b and h0")
     h = torch.empty_like(a)
-    if h.numel() == 0:
+    if h.numel() == 0 or a.is_meta:
         return h
     fn = _build.function("rglru_scan", "rglru_scan", _ARGTYPES)
     with torch.cuda.device(a.device):
@@ -71,7 +73,7 @@ def _launch_backward(a, h, dh, h0):
     bsz, s, w = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    if a.numel() == 0:
+    if a.numel() == 0 or a.is_meta:
         return da, db, None if dh0 is None else dh0.zero_()
     fn = _build.function("rglru_scan", "rglru_scan_backward", _BWD_ARGTYPES)
     with torch.cuda.device(a.device):

@@ -2,8 +2,10 @@
 its backward (``csrc/ssd_scan_bwd.cu``).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version in
-``ref.py``, which autograd differentiates.  ``launches`` counts the
-forward's launches: one a call, which in bf16 runs the kernel's three
+``ref.py``, which autograd differentiates; a meta tensor takes the card's
+path up to the launch (outputs and workspaces allocated, nothing launched
+or counted: the dry run measures a step's memory there).  ``launches``
+counts the forward's launches: one a call, which in bf16 runs the kernel's three
 passes (chunk states, carry, outputs); ``backward_launches`` the
 backward's (one a call, which runs its six kernels).  The kernels read
 strided views (x, B and C may be column slices of the Mamba-2 block's conv
@@ -83,6 +85,8 @@ def _launch(x, dt, A, B, C, D, q):
     bf16 = x.dtype == torch.bfloat16
     work = torch.empty(b * h * -(-s // q) * (q + 3 * p * n) + 24 if bf16
                        else 0, dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        return y, state
     fn = _build.function("ssd_scan", "ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
@@ -150,19 +154,21 @@ def _launch_backward(x, dt, A, B, C, D, dy, d_state, q):
     bf16 = x.dtype == torch.bfloat16
     work = torch.empty(_backward_work(b, s, h, p, n, q, bf16),
                        dtype=torch.float32, device=x.device)
-    fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), dtf.data_ptr(), A32.data_ptr(), B.data_ptr(),
-                C.data_ptr(), D32.data_ptr(), dy.data_ptr(),
-                None if d_state is None else d_state.data_ptr(),
-                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), dD.data_ptr(), work.data_ptr(), b, s, h, p, n,
-                q, _strides(x, dtf, B, C), int(bf16),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"SSD scan backward launch failed: CUDA error "
-                           f"{rc}")
-    _build.count_launch(__name__, "backward_launches")
+    if not x.is_meta:
+        fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), dtf.data_ptr(), A32.data_ptr(),
+                    B.data_ptr(), C.data_ptr(), D32.data_ptr(), dy.data_ptr(),
+                    None if d_state is None else d_state.data_ptr(),
+                    dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                    dB.data_ptr(), dC.data_ptr(), dD.data_ptr(),
+                    work.data_ptr(), b, s, h, p, n, q,
+                    _strides(x, dtf, B, C), int(bf16),
+                    torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"SSD scan backward launch failed: CUDA "
+                               f"error {rc}")
+        _build.count_launch(__name__, "backward_launches")
     return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
             dC.to(C.dtype), dD.to(D.dtype))
 

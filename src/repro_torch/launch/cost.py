@@ -25,6 +25,10 @@ code runs the same aten ops on both.  Nothing reads a device tensor.
     with StepCost() as cost:
         step(...)
     cost.flops, cost.bytes
+
+``StepBytes``, another dispatch mode, measures the most bytes a step
+holds at once (the meta device's tensors have sizes and no data, so a
+full-size step runs there in seconds); the dry run's skip rule reads it.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from collections import Counter
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
@@ -103,4 +108,47 @@ class StepCost(TorchDispatchMode):
         self.bytes += nbytes
         self.by_kind[name] += flops
         self.bytes_by_kind[name] += nbytes
+        return out
+
+
+class StepBytes(TorchDispatchMode):
+    """The bytes of the storages alive while it is entered: those of
+    ``held`` (tensors that exist already, e.g. the parameters, moments and
+    batch, counted from the start) and of every aten op's outputs, each
+    storage once, until it is freed.  ``peak`` is the most at once, taken
+    after each op (its outputs allocated, its inputs not yet freed).  A
+    storage the mode has not seen (a library's workspace) is not
+    counted."""
+
+    def __init__(self, held=()):
+        super().__init__()
+        self._held = {}
+        for t in held:
+            st = t.untyped_storage()
+            self._held[st._cdata] = (StorageWeakRef(st), st.nbytes())
+        self._live = {}
+        self.peak = self._bound = self._now()
+
+    def _now(self) -> int:
+        self._live = {k: v for k, v in self._live.items()
+                      if not v[0].expired()}
+        return sum(n for _, n in self._held.values()) + sum(
+            n for _, n in self._live.values())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._held:
+                continue
+            seen = self._live.get(key)
+            if seen is None or seen[0].expired():
+                self._live[key] = (StorageWeakRef(st), st.nbytes())
+                self._bound += st.nbytes()
+        # the bound counts freed storages too: only when it passes the
+        # peak can the peak have moved, and then the live ones are summed
+        if self._bound > self.peak:
+            self._bound = self._now()
+            self.peak = max(self.peak, self._bound)
         return out

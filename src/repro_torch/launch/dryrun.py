@@ -51,11 +51,15 @@ Skip rows: ``long_500k`` for a model that is not sub-quadratic, with the
 reference's reason; a training row whose f32 parameters, gradient and
 AdamW moments (16 bytes a parameter: ``make_train_step`` accumulates the
 micro-batches in the one gradient) do not fit in 3/4 of the card's
-memory; a decode row whose weights and one sequence's cache do not.  Any
-other exception writes a ``"fail"`` row, and ``main`` returns 1.
+memory, or whose step does not: its peak with one micro-batch's
+activations, measured by running it on the meta device
+(``train_step_bytes``); a decode row whose weights and one sequence's
+cache do not.  Any other exception writes a ``"fail"`` row, and ``main``
+returns 1.
 """
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -70,7 +74,7 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.device import resolve_device
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import steps as st
-from repro_torch.launch.cost import StepCost
+from repro_torch.launch.cost import StepBytes, StepCost
 from repro_torch.models import init_cache, init_params
 from repro_torch.models.base import INPUT_SHAPES, InputShape
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves
@@ -118,6 +122,25 @@ def cache_bytes(cfg, batch: int, seq_len: int) -> int:
                                               cfg.adtype, "meta")))
 
 
+@functools.lru_cache(maxsize=None)
+def train_step_bytes(cfg, shape: InputShape) -> int:
+    """The most bytes a training step of ``shape``'s rows holds at once,
+    measured on the meta device (``StepBytes``; 4-11 s at full size, so
+    kept for the next caller): the f32 masters, the AdamW moments and the
+    batch, and a step of two micro-batches of one sequence, the second, as
+    every later one, beside the first's accumulated gradients, and the
+    update.  The kernels' wrappers allocate there what they allocate on the
+    card; a library's workspace is not counted."""
+    params = init_params(cfg, SEED, "meta", keep_f32=True)
+    state = init_opt_state(params)
+    data = st.batch_inputs(cfg, shape, 2, device="meta")
+    with StepBytes(tree_leaves(params) + tree_leaves(state)
+                   + list(data.values())) as mem:
+        st.make_train_step(cfg, AdamWConfig(), num_microbatches=2)(
+            params, state, data)
+    return mem.peak
+
+
 def run_batch(cfg, shape: InputShape, chip: rl.Chip) -> int:
     """The batch a row runs (the module docstring's rule): a training
     row's micro-batches of one sequence; 0 when a decode row's weights and
@@ -147,6 +170,14 @@ def skip_reason(cfg, shape, chip: rl.Chip) -> Optional[str]:
                     f"{TRAIN_BYTES_PER_PARAM * total / 2**30:.1f} GiB in "
                     "f32 masters, gradients and AdamW moments, over "
                     f"{gib:.1f} GiB (3/4 of {chip.name})")
+        peak = train_step_bytes(cfg, shape)
+        if peak > FIT * chip.memory_bytes:
+            return (f"train: a step of {shape.seq_len}-token micro-batches "
+                    f"holds {peak / 2**30:.1f} GiB at its peak (on the meta "
+                    f"device: {TRAIN_BYTES_PER_PARAM * total / 2**30:.1f} "
+                    "GiB of f32 masters, gradients and AdamW moments, the "
+                    f"rest one micro-batch's activations), over {gib:.1f} "
+                    f"GiB (3/4 of {chip.name})")
     elif shape.kind == "decode" and not run_batch(cfg, shape, chip):
         return (f"decode: the weights and one {shape.seq_len}-position "
                 f"cache do not fit in {gib:.1f} GiB (3/4 of {chip.name})")

@@ -152,9 +152,11 @@ def batch_inputs(cfg: ModelConfig, shape: InputShape, batch: int, *,
     text_len] (and ``labels`` for training), a vlm's ``prefix_embeds``
     [batch, num_prefix_embeds, vision_dim] or an encdec model's frames
     [batch, enc_seq, vision_dim] in f32, drawn on ``device`` from one
-    generator seeded with ``seed``."""
+    generator seeded with ``seed`` (on the meta device: their sizes, no
+    draws)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     st = text_len(cfg, shape.seq_len)
 
     def ids():

@@ -63,18 +63,20 @@ def tree_paths(tree) -> list:
     return ["/".join(map(str, path)) for path, _ in _walk(tree)]
 
 
-def tree_unflatten(like, leaves):
-    """``leaves`` (in ``tree_leaves``' order) in ``like``'s structure."""
-    it = iter(leaves)
+def _build(t, it):
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(like)
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves``' order) in ``like``'s structure.  (A
+    recursive closure here would hold ``leaves`` in a reference cycle
+    until the garbage collector ran: a step's gradients outliving it.)"""
+    return _build(like, iter(leaves))
 
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:

@@ -39,13 +39,11 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch import dryrun, roofline as rl, serve
 from repro_torch.launch import steps as st
-from repro_torch.launch.cost import StepCost
+from repro_torch.launch.cost import StepBytes, StepCost
 from repro_torch.models import init_params, loss_fn, prefill
 from repro_torch.models.base import INPUT_SHAPES, InputShape
 from repro_torch.optim.adamw import (adamw_update, init_opt_state,
                                      tree_leaves, tree_unflatten)
-from torch.multiprocessing.reductions import StorageWeakRef
-from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.serving import pool
 
 torch.set_num_threads(1)
@@ -369,69 +367,86 @@ def test_training_row_runs_the_reference_microbatches(arch):
         update.bytes_by_kind["add_"] + 12 * (n - 1) * p
 
 
-class LiveBytes(TorchDispatchMode):
-    """The bytes of the storages alive, after each aten op run under it:
-    those of ``held`` (tensors that exist already) and of every op's
-    outputs; ``peak`` the most at once."""
-
-    def __init__(self, held):
-        super().__init__()
-        self.live = {}
-        self._add(held)
-        self.peak = self.now()
-
-    def _add(self, tensors):
-        for t in tensors:
-            st_ = t.untyped_storage()
-            got = self.live.get(st_._cdata)
-            if got is None or got[0].expired():
-                self.live[st_._cdata] = (StorageWeakRef(st_), st_.nbytes())
-
-    def now(self) -> int:
-        self.live = {k: v for k, v in self.live.items()
-                     if not v[0].expired()}
-        return sum(n for _, n in self.live.values())
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        self._add(x for x in torch.utils._pytree.tree_leaves(out)
-                  if isinstance(x, torch.Tensor))
-        self.peak = max(self.peak, self.now())
-        return out
-
-
 def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
-    """On the meta device, a reduced deepseek-v2-lite-16b (MLA and MoE, no
-    hand-written kernel) in its bf16 layers: when its AdamW update starts,
-    a step of 4 micro-batches holds, beside its batch,
+    """A reduced deepseek-v2-lite-16b (MLA and MoE: no hand-written kernel
+    on its path) in its bf16 layers.  On the meta device, when the AdamW
+    update starts, a step of 1 or 4 micro-batches holds, beside its batch,
     ``TRAIN_BYTES_PER_PARAM`` bytes a parameter (``count_params``) and a
-    few scalars, as a step of one does; its peak is a one-micro-batch step's plus the losses' scalars
-    (the gradients accumulate in place, no second copy)."""
+    few scalars: the gradients accumulate in place, no second copy.  The
+    skip rule's count (``train_step_bytes``, the step's peak on the meta
+    device) is the peak of the same step run on the CPU; the rule skips a
+    row whose step passes 3/4 of the card although its state fits."""
     cfg = get_config("deepseek-v2-lite-16b").reduced(num_layers=2)
+    shape = InputShape("train_4k", 16, 256, "train")
     total = rl.count_params(cfg)["total"]
     real = st.adamw_update
-    held, peaks = {}, {}
-
+    held = {}
     for n in (1, 4):
         params = init_params(cfg, dryrun.SEED, "meta", keep_f32=True)
         state = init_opt_state(params)
-        batch = {k: torch.zeros((n, 16), dtype=torch.long, device="meta")
-                 for k in ("tokens", "labels")}
-
+        batch = st.batch_inputs(cfg, shape, n, device="meta")
         data = sum(x.untyped_storage().nbytes() for x in batch.values())
 
         def at_update(*args, **kwargs):
-            held[n] = mode.now() - data
+            held[n] = mode._now() - data
             return real(*args, **kwargs)
         monkeypatch.setattr(st, "adamw_update", at_update)
-        with LiveBytes(tree_leaves(params) + tree_leaves(state)
+        with StepBytes(tree_leaves(params) + tree_leaves(state)
                        + list(batch.values())) as mode:
             st.make_train_step(cfg, dryrun.AdamWConfig(),
                                num_microbatches=n)(params, state, batch)
-        peaks[n] = mode.peak - data
-    for n in (1, 4):
         assert 0 <= held[n] - dryrun.TRAIN_BYTES_PER_PARAM * total < 256
-    assert 0 <= peaks[4] - peaks[1] < 256
+    monkeypatch.setattr(st, "adamw_update", real)
+
+    params = init_params(cfg, dryrun.SEED, "cpu", keep_f32=True)
+    state = init_opt_state(params)
+    batch = st.batch_inputs(cfg, shape, 2, device="cpu")
+    with StepBytes(tree_leaves(params) + tree_leaves(state)
+                   + list(batch.values())) as mode:
+        st.make_train_step(cfg, dryrun.AdamWConfig(), num_microbatches=2)(
+            params, state, batch)
+    peak = dryrun.train_step_bytes(cfg, shape)
+    assert peak == mode.peak > dryrun.TRAIN_BYTES_PER_PARAM * total
+
+    def chip(fit_bytes):
+        return dataclasses.replace(rl.h100("cpu"),
+                                   memory_bytes=fit_bytes / dryrun.FIT)
+    assert dryrun.skip_reason(cfg, shape, chip(peak)) is None
+    reason = dryrun.skip_reason(cfg, shape, chip(peak - 1))
+    assert reason.startswith("train: a step of 16-token micro-batches "
+                             "holds") and "meta device" in reason
+    assert "AdamW" in dryrun.skip_reason(
+        cfg, shape, chip(dryrun.TRAIN_BYTES_PER_PARAM * total - 1))
+
+
+def test_kernels_on_the_meta_device_allocate_and_launch_nothing():
+    """On the meta device each kernel wrapper returns outputs of its
+    card's shapes and dtypes, forward and backward, and counts no
+    launch."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    mods = (flash_ops, ssd_ops, lru_ops)
+    before = [(m.launches, m.backward_launches) for m in mods]
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta",
+                           requires_grad=True)
+    q, k = meta(2, 8, 64, 32), meta(2, 2, 64, 32)
+    o = flash_ops.attention(q, k, k)
+    assert o.shape == q.shape and o.dtype == q.dtype and o.is_meta
+    assert all(g.shape == x.shape for g, x in zip(
+        torch.autograd.grad(o.sum(), (q, k)), (q, k)))
+    x, dt = meta(2, 40, 4, 16), meta(2, 40, 4, dtype=torch.float32)
+    a, d = meta(4, dtype=torch.float32), meta(4, dtype=torch.float32)
+    b = meta(2, 40, 8)
+    y = ssd_ops.ssd(x, dt, a, b, b, d, chunk=16)
+    assert y.shape == x.shape and y.is_meta
+    assert torch.autograd.grad(y.sum(), x)[0].shape == x.shape
+    la = meta(2, 40, 16, dtype=torch.float32)
+    h = lru_ops.linear_scan(la, la)
+    assert h.shape == la.shape and h.is_meta
+    assert torch.autograd.grad(h.sum(), la)[0].shape == la.shape
+    assert [(m.launches, m.backward_launches) for m in mods] == before
 
 
 def test_decode_batch_fits_three_quarters_of_the_card():
