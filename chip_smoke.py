@@ -179,8 +179,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     the card: one Canny launch per request (counted), none failed, and
     the SLO summary, window records and autoscaler events equal to the
     same replay on the CPU; its wall time and the device's busy share;
-26. the trained testbed: the eight detectors trained on the card at the
-    reference's settings (700 AdamW steps of 16 fresh scenes) into a fresh
+26. the trained testbed: the eight detectors trained on the card,
+    ``TRAIN_STEPS`` AdamW steps of 16 fresh scenes (the reference's run
+    is 700; half, for the time of phases 44, 48 and 49) into a fresh
     directory under ``chiprun_out/`` (cuDNN's deterministic algorithms,
     so the testbed repeats run to run; ``tools/training_probe.py``
     measures that, a step's device time and the host's share), every loss
@@ -1784,6 +1785,25 @@ class ExpertIds:
         self._mod.route_topk = self._real
 
 
+class StepGradients:
+    """While entered, keeps the gradients (``tree_leaves`` order) each
+    ``make_train_step`` hands to its AdamW update."""
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+        from repro_torch.optim.adamw import tree_leaves
+        self.grads, self._mod, self._real = None, steps, steps.adamw_update
+
+        def recorded(opt, params, grads, state, **kwargs):
+            self.grads = tree_leaves(grads)
+            return self._real(opt, params, grads, state, **kwargs)
+        steps.adamw_update = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.adamw_update = self._real
+
+
 class MoeForms:
     """While entered, counts the calls of each MoE form
     (``moe._experts_sorted``, ``moe._experts_all``) and the grouped
@@ -1829,13 +1849,15 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     activations, TF32 off, on the card (the kernels and their backwards)
     and on the CPU (the plain versions), from the same f32 masters, a
     batch of ``batch`` x ``seq`` tokens (and the family's frames or prefix
-    embeddings): the loss within 1e-5 relative, each gradient leaf within
-    1e-4 of its largest |value|; a MoE model's expert ids of every
-    ``route_topk`` equal on both (the card runs the every-expert form in
-    f32, the CPU the sorted form: equal ids make the two one function);
-    then ``make_train_step`` (``microbatches`` micro-batches) on both: the
-    metrics within 1e-5 relative, the first moments within 1e-4, and the
-    updated parameters within 1e-4 of each leaf's largest |value| plus
+    embeddings), one ``make_train_step`` (``microbatches`` micro-batches)
+    on each, its gradients taken where it hands them to AdamW
+    (``StepGradients``): the loss within 1e-5 relative, each gradient
+    leaf within 1e-4 of its largest |value|; a MoE model's expert ids of
+    every ``route_topk`` equal on both (the card runs the every-expert
+    form in f32, the CPU the sorted form: equal ids make the two one
+    function); the step's metrics within 1e-5 relative, the first moments
+    within 1e-4, and the updated parameters within 1e-4 of each leaf's
+    largest |value| plus
     the gradient bar carried through Adam's first step
     (``first_step_spread``: the step moves a parameter by about lr times
     its gradient's sign, so a gradient near zero or near eps moves it by
@@ -1849,9 +1871,10 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import modality_inputs
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import init_params
     from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
-                                         tree_leaves, tree_paths)
+                                         tree_leaves, tree_paths,
+                                         tree_unflatten)
     t0 = time.perf_counter()
     opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
     cfg = dataclasses.replace(get_config(arch), num_layers=num_layers,
@@ -1874,52 +1897,50 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
                 0, cfg.vocab_size, (batch, seq)))}
     data.update(modality_inputs(cfg, batch, rng, device="cpu"))
     mods, per = trained_kernels(cfg)
-    losses, grads, launches, secs, ids, forms = {}, {}, {}, {}, {}, {}
+    paths = tree_paths(masters["cpu"])
+    # the masters before the step, where decay_reference needs them
+    start = (tree_unflatten(masters["cpu"], [
+        x.clone() for x in tree_leaves(masters["cpu"])])
+             if any(path.endswith(DECAY_LEAVES) for path in paths)
+             else None)
+    out, losses, grads, launches, secs, ids, forms = ({} for _ in range(7))
     for dev, p in masters.items():
         t1 = time.perf_counter()
-        leaves = tree_leaves(p)
-        for x in leaves:
-            x.requires_grad_(True)
         zero_counts(mods)
-        with ExpertIds() as rec, MoeForms() as form:
-            loss, _ = loss_fn(p, cfg, to_device(data, dev))
-            grads[dev] = torch.autograd.grad(loss, leaves)
-        ids[dev], forms[dev] = rec.ids, (form.sorted, form.every)
+        with ExpertIds() as rec, MoeForms() as form, \
+                StepGradients() as step:
+            out[dev] = make_train_step(
+                cfg, opt, num_microbatches=microbatches)(
+                    p, init_opt_state(p), to_device(data, dev))
+        grads[dev], ids[dev] = step.grads, rec.ids
+        forms[dev] = (form.sorted, form.every)
         launches[dev] = kernel_counts(mods)
-        losses[dev] = float(loss.detach())
-        for x in leaves:
-            x.requires_grad_(False)
+        losses[dev] = float(out[dev][2]["loss"])
         torch.cuda.synchronize()
         secs[dev] = time.perf_counter() - t1
-    paths = tree_paths(masters["cpu"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     if rel > 1e-5:
         fail(f"phase 44: {arch} loss {losses['cuda']} on the card, "
              f"{losses['cpu']} on the cpu")
-    moe_layers = len(cfg.layer_kinds) if cfg.num_experts else 0
+    moe_calls = (len(cfg.layer_kinds) if cfg.num_experts else 0) \
+        * microbatches
     if cfg.num_experts and (
-            len(ids["cuda"]) != moe_layers or forms["cuda"] != (
-                0, moe_layers) or forms["cpu"] != (moe_layers, 0)
+            len(ids["cuda"]) != moe_calls or forms["cuda"] != (
+                0, moe_calls) or forms["cpu"] != (moe_calls, 0)
             or not all(map(torch.equal, ids["cuda"], ids["cpu"]))):
         fail(f"phase 44: {arch}'s expert ids differ between the card and "
              f"the cpu, or a form other than the size rule's ran: (sorted, "
              f"every-expert) calls {forms}")
-    exact = decay_reference(cfg, masters["cpu"], data, grads, opt)
+    exact = (decay_reference(cfg, start, data, grads, opt)
+             if start is not None else {})
     want_g = [exact[i][0] if i in exact else g
               for i, g in enumerate(grads["cpu"])]
     worst = leaves_close(f"{arch} gradient", grads["cuda"], (paths, want_g))
-    want = {k: (n, n) for k, n in per.items()}
+    want = {k: (n * microbatches, n * microbatches) for k, n in per.items()}
     if launches["cuda"] != want or any(
             c != (0, 0) for c in launches["cpu"].values()):
         fail(f"phase 44: {arch} launched (forward, backward) "
              f"{launches}, not {want} on the card and none on the cpu")
-    out = {}
-    for dev, p in masters.items():
-        t1 = time.perf_counter()
-        out[dev] = make_train_step(cfg, opt, num_microbatches=microbatches)(
-            p, init_opt_state(p), to_device(data, dev))
-        torch.cuda.synchronize()
-        secs[dev] += time.perf_counter() - t1
     for k in out["cpu"][2]:
         a, w = float(out["cuda"][2][k]), float(out["cpu"][2][k])
         if abs(a - w) > 1e-5 * abs(w):
@@ -1953,8 +1974,8 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
           f"{worst:.2e} of each leaf's largest |value| (tolerance 1e-4"
           + (f"; {len(exact)} decay leaves against f64" if exact else "")
           + "), "
-          + (f"expert ids of {moe_layers} MoE layers equal (the card's "
-             f"every-expert form, the cpu's sorted form), "
+          + (f"expert ids of {moe_calls} MoE layer calls equal (the "
+             f"card's every-expert form, the cpu's sorted form), "
              if cfg.num_experts else "")
           + f"first moments {worst_mu:.2e}; (forward, backward) launches "
           f"{ {k: c for k, c in launches['cuda'].items() if any(c)} }; one "
@@ -1962,8 +1983,8 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
           f"{'es' if microbatches > 1 else ''}): metrics within 1e-5, "
           f"parameters within the bar ({loose} "
           f"elements past 1e-4 of their leaf's largest |value|, each "
-          f"within the gradient bar carried through the step); gradient "
-          f"and step {secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s "
+          f"within the gradient bar carried through the step); the step "
+          f"{secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s "
           f"on the cpu, the f32 masters' init and copy {t_setup:.1f} s, the "
           f"comparisons the rest of the phase's "
           f"{time.perf_counter() - t0:.1f} s (host clock)")
@@ -3847,9 +3868,13 @@ def traffic_plane(params, dev, canny_ops):
     return n_canny
 
 
-#: phase 26: the reference's training run, and the paper's router matrix
-#: (benchmarks/common.py's router_matrix) over Figs. 6-8's datasets
-TRAIN_STEPS = 700
+#: phase 26: the reference's training run cut to half its 700 steps, for
+#: the script's time (phases 44, 48 and 49 take ~240 s more than they
+#: did; at 700 steps phase 26 took 125 s of a 922.7 s run on an NVIDIA
+#: H100 80GB HBM3 at 700 W, and up to 211 s on slower hosts), and the
+#: paper's router matrix (benchmarks/common.py's router_matrix) over
+#: Figs. 6-8's datasets
+TRAIN_STEPS = 350
 PAPER_ROWS = ("Orc", "RR", "Rnd", "LE", "LI", "HM", "HMG", "ED", "SF", "OB")
 FIGURES = (("fig6", "full_dataset", dict(n=300, seed=31)),
            ("fig7", "balanced_sorted_dataset", dict(per_group=50, seed=32)),
