@@ -370,8 +370,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     that fits 3/4 of the card), mamba2-370m at ``train_4k`` and
     ``long_500k``, granite-moe-1b-a400m and whisper-small at
     ``train_4k`` (a training row runs the reference's 4, 8 or 16
-    micro-batches of one sequence, and its peak holds the skip rule's
-    16 bytes a parameter), llama3-8b's ``long_500k`` skip row; each
+    micro-batches of one sequence, its peak within 2 % + 0.5 GiB of the
+    skip rule's count, the step's peak on the meta device),
+    llama3-8b's ``long_500k`` skip row; each
     kernel's launches counted per call and held to the rows' layers
     (warm-up, 3 timed and 1 counted step a row, a training row's once a
     micro-batch); one line a row (batch, counted
@@ -4884,28 +4885,31 @@ def dryrun_launches(cfg, kind, steps, batch):
     return fwd, bwd
 
 
-def train_row_memory(r) -> None:
+def train_row_memory(r, base) -> None:
     """A dry-run training row: ``MICROBATCHES[arch]`` micro-batches ran,
-    and its peak agrees with the skip rule's count, the step's peak on the
-    meta device (``train_step_bytes``): at least it, and at most 2 % + 0.5
-    GiB over it (the libraries' workspaces, the allocator's rounding)."""
+    and its peak over ``base`` (the bytes allocated before its call, which
+    the peak counts too) agrees with the skip rule's count, the step's
+    peak on the meta device (``train_step_bytes``), within 2 % + 0.5 GiB
+    (the libraries' workspaces, the allocator's rounding)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     rule = dryrun.train_step_bytes(get_config(r["arch"]),
                                    dryrun.INPUT_SHAPES["train_4k"])
     state = dryrun.TRAIN_BYTES_PER_PARAM * r["params_total"]
-    peak = r["peak_memory_gb"] * 2**30
-    if r["global_batch"] != dryrun.MICROBATCHES[r["arch"]] or not (
-            rule <= peak <= 1.02 * rule + 2**29):
+    own = r["peak_memory_gb"] * 2**30 - base
+    if r["global_batch"] != dryrun.MICROBATCHES[r["arch"]] or \
+            abs(own - rule) > 0.02 * rule + 2**29:
         fail(f"dry run row {r['arch']} train_4k ran {r['global_batch']} "
              f"micro-batches (not {dryrun.MICROBATCHES[r['arch']]}), or its "
-             f"peak {peak / 2**30:.2f} GiB disagrees with the skip rule's "
+             f"peak {own / 2**30:.2f} GiB over what its call found "
+             f"allocated disagrees with the skip rule's "
              f"{rule / 2**30:.2f} GiB")
     print(f"  {r['arch']} train_4k: {r['global_batch']} micro-batches of "
-          f"one sequence; peak {peak / 2**30:.2f} GiB, the skip rule's "
-          f"count on the meta device {rule / 2**30:.2f} GiB (of which "
-          f"{state / 2**30:.2f} GiB of masters, gradients and moments: "
-          f"{dryrun.TRAIN_BYTES_PER_PARAM} B a parameter)")
+          f"one sequence; peak {own / 2**30:.2f} GiB over the "
+          f"{base / 2**30:.2f} GiB its call found allocated, the skip "
+          f"rule's count on the meta device {rule / 2**30:.2f} GiB (of "
+          f"which {state / 2**30:.2f} GiB of masters, gradients and "
+          f"moments: {dryrun.TRAIN_BYTES_PER_PARAM} B a parameter)")
 
 
 def dry_run(dev):
@@ -4927,7 +4931,7 @@ def dry_run(dev):
     out_dir = ROOT / "chiprun_out" / f"dryrun-{time.strftime('%H%M%S')}"
     steps = 1 + dryrun.REPS + 1   # warm-up, timed, counted
     total = {k: (0, 0) for k in mods}
-    rows = []
+    rows, bases = [], []
     shapes_seen = MainPathShapes(mods)
     for label, archs, shapes in DRYRUN_CALLS:
         archs = archs or DEFAULT_POOL
@@ -4936,6 +4940,7 @@ def dry_run(dev):
             if hasattr(m, "backward_launches"):
                 m.backward_launches = 0
         t1 = time.perf_counter()
+        base = torch.cuda.memory_allocated()
         with shapes_seen:
             rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--out",
                               str(out_dir)])
@@ -4944,6 +4949,7 @@ def dry_run(dev):
         lines = (out_dir / "dryrun.jsonl").read_text().splitlines()
         new = [json.loads(x) for x in lines[len(rows):]]
         rows += new
+        bases += [base] * len(new)
         want = {k: (0, 0) for k in mods}
         for r in new:
             if r["status"] != "ok":
@@ -4962,7 +4968,7 @@ def dry_run(dev):
         total = {k: (total[k][0] + got[k][0], total[k][1] + got[k][1])
                  for k in total}
     card = torch.cuda.get_device_name(0)
-    for r in rows:
+    for r, base in zip(rows, bases):
         if r["status"] != "ok":
             print(f"  {r['arch']} {r['shape']}: {r['status']} ({r['reason']})")
             continue
@@ -4987,7 +4993,7 @@ def dry_run(dev):
                  f"{r['measured_step_s']} s ({share:.1%}): the counts are "
                  f"too large (its largest kinds are printed above)")
         if r["shape"] == "train_4k":
-            train_row_memory(r)
+            train_row_memory(r, base)
     status = {(r["arch"], r["shape"]): r["status"] for r in rows}
     if len(rows) != DRYRUN_ROWS or status.pop(
             ("llama3-8b", "long_500k")) != "skip" \

@@ -97,8 +97,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             p.requires_grad_(True)
         try:
             losses, ms = accumulate(params, leaves, micro)
-            for p in leaves:
-                p.requires_grad_(False)
             grads = [p.grad for p in leaves]
             if num_microbatches == 1:
                 loss, metrics = losses[0], ms[0]
