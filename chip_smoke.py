@@ -1788,15 +1788,27 @@ class ExpertIds:
 
 class StepGradients:
     """While entered, keeps the gradients (``tree_leaves`` order) each
-    ``make_train_step`` hands to its AdamW update."""
+    ``make_train_step`` hands to its AdamW update.  With ``params`` (a
+    tree on the card), the update runs there on them and the state the
+    step was given, from the gradients moved to the card: AdamW's
+    arithmetic is the same on both devices (phase 26 holds it bit for
+    bit), and a CPU update of a G-parameter cut takes half a minute."""
+
+    def __init__(self, params=None):
+        self.params = params
 
     def __enter__(self):
         from repro_torch.launch import steps
-        from repro_torch.optim.adamw import tree_leaves
+        from repro_torch.optim.adamw import tree_leaves, tree_unflatten
         self.grads, self._mod, self._real = None, steps, steps.adamw_update
 
         def recorded(opt, params, grads, state, **kwargs):
             self.grads = tree_leaves(grads)
+            if self.params is not None:
+                params = self.params
+                grads = tree_unflatten(params, [
+                    g.to(x.device) for g, x in zip(self.grads,
+                                                   tree_leaves(params))])
             return self._real(opt, params, grads, state, **kwargs)
         steps.adamw_update = recorded
         return self
@@ -1852,7 +1864,8 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     batch of ``batch`` x ``seq`` tokens (and the family's frames or prefix
     embeddings), one ``make_train_step`` (``microbatches`` micro-batches)
     on each, its gradients taken where it hands them to AdamW
-    (``StepGradients``): the loss within 1e-5 relative, each gradient
+    (``StepGradients``; the CPU's are applied on the card, to a copy of
+    the masters): the loss within 1e-5 relative, each gradient
     leaf within 1e-4 of its largest |value|; a MoE model's expert ids of
     every ``route_topk`` equal on both (the card runs the every-expert
     form in f32, the CPU the sorted form: equal ids make the two one
@@ -1899,20 +1912,21 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     data.update(modality_inputs(cfg, batch, rng, device="cpu"))
     mods, per = trained_kernels(cfg)
     paths = tree_paths(masters["cpu"])
-    # the masters before the step, where decay_reference needs them
-    start = (tree_unflatten(masters["cpu"], [
-        x.clone() for x in tree_leaves(masters["cpu"])])
-             if any(path.endswith(DECAY_LEAVES) for path in paths)
-             else None)
+    # the CPU's step updates a copy of the masters on the card from its
+    # gradients (``StepGradients``), made before the card's step updates
+    # the card's masters; the CPU's masters stay as drawn
+    update = {"cuda": None, "cpu": tree_unflatten(masters["cuda"], [
+        x.clone() for x in tree_leaves(masters["cuda"])])}
     out, losses, grads, launches, secs, ids, forms = ({} for _ in range(7))
     for dev, p in masters.items():
         t1 = time.perf_counter()
         zero_counts(mods)
         with ExpertIds() as rec, MoeForms() as form, \
-                StepGradients() as step:
+                StepGradients(update[dev]) as step:
             out[dev] = make_train_step(
                 cfg, opt, num_microbatches=microbatches)(
-                    p, init_opt_state(p), to_device(data, dev))
+                    p, init_opt_state(update[dev] or p),
+                    to_device(data, dev))
         grads[dev], ids[dev] = step.grads, rec.ids
         forms[dev] = (form.sorted, form.every)
         launches[dev] = kernel_counts(mods)
@@ -1932,8 +1946,7 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
         fail(f"phase 44: {arch}'s expert ids differ between the card and "
              f"the cpu, or a form other than the size rule's ran: (sorted, "
              f"every-expert) calls {forms}")
-    exact = (decay_reference(cfg, start, data, grads, opt)
-             if start is not None else {})
+    exact = decay_reference(cfg, masters["cpu"], data, grads, opt)
     want_g = [exact[i][0] if i in exact else g
               for i, g in enumerate(grads["cpu"])]
     worst = leaves_close(f"{arch} gradient", grads["cuda"], (paths, want_g))
