@@ -125,12 +125,13 @@ def cache_bytes(cfg, batch: int, seq_len: int) -> int:
 @functools.lru_cache(maxsize=None)
 def train_step_bytes(cfg, shape: InputShape) -> int:
     """The most bytes a training step of ``shape``'s rows holds at once,
-    measured on the meta device (``StepBytes``; 4-11 s at full size, so
-    kept for the next caller): the f32 masters, the AdamW moments and the
-    batch, and a step of two micro-batches of one sequence, the second, as
-    every later one, beside the first's accumulated gradients, and the
-    update.  The kernels' wrappers allocate there what they allocate on the
-    card; a library's workspace is not counted."""
+    measured on the meta device (``StepBytes``; 4-11 s at full size on 8
+    CPU threads, so kept for the next caller): the f32 masters, the AdamW
+    moments and the batch, and a step of two micro-batches of one
+    sequence, the second, as every later one, beside the first's
+    accumulated gradients, and the update.  The kernels' wrappers
+    allocate there what they allocate on the card; a library's workspace
+    is not counted."""
     params = init_params(cfg, SEED, "meta", keep_f32=True)
     state = init_opt_state(params)
     data = st.batch_inputs(cfg, shape, 2, device="meta")
