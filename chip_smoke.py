@@ -180,14 +180,16 @@ Phases, each printed as it ends; any failure exits non-zero:
     the SLO summary, window records and autoscaler events equal to the
     same replay on the CPU; its wall time and the device's busy share;
 26. the trained testbed: the eight detectors trained on the card,
-    ``TRAIN_STEPS`` AdamW steps of 16 fresh scenes (the reference's run
-    is 700; half, for the time of phases 44, 48 and 49) into a fresh
+    ``TRAIN_STEPS`` AdamW steps of 16 fresh scenes (the reference's run)
+    into a fresh
     directory under ``chiprun_out/`` (cuDNN's deterministic algorithms,
     so the testbed repeats run to run; ``tools/training_probe.py``
     measures that, a step's device time and the host's share), every loss
     falling, saved in the JAX package's checkpoint layout and loaded back
     through ``train_all`` (raw heads bit-equal); ``adamw_update`` on the
-    card equal to the CPU's bit for bit;
+    card equal to the CPU's bit for bit on yolov8_m's parameters and on
+    phase 44's models' trees (reduced) with the LM step's decay rule
+    (``ADAMW_LM_ARCHS``);
     ``profile_pairs`` over ``TESTBED_PAIRS`` on the card and on the CPU
     (time and energy equal, mAP equal but where a frame of the group puts
     an objectness within atol 1e-6 + rtol 1e-5 of 0.5); the paper's router
@@ -335,11 +337,13 @@ Phases, each printed as it ends; any failure exits non-zero:
     sorted form), each kernel's forward and backward launches counted by
     layer kind (flash a attention layer, SSD an ssm layer, RG-LRU a rec
     layer), and ``make_train_step``'s metrics, moments and updated
-    parameters at the same bars; qwen2.5-3b again over 4 x 32 tokens in
-    two micro-batches; then granite-moe-1b-a400m's two layers in bf16
-    over 2 x 2048 tokens, the sorted MoE form and its grouped products'
-    backward on the card, the CPU on the card's experts, at the bf16
-    gradient bar (``moe_bf16_train_step``);
+    parameters at the same bars (the CPU step's update applied on the card
+    to a copy of its masters; phase 26 holds that update equal to the
+    CPU's bit for bit on these models' trees); qwen2.5-3b again over 4 x
+    32 tokens in two micro-batches; then granite-moe-1b-a400m's two layers
+    in bf16 over 2 x 2048 tokens, the sorted MoE form and its grouped
+    products' backward on the card, the CPU on the card's experts, at the
+    bf16 gradient bar (``moe_bf16_train_step``);
 45. ``launch/train.py`` on qwen2.5-3b at full width and depth (``--full
     --steps 20 --batch 8 --seq 128 --device cuda``, as a user calls it):
     every loss finite, the mean of the last five below the first five's,
@@ -381,7 +385,11 @@ Phases, each printed as it ends; any failure exits non-zero:
     energy); each kernel held to its plain version at every shape and
     option its rows launched it at (``MainPathShapes``: flash at 32 768
     rows, decode over 32 768 cache rows, the SSD at 4096 and 32 768
-    tokens, the RG-LRU at 32 768), on seeded inputs, the plain versions
+    tokens, the RG-LRU at 32 768), and the flash and SSD backward kernels
+    at every shape the training rows launched them at (granite's 4096
+    rows, whisper-small's 4096 decoder rows, its encoder's 1500 frames and
+    the cross-attention over them, mamba2-370m's 4096 tokens) at phases
+    43's and 46's bars, on seeded inputs, the plain versions
     run by pieces (``flash_plain_rows``, the SSD a group of heads at a
     time);
     the counts of five reduced combinations (``DRYRUN_SAME``: prefill,
@@ -394,7 +402,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     (``MOE_TRAIN_ARGV``: 20 steps of 8 x 512 tokens, so every MoE layer
     runs the sorted form and its backward): the checks of phases 45 and
     47 (24 flash forward and backward launches a step), the sorted form
-    480 times and 1440 grouped products under autograd on the card.
+    480 times and 1440 grouped products under autograd on the card; the
+    flash kernel and its backward held to their plain versions at the
+    run's shapes (``MainPathShapes``, phase 43's bar for the backward).
 
 Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
 same policy's decision on the CPU.  It then prints one JSON line with
@@ -1376,6 +1386,38 @@ def flash_bwd_plain(q, k, v, do, **kw):
     return tuple(torch.cat(x, 1) for x in zip(*parts))
 
 
+def flash_bwd_check(where, shape, dtype, kw, seed, dev):
+    """The flash backward kernel at ``shape`` (B, H, KV, S, T, D),
+    ``dtype`` and options ``kw`` on inputs drawn from ``seed``, against
+    its plain backward: phase 43's bar (below) and equal bits in two
+    calls.  Returns the inputs (q, k, v, dO), each gradient's largest error
+    against f64 and a note of each."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    b, h, kv, s, t, d = shape
+    q, k, v, do = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d),
+                         (b, h, s, d)], dtype, seed, dev)
+    opts = (kw.get("causal", True), kw.get("window"), kw.get("softcap"))
+    runs = [fl_ops._launch_backward(q, k, v, do, *opts) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(*runs)):
+        fail(f"{where}: two flash backward calls at {shape} differ")
+    want = flash_bwd_plain(*(x.double() for x in (q, k, v, do)), **kw)
+    plain32 = flash_bwd_plain(*(x.float() for x in (q, k, v, do)), **kw)
+    rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    errs, notes = [], []
+    for part, got, w, p in zip("qkv", runs[0], want, plain32):
+        e32 = float((p.double() - w).abs().max())
+        err = (got.double() - w).abs()
+        if not bool((err <= 4 * e32 + 1e-7 + rel * w.abs()).all()):
+            fail(f"{where}: flash backward d{part} at {shape} {dtype} {kw} "
+                 f"off by up to {float(err.max())} (the f32 plain "
+                 f"backward's own error {e32})")
+        errs.append(float(err.max()))
+        notes.append(f"d{part} {errs[-1]:.3g} (plain f32 {e32:.3g})")
+    return (q, k, v, do), errs, notes
+
+
 def flash_backward(dev):
     """Phase 43: the flash backward kernel against its plain backward on
     the card at ``FLASH_BWD``'s shapes.  Bar: the plain backward computed
@@ -1400,28 +1442,9 @@ def flash_backward(dev):
         b, h, kv, s, t, d = shape
         dtype = getattr(torch, dt)
         causal, window = kw.get("causal", True), kw.get("window")
-        q, k, v, do = randn([(b, h, s, d), (b, kv, t, d), (b, kv, t, d),
-                             (b, h, s, d)], dtype, 43 + s, dev)
         opts = (causal, window, kw.get("softcap"))
-        runs = [fl_ops._launch_backward(q, k, v, do, *opts) for _ in range(2)]
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, c) for a, c in zip(*runs)):
-            fail(f"phase 43: two backward calls at {shape} differ")
-        want = flash_bwd_plain(*(x.double() for x in (q, k, v, do)), **kw)
-        plain32 = flash_bwd_plain(*(x.float() for x in (q, k, v, do)),
-                                  **kw)
-        rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
-        errs, notes = [], []
-        for part, got, w, p in zip("qkv", runs[0], want, plain32):
-            e32 = float((p.double() - w).abs().max())
-            err = (got.double() - w).abs()
-            if not bool((err <= 4 * e32 + 1e-7 + rel * w.abs()).all()):
-                fail(f"phase 43: flash backward d{part} at {shape} {dt} "
-                     f"{kw} off by up to {float(err.max())} (the f32 plain "
-                     f"backward's own error {e32})")
-            errs.append(float(err.max()))
-            notes.append(f"d{part} {errs[-1]:.3g} (plain f32 {e32:.3g})")
-        del runs, want, plain32
+        (q, k, v, do), errs, notes = flash_bwd_check(
+            "phase 43", shape, dtype, kw, 43 + s, dev)
         kern = median_ms(lambda: fl_ops._launch_backward(q, k, v, do, *opts),
                          reps=5, inner=2)
         parts = {}
@@ -1478,7 +1501,7 @@ def scan_bwd_close(name, got, want, plain, dtype,
         e32 = float((p.double() - w).abs().max())
         err = (g.double() - w).abs()
         if not bool((err <= 4 * e32 + 1e-7 + rel * w.abs()).all()):
-            fail(f"phase 46: {name} {part} off by up to {float(err.max())} "
+            fail(f"{name} {part} off by up to {float(err.max())} "
                  f"(the f32 plain backward's own error {e32})")
         worst = max(worst, float(err.max()))
         notes.append(f"{part} {float(err.max()):.3g} (plain f32 {e32:.3g})")
@@ -1515,6 +1538,38 @@ def ssd_bwd_bound(shape, chunk, dtype, with_state):
     return t_ops, "operations", nbytes, flops
 
 
+def ssd_bwd_check(where, label, shape, chunk, dtype, kw, seed, dev):
+    """The SSD backward kernel at ``shape`` (b, s, h, p, n), ``chunk`` and
+    ``dtype`` on inputs drawn from ``seed`` as phase 46 draws them
+    (``kw``: ``jax``, the JAX tests' decays; ``offset``, x, B and C at an
+    odd element offset; ``d_state``, a gradient of the final state),
+    against its plain backward: phase 46's bar (``scan_bwd_close``) and
+    equal bits in two calls.  Returns the inputs ((x, dt, A, B, C, D), dy,
+    d_state, the chunk's rows), the largest error, a note of each output,
+    and (the kernel's outputs, the f64 and the f32 plain backward's)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    args = ssd_inputs(shape, seed, dev, dtype, not kw.get("jax"),
+                      kw.get("offset", 0))
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    dy = torch.randn(args[0].shape, generator=gen, device=dev).to(dtype)
+    ds = (torch.randn(shape[0], shape[2], shape[3], shape[4], generator=gen,
+                      device=dev) if kw.get("d_state") else None)
+    q = min(chunk, shape[1])
+    runs = [ssd_ops._launch_backward(*args, dy, ds, q) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(*runs)):
+        fail(f"{where}: two SSD backward calls at {shape} {dtype} differ")
+    want, plain32 = (ssd_ref.ssd_backward_reference(
+        *(t.to(f) for t in args + (dy,)), chunk=chunk,
+        d_state=None if ds is None else ds.to(f))
+        for f in (torch.float64, torch.float32))
+    err, notes = scan_bwd_close(f"{where}: SSD {label} {shape} {dtype}",
+                                runs[0], want, plain32, dtype)
+    return (args, dy, ds, q), err, notes, (runs[0], want, plain32)
+
+
 def scan_backward(dev):
     """Phase 46: the SSD backward kernel at ``SSD_BWD``'s shapes and the
     RG-LRU backward kernel at ``LRU_BWD``'s against their plain backwards
@@ -1535,27 +1590,9 @@ def scan_backward(dev):
     t0 = time.perf_counter()
     rows = {}
     for label, shape, chunk, dt, kw in SSD_BWD:
-        dtype = getattr(torch, dt)
-        x, dtv, A, B, C, D = ssd_inputs(shape, 46 + sum(shape), dev, dtype,
-                                        not kw.get("jax"),
-                                        kw.get("offset", 0))
-        gen = torch.Generator(device=dev).manual_seed(sum(shape))
-        dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
-        ds = (torch.randn(shape[0], shape[2], shape[3], shape[4],
-                          generator=gen, device=dev)
-              if kw.get("d_state") else None)
-        q = min(chunk, shape[1])
-        args = (x, dtv, A, B, C, D)
-        runs = [ssd_ops._launch_backward(*args, dy, ds, q) for _ in range(2)]
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, c) for a, c in zip(*runs)):
-            fail(f"phase 46: two SSD backward calls at {shape} {dt} differ")
-        want, plain32 = (ssd_ref.ssd_backward_reference(
-            *(t.to(f) for t in args + (dy,)), chunk=chunk,
-            d_state=None if ds is None else ds.to(f))
-            for f in (torch.float64, torch.float32))
-        err, notes = scan_bwd_close(f"SSD {label} {shape} {dt}", runs[0],
-                                    want, plain32, dtype)
+        (args, dy, ds, q), err, notes, (got, want, plain32) = ssd_bwd_check(
+            "phase 46", label, shape, chunk, getattr(torch, dt), kw,
+            46 + sum(shape), dev)
         line = (f"ssd backward {label} {shape} chunk {chunk} {dt}"
                 f"{' with d_state' if ds is not None else ''}: max err "
                 f"against f64: {notes}; equal bits in two calls")
@@ -1564,12 +1601,12 @@ def scan_backward(dev):
             # 256-row chunk: added in f64, dA lies nearer f64 than the f32
             # plain backward's
             e_da, e32_da = (float((g[2].double() - want[2]).abs().max())
-                            for g in (runs[0], plain32))
+                            for g in (got, plain32))
             if not e_da < e32_da:
                 fail(f"phase 46: SSD {label} {shape} {dt} dA off by {e_da}, "
                      f"the f32 plain backward's by {e32_da}")
             line += f"; dA nearer f64 than the f32 plain's"
-        del runs, want, plain32
+        del got, want, plain32
         if label == "mamba2-370m":
             def kernel():
                 return ssd_ops._launch_backward(*args, dy, ds, q)
@@ -1593,7 +1630,7 @@ def scan_backward(dev):
                      f"gradient)")
             rows.setdefault("ssd_scan_bwd", (kern, plain, bnd, by, err))
         print(line)
-        del x, dtv, A, B, C, D, dy, ds, args
+        del dy, ds, args
         torch.cuda.empty_cache()
 
     import numpy as np
@@ -1619,8 +1656,8 @@ def scan_backward(dev):
         want = [t for t in lru_ref.linear_scan_backward_reference(
             a.double(), h64, dh.double(),
             None if h0 is None else h0.double()) if t is not None]
-        err, notes = scan_bwd_close(f"RG-LRU {shape}", runs[0], want,
-                                    plain32, torch.float32,
+        err, notes = scan_bwd_close(f"phase 46: RG-LRU {shape}", runs[0],
+                                    want, plain32, torch.float32,
                                     ("da", "db", "dh0"))
         line = (f"rglru backward {shape} h0={with_h0}: equal to the f32 plain "
                 f"backward bit for bit and in two calls; max err against "
@@ -1767,19 +1804,34 @@ def trained_kernels(cfg):
     return mods, per
 
 
-class ExpertIds:
+class Routes:
     """While entered, records the expert ids [T, k] of every
-    ``route_topk`` call, on the host, in call order."""
+    ``route_topk`` call, on the host, in call order.  Given ``ids`` (a list
+    of [T, k] in call order: another run's record), each call takes the
+    next of them in place of its own top-k instead, with weights from its
+    own router probabilities renormalised over them, and ``moved`` counts
+    the tokens whose own top-k holds other experts."""
+
+    def __init__(self, ids=None):
+        self.replay = None if ids is None else list(ids)
+        self.ids, self.moved = [], 0
 
     def __enter__(self):
         from repro_torch.models import moe
-        self.ids, self._mod, self._real = [], moe, moe.route_topk
+        self._mod, self._real = moe, moe.route_topk
+        replay = None if self.replay is None else iter(self.replay)
 
-        def recorded(*args):
-            out = self._real(*args)
-            self.ids.append(out[1].detach().cpu())
-            return out
-        moe.route_topk = recorded
+        def routed(router_w, x_flat, top_k):
+            weights, own, probs = self._real(router_w, x_flat, top_k)
+            if replay is None:
+                self.ids.append(own.detach().cpu())
+                return weights, own, probs
+            ids = next(replay).to(x_flat.device)
+            self.moved += int((own.sort(dim=-1).values
+                               != ids.sort(dim=-1).values).any(-1).sum())
+            w = probs.gather(1, ids)
+            return w / w.sum(dim=-1, keepdim=True), ids, probs
+        moe.route_topk = routed
         return self
 
     def __exit__(self, *exc):
@@ -1791,8 +1843,10 @@ class StepGradients:
     ``make_train_step`` hands to its AdamW update.  With ``params`` (a
     tree on the card), the update runs there on them and the state the
     step was given, from the gradients moved to the card: AdamW's
-    arithmetic is the same on both devices (phase 26 holds it bit for
-    bit), and a CPU update of a G-parameter cut takes half a minute."""
+    arithmetic is the same on both devices (phase 26 holds it bit for bit
+    on these models' trees with the step's decay rule,
+    ``ADAMW_LM_ARCHS``), and a CPU update of a G-parameter cut takes half
+    a minute."""
 
     def __init__(self, params=None):
         self.params = params
@@ -1921,7 +1975,7 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     for dev, p in masters.items():
         t1 = time.perf_counter()
         zero_counts(mods)
-        with ExpertIds() as rec, MoeForms() as form, \
+        with Routes() as rec, MoeForms() as form, \
                 StepGradients(update[dev]) as step:
             out[dev] = make_train_step(
                 cfg, opt, num_microbatches=microbatches)(
@@ -2007,36 +2061,6 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     phase(name, t0)
 
 
-class ForcedRoutes:
-    """While entered, each ``route_topk`` call takes the next expert ids
-    of ``ids`` (a list of [T, k], in call order: another run's) in place
-    of its own top-k, with weights from its own router probabilities
-    renormalised over them; ``moved`` counts the tokens whose own top-k
-    holds other experts."""
-
-    def __init__(self, ids):
-        self.ids, self.moved = list(ids), 0
-
-    def __enter__(self):
-        import torch
-        from repro_torch.models import moe
-        self._mod, self._real = moe, moe.route_topk
-        it = iter(self.ids)
-
-        def forced(router_w, x_flat, top_k):
-            _, own, probs = self._real(router_w, x_flat, top_k)
-            ids = next(it).to(x_flat.device)
-            self.moved += int((own.sort(dim=-1).values
-                               != ids.sort(dim=-1).values).any(-1).sum())
-            w = probs.gather(1, ids)
-            return w / w.sum(dim=-1, keepdim=True), ids, probs
-        moe.route_topk = forced
-        return self
-
-    def __exit__(self, *exc):
-        self._mod.route_topk = self._real
-
-
 def moe_bf16_train_step(dev) -> None:
     """Phase 44's bf16 case: granite-moe-1b-a400m cut to two layers at full
     width, its layers in bf16 from the same f32 masters on the card and
@@ -2044,7 +2068,7 @@ def moe_bf16_train_step(dev) -> None:
     ``SORTED_MIN_MACS``, so the card runs the sorted form (grouped
     products, their backward ``GroupedMmBackward0`` and the gathers of
     ``_add_in_order``), as the CPU does.  The CPU routes each token to the
-    experts the card chose (``ForcedRoutes``): the random router's
+    experts the card chose (``Routes``): the random router's
     probabilities lie so close together that bf16 rounding upstream moves
     a fifth of the tokens to other experts (158 and 792 of 4096 in the
     two layers, NVIDIA H100 80GB HBM3, 700 W), and each run then lands as
@@ -2083,7 +2107,7 @@ def moe_bf16_train_step(dev) -> None:
         leaves = tree_leaves(p)
         for x in leaves:
             x.requires_grad_(True)
-        routes = ExpertIds() if d == "cuda" else ForcedRoutes(card_ids)
+        routes = Routes(None if d == "cuda" else card_ids)
         with routes, MoeForms() as form, \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -2249,13 +2273,17 @@ def train_moe_full(dev):
     ``train_main``'s checks (24 flash forward and backward launches a
     step), every MoE layer of every step runs the sorted form (24 a step,
     no every-expert call) and its three grouped products on the card under
-    autograd, whose backward runs in the step.  Returns the flash
-    launches."""
+    autograd, whose backward runs in the step; the flash kernel and its
+    backward held to their plain versions at the shapes the run gave them
+    (``MainPathShapes``).  Returns the flash launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fl_ops
     t0 = time.perf_counter()
     steps = int(MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--steps") + 1])
     layers = get_config(GRANITE).num_layers
-    with MoeForms() as forms:
+    with MoeForms() as forms, MainPathShapes(
+            {"flash_attention": fl_ops},
+            trained=("flash_attention",)) as shapes_seen:
         launches = train_main(MOE_TRAIN_ARGV, "phase 49")
     want = (layers * steps, 0, 3 * layers * steps)
     got = (forms.sorted, forms.every, forms.grouped)
@@ -2265,6 +2293,10 @@ def train_moe_full(dev):
     print(f"phase 49: {GRANITE}'s MoE layers ran the sorted form "
           f"{got[0]} times, the every-expert form 0, grouped products "
           f"under autograd {got[2]} (their backward in each step)")
+    print(f"phase 49: the flash kernel and its backward at the "
+          f"{len(shapes_seen.seen)} (shape, options) the run launched them "
+          f"at, on seeded inputs, against their plain versions:")
+    shapes_seen.check(dev)
     phase(f"49 train.py, {GRANITE} at full width", t0)
     return launches["flash_attention"]
 
@@ -3882,13 +3914,10 @@ def traffic_plane(params, dev, canny_ops):
     return n_canny
 
 
-#: phase 26: the reference's training run cut to half its 700 steps, for
-#: the script's time (phases 44, 48 and 49 take ~240 s more than they
-#: did; at 700 steps phase 26 took 125 s of a 922.7 s run on an NVIDIA
-#: H100 80GB HBM3 at 700 W, and up to 211 s on slower hosts), and the
+#: phase 26: the reference's training run (700 steps a detector), and the
 #: paper's router matrix (benchmarks/common.py's router_matrix) over
 #: Figs. 6-8's datasets
-TRAIN_STEPS = 350
+TRAIN_STEPS = 700
 PAPER_ROWS = ("Orc", "RR", "Rnd", "LE", "LI", "HM", "HMG", "ED", "SF", "OB")
 FIGURES = (("fig6", "full_dataset", dict(n=300, seed=31)),
            ("fig7", "balanced_sorted_dataset", dict(per_group=50, seed=32)),
@@ -3950,33 +3979,67 @@ def train_testbed(dev):
     return loaded, out
 
 
+#: phase 26's AdamW check on LM trees: phase 44's models, whose CPU step
+#: applies its update on the card (``StepGradients``)
+ADAMW_LM_ARCHS = ("qwen2.5-3b", WHISPER, "mamba2-370m", "recurrentgemma-2b",
+                  GRANITE, DSV2, LLAVA)
+
+
 def adamw_card_vs_cpu(dev) -> None:
-    """``adamw_update`` on the card equals the CPU's bit for bit over 30
-    unclipped steps of the training's settings, on yolov8_m's parameter
-    shapes and seeded gradients."""
+    """``adamw_update`` on the card equals the CPU's bit for bit (the
+    parameters and both moments) over 30 unclipped steps of seeded
+    gradients: on yolov8_m's parameters at the detectors' settings, and on
+    the f32 masters of each of ``ADAMW_LM_ARCHS`` (reduced) at the LM
+    step's weight decay and decay rule (``decays_as_stacked``: every leaf
+    of a layer, its norms and biases too, and the expert and shared
+    leaves), so that phase 44 may apply the CPU step's update on the
+    card."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.detection.detectors import DETECTOR_CONFIGS, init_detector
-    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
-                                         init_opt_state)
-    cfg = AdamWConfig(peak_lr=5e-3, warmup_steps=20, total_steps=30,
-                      weight_decay=1e-4, clip_norm=None)
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        model = init_detector(DETECTOR_CONFIGS["yolov8_m"], 0)
-        gen = torch.Generator().manual_seed(0)
-        p = {k: v.detach().to(where) for k, v in model.named_parameters()}
-        opt = init_opt_state(p)
-        for _ in range(30):
-            g = {k: (torch.randn(v.shape, generator=gen) * 1e-2).to(where)
-                 for k, v in p.items()}
-            p, opt, _ = adamw_update(cfg, p, g, opt)
-        out[where.type] = p
-    bad = [k for k in out["cpu"] if not torch.equal(out[dev.type][k].cpu(),
-                                                     out["cpu"][k])]
-    if bad:
-        fail(f"adamw_update on {dev} differs from the cpu's in {bad}")
-    print(f"adamw: 30 steps on {dev} == cpu bit for bit over "
-          f"{len(out['cpu'])} tensors")
+    from repro_torch.launch.steps import decays_as_stacked
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import (AdamWConfig, _walk, adamw_update,
+                                         decays_matrices, init_opt_state,
+                                         tree_leaves, tree_paths,
+                                         tree_unflatten)
+    model = init_detector(DETECTOR_CONFIGS["yolov8_m"], 0)
+    trees = [("yolov8_m", {k: v.detach() for k, v in
+                           model.named_parameters()},
+              AdamWConfig(peak_lr=5e-3, warmup_steps=20, total_steps=30,
+                          weight_decay=1e-4, clip_norm=None), None)]
+    trees += [(arch, init_params(get_config(arch).reduced(), seed=26,
+                                 device="cpu", keep_f32=True),
+               AdamWConfig(peak_lr=1e-3, warmup_steps=20, total_steps=30,
+                           clip_norm=None), decays_as_stacked)
+              for arch in ADAMW_LM_ARCHS]
+    notes = []
+    for name, tree, cfg, decays in trees:
+        kw = {} if decays is None else {"decays": decays}
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            gen = torch.Generator().manual_seed(0)
+            p = tree_unflatten(tree, [x.clone().to(where)
+                                      for x in tree_leaves(tree)])
+            opt = init_opt_state(p)
+            for _ in range(30):
+                g = tree_unflatten(p, [
+                    (torch.randn(x.shape, generator=gen) * 1e-2).to(where)
+                    for x in tree_leaves(p)])
+                p, opt, _ = adamw_update(cfg, p, g, opt, **kw)
+            out[where.type] = [x.cpu() for t in (p, opt.mu, opt.nu)
+                               for x in tree_leaves(t)]
+        paths = tree_paths(tree)
+        bad = [paths[i % len(paths)] for i, (a, c) in enumerate(
+            zip(out[dev.type], out["cpu"])) if not torch.equal(a, c)]
+        if bad:
+            fail(f"adamw_update on {dev} differs from the cpu's on {name} "
+                 f"in {bad}")
+        decayed = sum((decays or decays_matrices)(q, x)
+                      for q, x in _walk(tree))
+        notes.append(f"{name} ({len(paths)} leaves, {decayed} decayed)")
+    print(f"adamw: 30 steps on {dev} == cpu bit for bit (parameters and "
+          f"moments) over " + ", ".join(notes))
 
 
 def paper_gateway(row, table, params, dev, delta=5.0):
@@ -4613,59 +4676,76 @@ PLAIN_PIECE_BYTES = 2**31
 
 
 class MainPathShapes:
-    """While entered, records the LLM kernels' launches by shape, dtype
-    and options (the decode kernel's with its first ``lengths``), so that
-    ``check`` holds each kernel to its plain version at every shape the
-    main path gave it, on seeded inputs of those shapes."""
+    """While entered, records the LLM kernels' launches on the card by
+    shape, dtype and options (the decode kernel's with its first
+    ``lengths``), and the backward launches of the kernels named in
+    ``trained``, so that ``check`` holds each kernel, and each of those
+    backwards, to its plain version at every shape the main path gave it,
+    on seeded inputs of those shapes.  Calls on the meta device (the dry
+    run's memory count) launch nothing and are not recorded."""
 
-    def __init__(self, mods):
-        self.mods, self.seen, self._real = mods, {}, {}
+    def __init__(self, mods, trained=()):
+        self.mods, self.trained, self.seen, self._real = mods, trained, {}, {}
 
     @staticmethod
     def key(name, args):
+        """The launch's shapes, dtype and options; the same key for a
+        forward launch and a backward one."""
         if name == "flash_attention":
-            q, k, _, causal, window, softcap = args
-            return (tuple(q.shape), tuple(k.shape), q.dtype, causal, window,
-                    softcap)
+            q, k = args[:2]
+            return (tuple(q.shape), tuple(k.shape), q.dtype, *args[-3:])
         if name == "decode_attention":
             q, k, _, _, window, softcap = args
             return tuple(q.shape), tuple(k.shape), q.dtype, window, softcap
         if name == "ssd_scan":
-            x, _, _, B, _, _, chunk = args
-            return tuple(x.shape), B.shape[-1], x.dtype, chunk
-        a, _, h0 = args
+            x, B = args[0], args[3]
+            if len(args) == 7:                        # forward: the chunk
+                return tuple(x.shape), B.shape[-1], x.dtype, args[6]
+            return (tuple(x.shape), B.shape[-1], x.dtype, args[8],
+                    args[7] is not None)
+        a, h0 = args[0], args[-1]
         return tuple(a.shape), a.dtype, h0 is not None
 
     def __enter__(self):
         for name, m in self.mods.items():
-            self._real[name] = m._launch
-            m._launch = self._recording(name, m._launch)
+            for attr in ("_launch", "_launch_backward")[
+                    :2 if name in self.trained else 1]:
+                self._real[name, attr] = getattr(m, attr)
+                setattr(m, attr, self._recording(
+                    name, attr == "_launch_backward", getattr(m, attr)))
         return self
 
-    def _recording(self, name, launch):
+    def _recording(self, name, backward, launch):
         def recorded(*args):
-            key = (name, self.key(name, args))
-            if key not in self.seen:
+            key = (name, backward, self.key(name, args))
+            if not args[0].is_meta and key not in self.seen:
                 self.seen[key] = (args[3].clone() if name == "decode_attention"
                                   else None)
             return launch(*args)
         return recorded
 
     def __exit__(self, *exc):
-        for name, m in self.mods.items():
-            m._launch = self._real[name]
+        for (name, attr), fn in self._real.items():
+            setattr(self.mods[name], attr, fn)
 
     def check(self, dev) -> None:
         import torch
-        missing = set(self.mods) - {name for name, _ in self.seen}
+        missing = ({(n, False) for n in self.mods}
+                   | {(n, True) for n in self.trained}) \
+            - {(name, bwd) for name, bwd, _ in self.seen}
         if missing:
-            fail(f"dry run: no launch of {sorted(missing)} recorded")
-        for (name, key), lengths in self.seen.items():
+            fail(f"no launch of (kernel, backward) {sorted(missing)} "
+                 f"recorded on the main path")
+        checks = {("flash_attention", False): flash_at,
+                  ("flash_attention", True): flash_bwd_at,
+                  ("decode_attention", False): decode_at,
+                  ("ssd_scan", False): ssd_at, ("ssd_scan", True): ssd_bwd_at,
+                  ("rglru_scan", False): lru_at}
+        for (name, backward, key), lengths in self.seen.items():
             t0 = time.perf_counter()
-            what = {"flash_attention": flash_at, "decode_attention": decode_at,
-                    "ssd_scan": ssd_at, "rglru_scan": lru_at}[name](
-                        dev, key, lengths)
-            print(f"  {name} {what} ({time.perf_counter() - t0:.1f} s)")
+            what = checks[name, backward](dev, key, lengths)
+            print(f"  {name}{' backward' if backward else ''} {what} "
+                  f"({time.perf_counter() - t0:.1f} s)")
             torch.cuda.empty_cache()
 
 
@@ -4720,6 +4800,31 @@ def flash_at(dev, key, _):
     return (f"{qs} over {ks} {dtype} causal {causal} window {window} "
             f"softcap {softcap}: max err {err:.3g} (plain in {dtype}), "
             f"{err32:.3g} (f32)")
+
+
+def flash_bwd_at(dev, key, _):
+    """The flash backward kernel at a main-path launch's shapes and
+    options on seeded inputs, against its plain backward at phase 43's
+    bar (``flash_bwd_check``)."""
+    (b, h, s, d), (_, kv, t, _), dtype, causal, window, softcap = key
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, _, notes = flash_bwd_check("main path", (b, h, kv, s, t, d), dtype,
+                                  kw, 48, dev)
+    return (f"{(b, h, s, d)} over {(b, kv, t, d)} {dtype} causal {causal} "
+            f"window {window} softcap {softcap}: max err against f64: "
+            + ", ".join(notes) + " (phase 43's bar); equal bits in two calls")
+
+
+def ssd_bwd_at(dev, key, _):
+    """The SSD backward kernel at a main-path launch's shape, state size,
+    dtype and chunk on seeded inputs (mamba2-370m's decays), against its
+    plain backward at phase 46's bar (``ssd_bwd_check``)."""
+    (b, s, h, p), n, dtype, chunk, with_state = key
+    _, _, notes, _ = ssd_bwd_check("main path", "", (b, s, h, p, n), chunk,
+                                   dtype, {"d_state": with_state}, 48, dev)
+    return (f"{(b, s, h, p)} state {n} {dtype} chunk {chunk}"
+            f"{' with d_state' if with_state else ''}: max err against f64: "
+            f"{notes} (phase 46's bar); equal bits in two calls")
 
 
 def decode_at(dev, key, lengths):
@@ -4931,8 +5036,9 @@ def dry_run(dev):
     0 before a call and held to the rows' layers (a training row's per
     micro-batch) after it; one line a row, its roofline share within
     ``ROOFLINE_SHARE_MAX``; a training row's micro-batches and memory
-    (``train_row_memory``); each kernel held to its
-    plain version at every shape the rows launched it at; the counts of
+    (``train_row_memory``); each kernel, and the flash and SSD backward
+    kernels, held to its plain version at every shape the rows launched it
+    at (``MainPathShapes``); the counts of
     ``DRYRUN_SAME`` equal on the card and the CPU.  Returns the artifact's
     path and the launches ({name: (forward, backward)})."""
     import torch
@@ -4945,7 +5051,8 @@ def dry_run(dev):
     steps = 1 + dryrun.REPS + 1   # warm-up, timed, counted
     total = {k: (0, 0) for k in mods}
     rows, bases = [], []
-    shapes_seen = MainPathShapes(mods)
+    shapes_seen = MainPathShapes(mods, trained=("flash_attention",
+                                                "ssd_scan"))
     for label, archs, shapes in DRYRUN_CALLS:
         archs = archs or DEFAULT_POOL
         for m in mods.values():

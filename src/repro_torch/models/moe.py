@@ -29,9 +29,11 @@ d x ff), and the every-expert form on the rest: the grouped product keeps
 its group ends on the card only in bf16 (in f32 it reads them on the
 host), and below that size the sorted form's fixed cost (the sort, the
 gathers, k adds) loses to the every-expert products.  The CPU runs the
-sorted form.  The router stays f32.  ``moe_capacity_local`` runs in
-the reference only under a mesh; here it is a plain function for its
-relations to ``moe_ragged`` and nothing on the serving path calls it.
+sorted form; the meta device, where the dry run measures a training
+step's memory, follows the card's rule (``runs_sorted``).  The router
+stays f32.  ``moe_capacity_local`` runs in the reference only under a
+mesh; here it is a plain function for its relations to ``moe_ragged``
+and nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -145,20 +147,29 @@ def _experts_all(p, x_flat, weights, ids):
         e * ff, d)
 
 
+def runs_sorted(cfg: ModelConfig, x_flat) -> bool:
+    """Whether ``moe_ragged`` runs the sorted form on ``x_flat`` [T, d]:
+    always on the CPU; on any other device (the card, the meta device) on
+    bf16 batches of at least ``SORTED_MIN_MACS`` multiply-adds a
+    product."""
+    t, d = x_flat.shape
+    return x_flat.device.type == "cpu" or (
+        x_flat.dtype == torch.bfloat16
+        and t * cfg.num_experts * d * cfg.moe_d_ff >= SORTED_MIN_MACS)
+
+
 def moe_ragged(p, cfg: ModelConfig, x_flat, *, aux: bool = True):
     """x_flat [T, d] -> (out [T, d] in x's dtype, the load-balance loss, or
     None without ``aux``): every token's top-k experts, SiLU-gated and
     weighted, with no token dropped."""
-    t, d = x_flat.shape
-    e, ff = cfg.num_experts, cfg.moe_d_ff
-    if x_flat.is_cuda and (x_flat.dtype != torch.bfloat16
-                           or t * e * d * ff < SORTED_MIN_MACS):
-        weights, ids, probs = route_topk(p["router"], x_flat, cfg.moe_top_k)
-        out = _experts_all(p, x_flat, weights, ids)
-    else:
+    t = x_flat.shape[0]
+    if runs_sorted(cfg, x_flat):
         sorted_tok, sorted_w, ids, sizes, probs = _dispatch(cfg, p["router"],
                                                             x_flat)
         out = _experts_sorted(p, x_flat, sorted_tok, sorted_w, sizes)
+    else:
+        weights, ids, probs = route_topk(p["router"], x_flat, cfg.moe_top_k)
+        out = _experts_all(p, x_flat, weights, ids)
     return out, (_aux_loss(cfg, ids, probs, t) if aux else None)
 
 

@@ -41,6 +41,7 @@ from repro_torch.launch import dryrun, roofline as rl, serve
 from repro_torch.launch import steps as st
 from repro_torch.launch.cost import StepBytes, StepCost
 from repro_torch.models import init_params, loss_fn, prefill
+from repro_torch.models import moe
 from repro_torch.models.base import INPUT_SHAPES, InputShape
 from repro_torch.optim.adamw import (adamw_update, init_opt_state,
                                      tree_leaves, tree_unflatten)
@@ -374,8 +375,10 @@ def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
     ``TRAIN_BYTES_PER_PARAM`` bytes a parameter (``count_params``) and a
     few scalars: the gradients accumulate in place, no second copy.  The
     skip rule's count (``train_step_bytes``, the step's peak on the meta
-    device) is the peak of the same step run on the CPU; the rule skips a
-    row whose step passes 3/4 of the card although its state fits."""
+    device) is the peak of the same step run on the CPU in the card's MoE
+    form (the meta device follows the card's rule: at 16 tokens the
+    every-expert form); the rule skips a row whose step passes 3/4 of the
+    card although its state fits."""
     cfg = get_config("deepseek-v2-lite-16b").reduced(num_layers=2)
     shape = InputShape("train_4k", 16, 256, "train")
     total = rl.count_params(cfg)["total"]
@@ -398,6 +401,9 @@ def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
         assert 0 <= held[n] - dryrun.TRAIN_BYTES_PER_PARAM * total < 256
     monkeypatch.setattr(st, "adamw_update", real)
 
+    card_rule = moe.runs_sorted
+    monkeypatch.setattr(moe, "runs_sorted",
+                        lambda c, x: card_rule(c, x.to("meta")))
     params = init_params(cfg, dryrun.SEED, "cpu", keep_f32=True)
     state = init_opt_state(params)
     batch = st.batch_inputs(cfg, shape, 2, device="cpu")
@@ -405,6 +411,7 @@ def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
                    + list(batch.values())) as mode:
         st.make_train_step(cfg, dryrun.AdamWConfig(), num_microbatches=2)(
             params, state, batch)
+    monkeypatch.setattr(moe, "runs_sorted", card_rule)
     peak = dryrun.train_step_bytes(cfg, shape)
     assert peak == mode.peak > dryrun.TRAIN_BYTES_PER_PARAM * total
 
@@ -417,6 +424,36 @@ def test_skip_rule_counts_what_a_microbatched_step_holds(monkeypatch):
                              "holds") and "meta device" in reason
     assert "AdamW" in dryrun.skip_reason(
         cfg, shape, chip(dryrun.TRAIN_BYTES_PER_PARAM * total - 1))
+
+
+@pytest.mark.parametrize("dtype,min_macs,form", [
+    ("float32", 0.0, "every"), ("bfloat16", math.inf, "every"),
+    ("bfloat16", 0.0, "sorted")])
+def test_meta_step_runs_the_cards_moe_form(monkeypatch, dtype, min_macs,
+                                           form):
+    """A reduced granite-moe-1b-a400m step of 2 micro-batches on the meta
+    device, as ``train_step_bytes`` runs it, takes the MoE form the card
+    would (every expert in f32 and below ``SORTED_MIN_MACS``, else
+    sorted), so that the skip rule counts that form's activations; the
+    same step on the CPU runs the sorted form."""
+    cfg = dataclasses.replace(
+        get_config("granite-moe-1b-a400m").reduced(num_layers=2),
+        activ_dtype=dtype)
+    monkeypatch.setattr(moe, "SORTED_MIN_MACS", min_macs)
+    calls = Counter()
+    for name in ("_experts_sorted", "_experts_all"):
+        def counted(*args, _real=getattr(moe, name), _name=name):
+            calls[_name, args[1].device.type] += 1
+            return _real(*args)
+        monkeypatch.setattr(moe, name, counted)
+    shape = InputShape("train_4k", 16, 2, "train")
+    for device in ("meta", "cpu"):
+        params = init_params(cfg, dryrun.SEED, device, keep_f32=True)
+        st.make_train_step(cfg, dryrun.AdamWConfig(), num_microbatches=2)(
+            params, init_opt_state(params),
+            st.batch_inputs(cfg, shape, 2, device=device))
+    ran = "_experts_sorted" if form == "sorted" else "_experts_all"
+    assert calls == Counter({(ran, "meta"): 4, ("_experts_sorted", "cpu"): 4})
 
 
 def test_kernels_on_the_meta_device_allocate_and_launch_nothing():
