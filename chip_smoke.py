@@ -320,7 +320,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     qwen2.5-3b's training batch in bf16 and f32, llama3-8b's prefill,
     gemma2-9b's windowed softcapped D = 256 layer, whisper-small's encoder
     and cross-attention, D = 64 at G = 1 with a ragged S in f32 and bf16,
-    D = 32 in bf16): within four times the f32 plain backward's own error
+    D = 32 in bf16, recurrentgemma-2b's local layer over a 4096-token
+    training sequence, G = 10): within four times the f32 plain backward's
+    own error
     (plus bf16's rounding), equal bits in two calls, and the kernel's (the
     dQ and dK/dV kernels' device times apart), the plain backward's and
     ``scaled_dot_product_attention``'s backward times beside the bound;
@@ -336,7 +338,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     MoE cuts' expert ids equal (the card's every-expert form, the CPU's
     sorted form), each kernel's forward and backward launches counted by
     layer kind (flash a attention layer, SSD an ssm layer, RG-LRU a rec
-    layer), and ``make_train_step``'s metrics, moments and updated
+    layer; the published configs' ``remat`` runs each forward twice, its
+    recompute inside the backward, but whisper-small's), and
+    ``make_train_step``'s metrics, moments and updated
     parameters at the same bars (the CPU step's update applied on the card
     to a copy of its masters; phase 26 holds that update equal to the
     CPU's bit for bit on these models' trees); qwen2.5-3b again over 4 x
@@ -345,11 +349,12 @@ Phases, each printed as it ends; any failure exits non-zero:
     products' backward on the card, the CPU on the card's experts, at the
     bf16 gradient bar (``moe_bf16_train_step``);
 45. ``launch/train.py`` on qwen2.5-3b at full width and depth (``--full
-    --steps 20 --batch 8 --seq 128 --device cuda``, as a user calls it):
+    --steps 10 --batch 8 --seq 128 --device cuda``, as a user calls it):
     every loss finite, the mean of the last five below the first five's,
-    36 flash forward and 36 backward launches a step (the counts at 0
-    just before the run and read just after), the step time, tokens/s,
-    the peak device memory and the host syncs of each step;
+    72 flash forward (each layer's, and its recompute under remat) and 36
+    backward launches a step (the counts at 0 just before the run and
+    read just after), the step time, tokens/s, the peak device memory and
+    the host syncs of each step;
 46. the SSD and RG-LRU backward kernels (``csrc/ssd_scan_bwd.cu``,
     ``rglru_scan_backward`` in ``csrc/rglru_scan.cu``) against their plain
     backwards computed in f64 on the card (``SSD_BWD``: mamba2-370m's
@@ -363,48 +368,57 @@ Phases, each printed as it ends; any failure exits non-zero:
     kernel's call and device time (the SSD's six kernels apart), the
     plain backward's time and the bound at the training shape;
 47. ``launch/train.py`` at full width and depth on mamba2-370m (``--steps
-    20 --batch 8 --seq 512``) and then, its memory released,
+    10 --batch 8 --seq 512``) and then, its memory released,
     recurrentgemma-2b (``--steps 10 --batch 8 --seq 128``): every loss
-    finite and falling, each kernel's forward and backward launches one
-    per layer of its kind a step, the step time, tokens/s, the peak
-    device memory and the host syncs of each step;
+    finite and falling, each kernel's backward launches one per layer of
+    its kind a step and its forward two (remat), the step time, tokens/s,
+    the peak device memory and the host syncs of each step;
 48. the dry run on the card (``repro_torch.launch.dryrun.main``,
     ``DRYRUN_CALLS``): the five models of the default pool at full width
     and depth at ``prefill_32k`` (batch 1) and ``decode_32k`` (the batch
     that fits 3/4 of the card), mamba2-370m at ``train_4k`` and
-    ``long_500k``, granite-moe-1b-a400m and whisper-small at
-    ``train_4k`` (a training row runs the reference's 4, 8 or 16
-    micro-batches of one sequence, its peak within 2 % + 0.5 GiB of the
-    skip rule's count, the step's peak on the meta device),
+    ``long_500k``, granite-moe-1b-a400m, whisper-small, qwen2.5-3b and
+    recurrentgemma-2b at ``train_4k`` (a training row runs the
+    reference's 4, 8 or 16 micro-batches of one sequence, rematerialised
+    but whisper-small's, its peak within 2 % + 0.5 GiB of the skip rule's
+    count, the step's peak on the meta device),
     llama3-8b's ``long_500k`` skip row; each
     kernel's launches counted per call and held to the rows' layers
     (warm-up, 3 timed and 1 counted step a row, a training row's once a
-    micro-batch); one line a row (batch, counted
+    micro-batch, twice in the forward under remat); one line a row
+    (batch, counted
     operations and bytes, each roofline term, t_step, the measured step
     and their ratio, at most ``ROOFLINE_SHARE_MAX``, peak memory,
     energy); each kernel held to its plain version at every shape and
     option its rows launched it at (``MainPathShapes``: flash at 32 768
     rows, decode over 32 768 cache rows, the SSD at 4096 and 32 768
-    tokens, the RG-LRU at 32 768), and the flash and SSD backward kernels
-    at every shape the training rows launched them at (granite's 4096
-    rows, whisper-small's 4096 decoder rows, its encoder's 1500 frames and
-    the cross-attention over them, mamba2-370m's 4096 tokens) at phases
-    43's and 46's bars, on seeded inputs, the plain versions
+    tokens, the RG-LRU at 32 768 and 4096), and the flash, SSD and RG-LRU
+    backward kernels at every shape the training rows launched them at
+    (granite's and qwen2.5-3b's 4096 rows, recurrentgemma-2b's windowed
+    4096 rows and its RG-LRU over 4096 tokens, whisper-small's 4096
+    decoder rows, its encoder's 1500 frames and the cross-attention over
+    them, mamba2-370m's 4096 tokens) at phases 43's and 46's bars, on
+    seeded inputs, the plain versions
     run by pieces (``flash_plain_rows``, the SSD a group of heads at a
     time);
-    the counts of five reduced combinations (``DRYRUN_SAME``: prefill,
-    decode and training) equal on the card and the CPU.  Then
+    the counts of seven reduced combinations (``DRYRUN_SAME``: prefill,
+    decode and training, two training steps under remat) equal on the
+    card and the CPU.  Then
     phase 31's run (i): the serve driver on phase 48's rows
     (``--dryrun-mesh 1x1 --requests 24 --delta 5``), over the 5 backends,
     its routes equal to the CPU policy's over the same rows and printed
     beside run (a)'s on the analytic profile;
 49. ``launch/train.py`` on granite-moe-1b-a400m at full width and depth
-    (``MOE_TRAIN_ARGV``: 20 steps of 8 x 512 tokens, so every MoE layer
+    (``MOE_TRAIN_ARGV``: 10 steps of 8 x 512 tokens, so every MoE layer
     runs the sorted form and its backward): the checks of phases 45 and
-    47 (24 flash forward and backward launches a step), the sorted form
-    480 times and 1440 grouped products under autograd on the card; the
-    flash kernel and its backward held to their plain versions at the
-    run's shapes (``MainPathShapes``, phase 43's bar for the backward).
+    47 (48 flash forward and 24 backward launches a step), the sorted
+    form 480 times (forward and recompute) and 1440 grouped products under
+    autograd on the card; the flash kernel and its backward held to their
+    plain versions at the run's shapes (``MainPathShapes``, phase 43's bar
+    for the backward); then one loss and gradient at that size with and
+    without remat from the same masters (``moe_remat_against_kept``):
+    expert ids equal in the forward, its recompute and the kept run, the
+    gradients bit for bit or within the bf16 bar.
 
 Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
 same policy's decision on the CPU.  It then prints one JSON line with
@@ -552,8 +566,10 @@ NONCAUSAL_FLASH = (((2, 8, 2, 100, 300, 128), {}),
 #: and f32, llama3-8b's prefill shape, gemma2-9b's windowed softcapped
 #: D = 256 layer at 2 x 6144, whisper-small's encoder over its 1500 frames
 #: and its prompt's cross-attention over them (not causal), and D = 64 at
-#: G = 1 with a ragged S (f32 and bf16), and D = 32 (bf16, padded to 64
-#: columns in the tensor-core kernels)
+#: G = 1 with a ragged S (f32 and bf16), D = 32 (bf16, padded to 64
+#: columns in the tensor-core kernels), and recurrentgemma-2b's local
+#: layer over a 4096-token training sequence (10 heads on one KV head: a
+#: dK/dV sum over 10 x 4096 rows)
 FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
              ("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "float32", {}),
              ("llama3-8b", (2, 32, 8, 1024, 1024, 128), "bfloat16", {}),
@@ -565,15 +581,19 @@ FLASH_BWD = (("qwen2.5-3b", (8, 16, 2, 128, 128, 128), "bfloat16", {}),
               {"causal": False}),
              ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "float32", {}),
              ("D 64, G 1, ragged S", (2, 8, 8, 777, 777, 64), "bfloat16", {}),
-             ("D 32", (4, 16, 4, 512, 512, 32), "bfloat16", {}))
-#: phase 45: launch/train.py at full width and depth, as a user calls it
-TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "20", "--batch",
+             ("D 32", (4, 16, 4, 512, 512, 32), "bfloat16", {}),
+             ("recurrentgemma-2b train_4k", (1, 10, 1, 4096, 4096, 256),
+              "bfloat16", {"window": 2048}))
+#: phase 45: launch/train.py at full width and depth, as a user calls it;
+#: 10 steps (the training phases' steps were cut from 20 when remat and
+#: phase 48's two new rows brought the script to 949 s of its 1200)
+TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "10", "--batch",
               "8", "--seq", "128", "--device", "cuda"]
 #: phase 49: the same for the MoE family: 8 x 512 = 4096 tokens a
 #: forward, so T E d ff (6.87e10) reaches ``moe.SORTED_MIN_MACS`` and
 #: granite's MoE layers run the sorted form and its backward (at 8 x 128
 #: they would run the every-expert form)
-MOE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--steps", "20", "--batch",
+MOE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--steps", "10", "--batch",
                   "8", "--seq", "512", "--device", "cuda"]
 #: phase 44's bf16 MoE step: 2 x 2048 tokens, the sorted form on the card
 MOE_BF16_BATCH = (2, 2048)
@@ -581,7 +601,7 @@ MOE_BF16_BATCH = (2, 2048)
 #: f32 layers over 2 x 2912 rows at d 7168 take minutes on the CPU side)
 LLAVA_TRAIN_PREFIX = 64
 #: phase 47: the same for the two state-space families
-SCAN_TRAIN_ARGV = (["--arch", "mamba2-370m", "--full", "--steps", "20",
+SCAN_TRAIN_ARGV = (["--arch", "mamba2-370m", "--full", "--steps", "10",
                     "--batch", "8", "--seq", "512", "--device", "cuda"],
                    ["--arch", "recurrentgemma-2b", "--full", "--steps", "10",
                     "--batch", "8", "--seq", "128", "--device", "cuda"])
@@ -1570,6 +1590,43 @@ def ssd_bwd_check(where, label, shape, chunk, dtype, kw, seed, dev):
     return (args, dy, ds, q), err, notes, (runs[0], want, plain32)
 
 
+def lru_bwd_check(where, shape, with_h0, seed, dev):
+    """The RG-LRU backward kernel at ``shape`` (b, s, w), with or without
+    h0, on phase 17's gate inputs drawn from ``seed`` and a normal
+    cotangent: equal bits in two calls, equal to its f32 plain backward
+    bit for bit, and phase 43's bar against the plain backward in f64
+    (``scan_bwd_close``).  Returns the inputs (a, b, h, dh, h0), the
+    largest error against f64 and a note of each output."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan import ref as lru_ref
+    a, b = lru_gate_inputs(shape, seed, dev)
+    rng = np.random.default_rng(sum(shape))
+    dh = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+    h0 = (torch.from_numpy(rng.standard_normal(
+        (shape[0], shape[2]), np.float32)).to(dev) if with_h0 else None)
+    h = lru_ops.linear_scan(a, b, h0)
+    runs = [lru_ops._launch_backward(a, h, dh, h0) for _ in range(2)]
+    torch.cuda.synchronize()
+    runs = [[t for t in r if t is not None] for r in runs]
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        fail(f"{where}: two RG-LRU backward calls at {shape} differ")
+    plain32 = [t for t in lru_ref.linear_scan_backward_reference(
+        a, h, dh, h0) if t is not None]
+    if not all(torch.equal(x, y) for x, y in zip(runs[0], plain32)):
+        fail(f"{where}: the RG-LRU backward kernel at {shape} h0="
+             f"{with_h0} differs from its f32 plain backward")
+    h64 = lru_ref.linear_scan(a.double(), b.double(),
+                              None if h0 is None else h0.double())
+    want = [t for t in lru_ref.linear_scan_backward_reference(
+        a.double(), h64, dh.double(),
+        None if h0 is None else h0.double()) if t is not None]
+    err, notes = scan_bwd_close(f"{where}: RG-LRU {shape}", runs[0], want,
+                                plain32, torch.float32, ("da", "db", "dh0"))
+    return (a, b, h, dh, h0), err, notes
+
+
 def scan_backward(dev):
     """Phase 46: the SSD backward kernel at ``SSD_BWD``'s shapes and the
     RG-LRU backward kernel at ``LRU_BWD``'s against their plain backwards
@@ -1633,32 +1690,9 @@ def scan_backward(dev):
         del dy, ds, args
         torch.cuda.empty_cache()
 
-    import numpy as np
     for shape, with_h0 in LRU_BWD:
-        a, b = lru_gate_inputs(shape, 46 + sum(shape), dev)
-        rng = np.random.default_rng(sum(shape))
-        dh = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
-        h0 = (torch.from_numpy(rng.standard_normal(
-            (shape[0], shape[2]), np.float32)).to(dev) if with_h0 else None)
-        h = lru_ops.linear_scan(a, b, h0)
-        runs = [lru_ops._launch_backward(a, h, dh, h0) for _ in range(2)]
-        torch.cuda.synchronize()
-        runs = [[t for t in r if t is not None] for r in runs]
-        if not all(torch.equal(x, y) for x, y in zip(*runs)):
-            fail(f"phase 46: two RG-LRU backward calls at {shape} differ")
-        plain32 = [t for t in lru_ref.linear_scan_backward_reference(
-            a, h, dh, h0) if t is not None]
-        if not all(torch.equal(x, y) for x, y in zip(runs[0], plain32)):
-            fail(f"phase 46: the RG-LRU backward kernel at {shape} h0="
-                 f"{with_h0} differs from its f32 plain backward")
-        h64 = lru_ref.linear_scan(a.double(), b.double(),
-                                  None if h0 is None else h0.double())
-        want = [t for t in lru_ref.linear_scan_backward_reference(
-            a.double(), h64, dh.double(),
-            None if h0 is None else h0.double()) if t is not None]
-        err, notes = scan_bwd_close(f"phase 46: RG-LRU {shape}", runs[0],
-                                    want, plain32, torch.float32,
-                                    ("da", "db", "dh0"))
+        (a, b, h, dh, h0), err, notes = lru_bwd_check(
+            "phase 46", shape, with_h0, 46 + sum(shape), dev)
         line = (f"rglru backward {shape} h0={with_h0}: equal to the f32 plain "
                 f"backward bit for bit and in two calls; max err against "
                 f"f64: {notes}")
@@ -1787,20 +1821,32 @@ def zero_counts(mods) -> None:
         m.launches = m.backward_launches = 0
 
 
+def recomputes(cfg) -> int:
+    """How often a training step of ``cfg`` runs each layer's forward: twice
+    under ``cfg.remat`` (the forward, then its recompute in the backward),
+    except in the encdec family, whose blocks the model, as the reference,
+    does not checkpoint; once without."""
+    return 2 if cfg.remat and cfg.family != "encdec" else 1
+
+
 def trained_kernels(cfg):
     """{name: wrapper module} of the kernels with a backward, and {name:
-    the layers of ``cfg`` that launch each once a forward}: flash an
-    attention layer (an encdec model's encoder, self- and
-    cross-attention), SSD an ssm layer, RG-LRU a rec layer."""
+    (forward, backward) launches of a training step of ``cfg`` on one
+    micro-batch}: each kernel once a layer of its kind (flash an attention
+    layer, an encdec model's encoder, self- and cross-attention; SSD an
+    ssm layer; RG-LRU a rec layer) in the backward, and ``recomputes``
+    times in the forward."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     kinds = launch_kinds(cfg)
     mods = {"flash_attention": fl_ops, "ssd_scan": ssd_ops,
             "rglru_scan": lru_ops}
-    per = {"flash_attention": sum(k in ("attn", "local", "enc", "cross")
-                                  for k in kinds),
-           "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+    layers = {"flash_attention": sum(k in ("attn", "local", "enc", "cross")
+                                     for k in kinds),
+              "ssd_scan": kinds.count("ssm"),
+              "rglru_scan": kinds.count("rec")}
+    per = {k: (n * recomputes(cfg), n) for k, n in layers.items()}
     return mods, per
 
 
@@ -1810,7 +1856,11 @@ class Routes:
     of [T, k] in call order: another run's record), each call takes the
     next of them in place of its own top-k instead, with weights from its
     own router probabilities renormalised over them, and ``moved`` counts
-    the tokens whose own top-k holds other experts."""
+    the tokens whose own top-k holds other experts.  Under ``cfg.remat``
+    a step routes each MoE layer twice, in the forward in layer order and
+    in the backward's recompute in reverse: two runs of one config make
+    their calls in the same order, so a record and its replay stay
+    aligned, and the recompute replays the forward's ids."""
 
     def __init__(self, ids=None):
         self.replay = None if ids is None else list(ids)
@@ -1992,7 +2042,7 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
         fail(f"phase 44: {arch} loss {losses['cuda']} on the card, "
              f"{losses['cpu']} on the cpu")
     moe_calls = (len(cfg.layer_kinds) if cfg.num_experts else 0) \
-        * microbatches
+        * microbatches * recomputes(cfg)
     if cfg.num_experts and (
             len(ids["cuda"]) != moe_calls or forms["cuda"] != (
                 0, moe_calls) or forms["cpu"] != (moe_calls, 0)
@@ -2004,7 +2054,8 @@ def train_step_cuda_vs_cpu(arch, num_layers, name, seq=32, batch=2,
     want_g = [exact[i][0] if i in exact else g
               for i, g in enumerate(grads["cpu"])]
     worst = leaves_close(f"{arch} gradient", grads["cuda"], (paths, want_g))
-    want = {k: (n * microbatches, n * microbatches) for k, n in per.items()}
+    want = {k: (f * microbatches, b * microbatches)
+            for k, (f, b) in per.items()}
     if launches["cuda"] != want or any(
             c != (0, 0) for c in launches["cpu"].values()):
         fail(f"phase 44: {arch} launched (forward, backward) "
@@ -2077,7 +2128,9 @@ def moe_bf16_train_step(dev) -> None:
     within the bf16 logits' bar (6.25e-2 + 3e-2 relative) and each
     gradient leaf within 6.25e-2 of its largest |value|
     (``tests/test_torch_lm_bf16_moe.py``'s bar); the grouped products
-    autograd records counted on the card (3 a layer); the card's host
+    autograd records counted on the card (3 a layer, twice under remat:
+    the forward and its recompute in the backward, whose routes the CPU
+    replays in the same call order); the card's host
     syncs in the loss and its gradient, by line; the tokens whose own
     top-k differs on the CPU, printed."""
     import collections
@@ -2129,10 +2182,13 @@ def moe_bf16_train_step(dev) -> None:
         losses[d] = float(loss.detach())
         torch.cuda.synchronize()
         secs[d] = time.perf_counter() - t1
-    if forms["cuda"] != (2, 0, 6) or forms["cpu"][:2] != (2, 0):
+    calls = 2 * recomputes(cfg)
+    if forms["cuda"] != (calls, 0, 3 * calls) or \
+            forms["cpu"][:2] != (calls, 0):
         fail(f"phase 44: bf16 {GRANITE} ran (sorted, every-expert, grouped "
              f"products recorded on the card) {forms}, not the sorted form "
-             f"on both with 6 grouped products on the card")
+             f"{calls} times on both with {3 * calls} grouped products on "
+             f"the card")
     if abs(losses["cuda"] - losses["cpu"]) > 6.25e-2 + 3e-2 * abs(
             losses["cpu"]):
         fail(f"phase 44: bf16 {GRANITE} loss {losses['cuda']} on the card, "
@@ -2144,7 +2200,8 @@ def moe_bf16_train_step(dev) -> None:
           f"tokens, the sorted form on both (grouped products recorded "
           f"on the card: {forms['cuda'][2]}), the cpu on the card's "
           f"experts (its own top-k differs for {routes.moved} of "
-          f"{2 * b * s} tokens over the two layers): loss "
+          f"{calls * b * s} tokens over the two layers' {calls} calls): "
+          f"loss "
           f"{losses['cuda']:.6f} on the card, {losses['cpu']:.6f} on the "
           f"cpu (tolerance 6.25e-2 + 3e-2 relative); gradients within "
           f"{worst:.2e} of each leaf's largest |value| (tolerance "
@@ -2162,7 +2219,8 @@ def train_main(argv, where):
     (full width and depth: f32 masters, bf16 layers).  Every step's loss
     finite, the mean of the last 5 below that of the first 5; each kernel's
     forward and backward launches (``trained_kernels``), counted from 0
-    around the run, one each per layer of its kind a step; each step's host
+    around the run, per layer of its kind a step once in the backward and
+    ``recomputes`` times in the forward; each step's host
     syncs (torch's sync debug mode, inside the train step).  An earlier
     phase's models are freed first, so that the run's peak memory is its
     own.  ``where`` names the phase in failures.  Returns {kernel:
@@ -2221,17 +2279,19 @@ def train_main(argv, where):
     first, last = sum(vals[:5]) / 5, sum(vals[-5:]) / 5
     if not last < first:
         fail(f"{where}: {arch}'s loss did not fall: {vals}")
-    want = {k: (n * steps, n * steps) for k, n in per.items()}
+    want = {k: (f * steps, b * steps) for k, (f, b) in per.items()}
     if launches != want:
         fail(f"{where}: {arch} launched (forward, backward) {launches}, "
-             f"not {want}: one each per layer of the kernel's kind a step")
+             f"not {want}: per layer of the kernel's kind a step, the "
+             f"backward once, the forward once, or twice under remat")
     peak = re.search(r"peak device memory: ([\d.]+) GiB", out)
     rate = re.search(r"step time: ([\d.]+) ms .*?; (\d+) tokens/s", out)
     print(f"train.py {arch} full, {steps} steps: losses "
           f"{[round(x, 4) for x in vals]}; mean of the first 5 {first:.4f}, "
           f"of the last 5 {last:.4f}; (forward, backward) launches "
-          f"{ {k: c for k, c in launches.items() if any(c)} } (one each "
-          f"per layer of its kind a step); step time "
+          f"{ {k: c for k, c in launches.items() if any(c)} } (per layer "
+          f"of its kind a step: the forward {recomputes(get_config(arch))} "
+          f"time(s), the backward once); step time "
           f"{rate.group(1) if rate else '?'} ms, "
           f"{rate.group(2) if rate else '?'} tokens/s; host syncs in the "
           f"train step {sum(syncs.values()) / steps:.1f} a step, by line "
@@ -2242,7 +2302,7 @@ def train_main(argv, where):
 
 def train_lm_full(dev):
     """Phase 45: ``train_main`` at ``TRAIN_ARGV``: qwen2.5-3b at full
-    width and depth, 20 steps of 8 x 128 tokens, its flash kernel's
+    width and depth, 10 steps of 8 x 128 tokens, its flash kernel's
     forward and backward.  Returns the flash launches."""
     t0 = time.perf_counter()
     launches = train_main(TRAIN_ARGV, "phase 45")
@@ -2269,13 +2329,15 @@ def train_scans_full(dev):
 
 def train_moe_full(dev):
     """Phase 49: ``train_main`` at ``MOE_TRAIN_ARGV``: granite-moe-1b-a400m
-    at full width and depth, 20 steps of 8 x 512 tokens.  Beside
-    ``train_main``'s checks (24 flash forward and backward launches a
-    step), every MoE layer of every step runs the sorted form (24 a step,
-    no every-expert call) and its three grouped products on the card under
-    autograd, whose backward runs in the step; the flash kernel and its
-    backward held to their plain versions at the shapes the run gave them
-    (``MainPathShapes``).  Returns the flash launches."""
+    at full width and depth, 10 steps of 8 x 512 tokens.  Beside
+    ``train_main``'s checks (48 flash forward and 24 backward launches a
+    step), every MoE layer of every step runs the sorted form twice (the
+    forward and its recompute: 48 a step, no every-expert call), each time
+    with its three grouped products on the card under autograd, the
+    forward's backward run in the step; the flash kernel and its backward
+    held to their plain versions at the shapes the run gave them
+    (``MainPathShapes``); ``moe_remat_against_kept``.  Returns the flash
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fl_ops
     t0 = time.perf_counter()
@@ -2285,20 +2347,100 @@ def train_moe_full(dev):
             {"flash_attention": fl_ops},
             trained=("flash_attention",)) as shapes_seen:
         launches = train_main(MOE_TRAIN_ARGV, "phase 49")
-    want = (layers * steps, 0, 3 * layers * steps)
+    calls = layers * steps * recomputes(get_config(GRANITE))
+    want = (calls, 0, 3 * calls)
     got = (forms.sorted, forms.every, forms.grouped)
     if got != want:
         fail(f"phase 49: {GRANITE} ran (sorted, every-expert, grouped "
              f"products under autograd) {got}, not {want}")
     print(f"phase 49: {GRANITE}'s MoE layers ran the sorted form "
-          f"{got[0]} times, the every-expert form 0, grouped products "
-          f"under autograd {got[2]} (their backward in each step)")
+          f"{got[0]} times (forward and recompute), the every-expert form "
+          f"0, grouped products under autograd {got[2]} (the forward's "
+          f"backward in each step)")
     print(f"phase 49: the flash kernel and its backward at the "
           f"{len(shapes_seen.seen)} (shape, options) the run launched them "
           f"at, on seeded inputs, against their plain versions:")
     shapes_seen.check(dev)
+    moe_remat_against_kept()
     phase(f"49 train.py, {GRANITE} at full width", t0)
     return launches["flash_attention"]
+
+
+def moe_remat_against_kept() -> None:
+    """Phase 49's remat check: one loss and gradient of granite-moe-1b-a400m
+    at full width and depth, bf16 layers, f32 masters, ``MOE_TRAIN_ARGV``'s
+    8 x 512 tokens, with ``cfg.remat`` and without, from the same masters
+    and batch.  Each MoE layer's expert ids equal in the forward and in
+    its recompute (``Routes``: the forward's calls in layer order, then
+    the backward's in reverse) and in the kept run; the gradients bit for
+    bit, else each leaf within the bf16 bar, 6.25e-2 of its largest
+    |value| (the leaves that differ and the largest difference printed);
+    each run's time and peak memory."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.adamw import tree_leaves, tree_paths
+    cfg = get_config(GRANITE)
+    b = int(MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--batch") + 1])
+    s = int(MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--seq") + 1])
+    masters = init_params(cfg, seed=49, device="cuda", keep_f32=True)
+    leaves = tree_leaves(masters)
+    rng = np.random.default_rng(49)
+    data = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+            for k in ("tokens", "labels")}
+    runs = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for x in leaves:
+            x.requires_grad_(True)
+        t1 = time.perf_counter()
+        with Routes() as routes:
+            loss, _ = loss_fn(masters, c, data)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        for x in leaves:
+            x.requires_grad_(False)
+        peak = torch.cuda.max_memory_allocated() - base
+        runs[remat] = (float(loss), grads, routes.ids, secs, peak)
+    (l1, g1, ids1, s1, p1), (l0, g0, ids0, s0, p0) = runs[True], runs[False]
+    n = cfg.num_layers
+    fwd, again = ids1[:n], ids1[n:][::-1]
+    if len(ids1) != 2 * n or len(ids0) != n or not all(
+            torch.equal(a, x) and torch.equal(a, k)
+            for a, x, k in zip(fwd, again, ids0)):
+        fail(f"phase 49: {GRANITE}'s expert ids differ between the forward, "
+             f"its recompute and the kept run ({len(ids1)} and {len(ids0)} "
+             f"route calls)")
+    paths = tree_paths(masters)
+    differ, worst = [], 0.0
+    for path, a, w in zip(paths, g1, g0):
+        if torch.equal(a, w):
+            continue
+        err, scale = leaf_error(a, w)
+        differ.append(path)
+        worst = max(worst, err / scale)
+        if err > 6.25e-2 * scale:
+            fail(f"phase 49: {GRANITE}'s remat gradient {path} differs by "
+                 f"{err} from the kept run's (bar 6.25e-2 of {scale})")
+    print(f"phase 49: {GRANITE} at full depth, bf16 layers, {b} x {s} "
+          f"tokens, remat against kept: loss {l1:.6f} / {l0:.6f}; expert "
+          f"ids of {n} MoE layers equal in the forward, its recompute and "
+          f"the kept run; gradients bit-equal in {len(paths) - len(differ)} "
+          f"of {len(paths)} leaves, the rest within {worst:.2e} of their "
+          f"largest |value| (bar 6.25e-2; the first that differ: "
+          f"{differ[:4]}); loss and gradient {s1:.2f} s / {s0:.2f} s, peak "
+          f"{p1 / 2**30:.2f} / {p0 / 2**30:.2f} GiB over the masters (host "
+          f"clock, {card_line()})")
+    del masters, leaves, runs, g1, g0
+    torch.cuda.empty_cache()
 
 
 def moe_layer_check(dev) -> None:
@@ -4651,22 +4793,29 @@ def examples_on_card(testbed, canny_ops, canny_ref, device="cuda",
 
 #: phase 48's rows: the default pool at the two serving shapes, then
 #: mamba2-370m's training and 500k-token rows, the training rows of
-#: granite-moe-1b-a400m and whisper-small, and llama3-8b's skip row
+#: granite-moe-1b-a400m, whisper-small, qwen2.5-3b and recurrentgemma-2b
+#: (the last two fit under remat), and llama3-8b's skip row
 DRYRUN_CALLS = (("pool", None, ("prefill_32k", "decode_32k")),
                 ("mamba2", ("mamba2-370m",), ("train_4k", "long_500k")),
-                ("train", (GRANITE, WHISPER), ("train_4k",)),
+                ("train", (GRANITE, WHISPER, "qwen2.5-3b",
+                           "recurrentgemma-2b"), ("train_4k",)),
                 ("skip", ("llama3-8b",), ("long_500k",)))
-#: phase 48's rows: 5 x 2 of the pool, 2 of mamba2-370m, 2 training rows
+#: phase 48's rows: 5 x 2 of the pool, 2 of mamba2-370m, 4 training rows
 #: and the skip row
-DRYRUN_ROWS = 15
+DRYRUN_ROWS = 17
 #: the reduced combinations whose counts must be equal on the card and the
-#: CPU: a dense prefill (the flash kernel), its decode (the decode kernel),
-#: an ssm prefill (the SSD kernel), and a training step of each (the
-#: backward kernels on the card, autograd through the plain versions on
-#: the CPU)
-DRYRUN_SAME = (("llama3-8b", "prefill", 48), ("llama3-8b", "decode", 48),
-               ("mamba2-370m", "prefill", 300), ("llama3-8b", "train", 48),
-               ("mamba2-370m", "train", 300))
+#: CPU, (arch, kind, tokens, remat): a dense prefill (the flash kernel),
+#: its decode (the decode kernel), an ssm prefill (the SSD kernel), and a
+#: training step of each (the backward kernels on the card, autograd
+#: through the plain versions on the CPU), with and without remat (the
+#: recompute inside the backward)
+DRYRUN_SAME = (("llama3-8b", "prefill", 48, False),
+               ("llama3-8b", "decode", 48, False),
+               ("mamba2-370m", "prefill", 300, False),
+               ("llama3-8b", "train", 48, False),
+               ("mamba2-370m", "train", 300, False),
+               ("llama3-8b", "train", 48, True),
+               ("mamba2-370m", "train", 300, True))
 #: a dry-run row's roofline share (t_step / measured step) may pass 1 by
 #: the timer's spread, not more: a larger share means the counts are wrong
 ROOFLINE_SHARE_MAX = 1.05
@@ -4740,7 +4889,8 @@ class MainPathShapes:
                   ("flash_attention", True): flash_bwd_at,
                   ("decode_attention", False): decode_at,
                   ("ssd_scan", False): ssd_at, ("ssd_scan", True): ssd_bwd_at,
-                  ("rglru_scan", False): lru_at}
+                  ("rglru_scan", False): lru_at,
+                  ("rglru_scan", True): lru_bwd_at}
         for (name, backward, key), lengths in self.seen.items():
             t0 = time.perf_counter()
             what = checks[name, backward](dev, key, lengths)
@@ -4825,6 +4975,18 @@ def ssd_bwd_at(dev, key, _):
     return (f"{(b, s, h, p)} state {n} {dtype} chunk {chunk}"
             f"{' with d_state' if with_state else ''}: max err against f64: "
             f"{notes} (phase 46's bar); equal bits in two calls")
+
+
+def lru_bwd_at(dev, key, _):
+    """The RG-LRU backward kernel at a main-path launch's shape, with or
+    without h0, on phase 17's gate inputs, against its plain backward
+    (``lru_bwd_check``: bit for bit in f32, phase 43's bar against
+    f64)."""
+    shape, _, with_h0 = key
+    _, _, notes = lru_bwd_check("main path", shape, with_h0, 48, dev)
+    return (f"{shape} h0 {with_h0}: equal to the f32 plain backward bit for "
+            f"bit and in two calls; max err against f64: {notes} (phase "
+            f"43's bar)")
 
 
 def decode_at(dev, key, lengths):
@@ -4946,8 +5108,8 @@ def dryrun_counts_on_both(dev) -> None:
     from repro_torch.models import init_params
     from repro_torch.models.base import InputShape
     bad = []
-    for arch, kind, seq in DRYRUN_SAME:
-        cfg = get_config(arch).reduced(num_layers=2)
+    for arch, kind, seq, remat in DRYRUN_SAME:
+        cfg = get_config(arch).reduced(num_layers=2, remat=remat)
         shape = InputShape(kind, seq, 2, kind)
         counts = []
         for device in (dev, torch.device("cpu")):
@@ -4965,12 +5127,14 @@ def dryrun_counts_on_both(dev) -> None:
                     for k in set(card.by_kind) | set(cpu.by_kind)
                     if (card.by_kind[k], card.bytes_by_kind[k])
                     != (cpu.by_kind[k], cpu.bytes_by_kind[k])}
-            bad.append(f"reduced {arch} {kind}: card {card.flops:.6e} ops "
+            bad.append(f"reduced {arch} {kind} remat {remat}: card "
+                       f"{card.flops:.6e} ops "
                        f"{card.bytes:.6e} B, cpu {cpu.flops:.6e} ops "
                        f"{cpu.bytes:.6e} B; by kind (card ops, cpu ops, "
                        f"card bytes, cpu bytes) {diff}")
             continue
-        print(f"dry run counts, reduced {arch} {kind} (2 x {seq}, bf16): "
+        print(f"dry run counts, reduced {arch} {kind} (2 x {seq}, bf16, "
+              f"remat {remat}): "
               f"{card.flops:.6e} ops, {card.bytes:.6e} B on the card == "
               f"on the cpu ({len(card.by_kind)} kinds equal)")
     if bad:
@@ -4983,9 +5147,9 @@ def dryrun_launches(cfg, kind, steps, batch):
     steps of one dry-run row of ``cfg`` at ``batch``: a prefill launches
     flash once an attention layer (an encdec model's encoder, self- and
     cross-attention) and the scans once a layer; a decode step the decode
-    kernel once a cached attention layer; a training step the forward
-    kernels and their backwards once a layer each, a micro-batch
-    (``batch`` of them)."""
+    kernel once a cached attention layer; a training step the backward
+    kernels once a layer each and the forward kernels ``recomputes``
+    times, a micro-batch (``batch`` of them)."""
     kinds = launch_kinds(cfg)
     fwd = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
            "rglru_scan": 0}
@@ -5000,6 +5164,8 @@ def dryrun_launches(cfg, kind, steps, batch):
                    rglru_scan=kinds.count("rec") * n)
     bwd = {k: (n if kind == "train" else 0) for k, n in fwd.items()
            if k != "decode_attention"}
+    if kind == "train":
+        fwd = {k: n * recomputes(cfg) for k, n in fwd.items()}
     return fwd, bwd
 
 
@@ -5052,7 +5218,7 @@ def dry_run(dev):
     total = {k: (0, 0) for k in mods}
     rows, bases = [], []
     shapes_seen = MainPathShapes(mods, trained=("flash_attention",
-                                                "ssd_scan"))
+                                                "ssd_scan", "rglru_scan"))
     for label, archs, shapes in DRYRUN_CALLS:
         archs = archs or DEFAULT_POOL
         for m in mods.values():

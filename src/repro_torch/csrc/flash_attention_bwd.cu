@@ -67,8 +67,10 @@
 // tiles, and both warpgroups of a dK/dV block share one 64-key tile, each
 // summing half of the columns (a thread's dK and dV over all 256 would
 // take 256 registers): the two compute the same S^T and dP^T, 10 product
-// passes of that kernel where 8 would do.  D = 32 is padded to 64 columns
-// of zeros.  dQ blocks start with the last Q tiles, dK/dV blocks with the
+// passes of that kernel where 8 would do.  The dK/dV kernel sums each
+// (head, Q tile)'s products in a fresh accumulator and adds it to dK and
+// dV on the CUDA cores (product3_add): its sums run over G x S rows.
+// D = 32 is padded to 64 columns of zeros.  dQ blocks start with the last Q tiles, dK/dV blocks with the
 // first key tiles (the most work under the causal mask).
 //
 // f32 (the parity runs against the CPU): flash_bwd_dq_kernel and
@@ -613,6 +615,51 @@ __device__ __forceinline__ void product3(float (&o)[N / 2],
   repro_torch::fence_regs(lo);
 }
 
+// o += A B as product3 forms it, each 64-column block of the product
+// summed in a fresh accumulator and then added to o on the CUDA cores
+// (f32, round to nearest).  The tensor cores add each product into their
+// accumulator with less than f32's rounding; summed there over a dK/dV
+// block's G x S rows (recurrentgemma-2b's 10 heads of 4096 rows), the
+// error drifts to ~30 times the f32 plain backward's, while a 64-row
+// tile's twelve products stay within it.  One 64-column block at a time,
+// so that the fresh sum takes 32 registers.
+template <int N, int BQ>
+__device__ __forceinline__ void product3_add(float (&o)[N / 2],
+                                             const float (&a)[BQ / 2],
+                                             uint64_t db) {
+  uint32_t hi[BQ / 16][4], mid[BQ / 16][4], lo[BQ / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      repro_torch::split3_bf16(a[8 * kk + 2 * e], a[8 * kk + 2 * e + 1],
+                               hi[kk][e], mid[kk][e], lo[kk][e]);
+#pragma unroll
+  for (int c = 0; c < N / 64; ++c) {
+    float t[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t[i] = 0.f;
+    repro_torch::fence_regs(t);
+    repro_torch::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      // 64-column panels of B lie BQ rows of 128 bytes apart
+      const uint64_t d = db + (c * BQ * 128 + kk * 16 * 128) / 16;
+      repro_torch::wgmma_rs_n64(t, hi[kk], d);
+      repro_torch::wgmma_rs_n64(t, mid[kk], d);
+      repro_torch::wgmma_rs_n64(t, lo[kk], d);
+    }
+    repro_torch::wgmma_commit();
+    repro_torch::wgmma_wait<0>();
+    repro_torch::fence_regs(t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[32 * c + i] += t[i];
+  }
+  repro_torch::fence_regs(hi);
+  repro_torch::fence_regs(mid);
+  repro_torch::fence_regs(lo);
+}
+
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(128 * WgBwd<D>::NWG)
     flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -1020,8 +1067,8 @@ __global__ void __launch_bounds__(256)
         grads(std::true_type{});
       else
         grads(std::false_type{});
-      product3<DW, MQ>(dva, sc, dot_desc + stage);  // dV += P^T dO
-      product3<DW, MQ>(dka, dp, qt_desc + stage);   // dK += dS^T Q
+      product3_add<DW, MQ>(dva, sc, dot_desc + stage);  // dV += P^T dO
+      product3_add<DW, MQ>(dka, dp, qt_desc + stage);   // dK += dS^T Q
     }
     __syncthreads();  // this stage is reloaded two tiles on
   }

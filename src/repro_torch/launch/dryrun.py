@@ -53,9 +53,11 @@ AdamW moments (16 bytes a parameter: ``make_train_step`` accumulates the
 micro-batches in the one gradient) do not fit in 3/4 of the card's
 memory, or whose step does not: its peak with one micro-batch's
 activations, measured by running it on the meta device
-(``train_step_bytes``); a decode row whose weights and one sequence's
-cache do not.  Any other exception writes a ``"fail"`` row, and ``main``
-returns 1.
+(``train_step_bytes``, which counts the model's rematerialisation:
+``cfg.remat``); a prefill row whose weights, or whose step's peak
+measured the same way (``prefill_step_bytes``), do not; a decode row
+whose weights and one sequence's cache do not.  Any other exception
+writes a ``"fail"`` row, and ``main`` returns 1.
 """
 import argparse
 import dataclasses
@@ -142,6 +144,21 @@ def train_step_bytes(cfg, shape: InputShape) -> int:
     return mem.peak
 
 
+@functools.lru_cache(maxsize=None)
+def prefill_step_bytes(cfg, shape: InputShape) -> int:
+    """The most bytes a prefill step of one ``shape.seq_len``-token
+    sequence holds at once (its serving weights, its inputs, the cache it
+    fills and its activations), measured on the meta device under
+    ``no_grad`` as ``train_step_bytes`` measures a training step, and kept
+    for the next caller."""
+    params = init_params(cfg, SEED, "meta")
+    data = st.batch_inputs(cfg, shape, 1, device="meta")
+    with torch.no_grad(), StepBytes(tree_leaves(params)
+                                    + list(data.values())) as mem:
+        st.make_prefill_step(cfg)(params, data)
+    return mem.peak
+
+
 def run_batch(cfg, shape: InputShape, chip: rl.Chip) -> int:
     """The batch a row runs (the module docstring's rule): a training
     row's micro-batches of one sequence; 0 when a decode row's weights and
@@ -179,6 +196,18 @@ def skip_reason(cfg, shape, chip: rl.Chip) -> Optional[str]:
                     "GiB of f32 masters, gradients and AdamW moments, the "
                     f"rest one micro-batch's activations), over {gib:.1f} "
                     f"GiB (3/4 of {chip.name})")
+    elif shape.kind == "prefill":
+        weights = weight_bytes(cfg)
+        if weights > FIT * chip.memory_bytes:
+            return (f"prefill: {weights / 2**30:.1f} GiB of weights, over "
+                    f"{gib:.1f} GiB (3/4 of {chip.name})")
+        peak = prefill_step_bytes(cfg, shape)
+        if peak > FIT * chip.memory_bytes:
+            return (f"prefill: a {shape.seq_len}-token prompt holds "
+                    f"{peak / 2**30:.1f} GiB at its peak (on the meta "
+                    f"device: {weights / 2**30:.1f} GiB of weights, the "
+                    f"rest its cache and activations), over {gib:.1f} GiB "
+                    f"(3/4 of {chip.name})")
     elif shape.kind == "decode" and not run_batch(cfg, shape, chip):
         return (f"decode: the weights and one {shape.seq_len}-position "
                 f"cache do not fit in {gib:.1f} GiB (3/4 of {chip.name})")

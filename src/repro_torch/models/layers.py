@@ -128,8 +128,8 @@ def embed(params, tokens, *, scale_by_sqrt_dim: bool = False,
     JAX package multiplies."""
     out = params["table"][tokens].to(adtype)
     if scale_by_sqrt_dim:
-        out = out * torch.tensor(math.sqrt(params["table"].shape[1]),
-                                 dtype=adtype, device=out.device)
+        out = out * torch.full((), math.sqrt(params["table"].shape[1]),
+                               dtype=adtype, device=out.device)
     return out
 
 
@@ -138,13 +138,24 @@ def unembed(params, x, *, cap: Optional[float] = None):
     return softcap((x @ params["table"].to(x.dtype).T).float(), cap)
 
 
+def _nll(logits, labels, mask):
+    """Each row's negative log-likelihood of its label under f32 logits
+    [..., V], zero where ``mask`` is False."""
+    gold = torch.gather(logits, -1, torch.where(mask, labels, 0)[..., None])
+    return (torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask
+
+
+def nll_sum(logits, labels, *, ignore_id: int = -1):
+    """The summed next-token negative log-likelihood of f32 logits [..., V]
+    over the labels [...] that are not ``ignore_id``."""
+    return _nll(logits, labels, labels != ignore_id).sum()
+
+
 def cross_entropy(logits, labels, *, ignore_id: int = -1):
     """Mean next-token cross-entropy of f32 logits [..., V] over the labels
     [...] that are not ``ignore_id``; a batch without one divides by 1."""
     mask = labels != ignore_id
-    gold = torch.gather(logits, -1, torch.where(mask, labels, 0)[..., None])
-    nll = (torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return _nll(logits, labels, mask).sum() / torch.clamp(mask.sum(), min=1)
 
 
 def sinusoidal_positions(num_pos: int, dim: int, dtype=torch.float32,
@@ -178,8 +189,10 @@ def position_embedding(pos: int, dim: int, dtype, device=None):
 def rope_freqs(head_dim: int, theta: float, device=None):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta filled on the device: ``torch.tensor`` would copy it from the
+    # host, a sync on the card at every call
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x, positions, theta: float):

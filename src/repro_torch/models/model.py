@@ -45,6 +45,13 @@ Training keeps every leaf in f32 (``keep_f32=True``: the JAX package's
 gradients reach the masters through the casts.  ``loss_fn`` is the
 reference's: next-token cross-entropy plus ``AUX_WEIGHT`` times the MoE
 load-balance loss that ``forward(..., return_aux=True)`` sums over layers.
+With ``cfg.remat`` (the published configs; ``reduced()`` turns it off)
+a recorded training forward rematerialises as the reference's
+``jax.checkpoint`` does: each scanned block (``_regions``) keeps only its
+input and runs again in the backward, casting its layers itself, and the
+loss head runs in checkpointed chunks of ``LOSS_CHUNK_ROWS`` rows; the
+encdec family's blocks, ``prefill``, ``decode_step`` and anything under
+``no_grad`` are not checkpointed.
 
 The variants with experts outside the moe family, positions without RoPE
 or a GELU MLP outside the encdec family, or other layouts raise
@@ -59,6 +66,7 @@ from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -69,8 +77,8 @@ from .attention import (attention_decode, attention_forward,
 from .base import ModelConfig
 from .kvcache import AttnCache, bounded_by_max_seq, init_cache
 from .layers import (apply_mlp, cross_entropy, dense_init, embed,
-                     init_embedding, init_mlp, position_embedding, rms_norm,
-                     sinusoidal_positions, unembed)
+                     init_embedding, init_mlp, nll_sum, position_embedding,
+                     rms_norm, sinusoidal_positions, unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
@@ -100,6 +108,12 @@ _REC_F32 = ("lru_wa", "lru_wx", "lru_ba", "lru_bx", "log_lambda")
 _F32 = {"ssm": _SSM_F32, "rec": _REC_F32, "moe": ("router",)}
 #: the weight of the MoE load-balance loss in ``loss_fn``
 AUX_WEIGHT = 0.01
+#: rows of each checkpointed chunk of ``loss_fn``'s head under
+#: ``cfg.remat``: a chunk's f32 logits are 0.29 GiB at qwen2.5-3b's
+#: vocabulary (recurrentgemma-2b's 0.49), and from 512 rows down the head
+#: no longer sets a train_4k step's peak (``dryrun.train_step_bytes``:
+#: equal at 256, 1.2-1.5 GiB more at 1024; ``PERF.md``)
+LOSS_CHUNK_ROWS = 512
 
 
 def keeps_f32(path) -> bool:
@@ -267,22 +281,22 @@ def _post_norm(p, cfg: ModelConfig, name, h):
 
 
 def _residuals(p, cfg: ModelConfig, kind, x, o, aux=None):
-    """The residual stream after a layer whose mixer gave ``o``: a Mamba-2
-    block adds it; every other layer adds it (post-normed) and then its
-    pre-norm MLP or MoE (post-normed).  ``aux``, a list, receives a MoE
-    layer's load-balance loss."""
+    """(the residual stream after a layer whose mixer gave ``o``, ``aux``
+    plus its MoE load-balance loss): a Mamba-2 block adds ``o``; every
+    other layer adds it (post-normed) and then its pre-norm MLP or MoE
+    (post-normed).  ``aux`` None computes no load-balance loss."""
     if kind == "ssm":
-        return x + o
+        return x + o, aux
     x = x + _post_norm(p, cfg, "norm1b", o)
     h = rms_norm(x, p["norm2"], cfg.norm_eps, plus_one=True)
     if "moe" in p and aux is not None:
         h, a = apply_moe(p["moe"], cfg, h, return_aux=True)
-        aux.append(a)
+        aux = aux + a
     elif "moe" in p:
         h = apply_moe(p["moe"], cfg, h)
     else:
         h = apply_mlp(p["mlp"], h, cfg.mlp_variant)
-    return x + _post_norm(p, cfg, "norm2b", h)
+    return x + _post_norm(p, cfg, "norm2b", h), aux
 
 
 def _entry(c, i):
@@ -307,42 +321,105 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     return torch.cat([pre, x], dim=1)
 
 
+def _layer(p, cfg: ModelConfig, kind, x, positions, aux, cache=None, i=0):
+    """Layer i of ``kind`` (parameters ``p``) over x [B,S,d]: (x, aux)
+    after it (``_residuals``); with ``cache``, its K/V, latent rows or
+    state land in entry i (``_prompt_layers``)."""
+    s = x.shape[1]
+    h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
+    if _is_mla(cfg, kind):
+        if cache is None:
+            o = mla_forward(p["mla"], cfg, h, positions)
+        else:
+            o, rows = mla_forward(p["mla"], cfg, h, positions,
+                                  return_cache=True)
+            for full, new in zip(cache[i], rows):
+                full[:, :s].copy_(new)
+    elif kind in ("ssm", "rec"):
+        fwd = ssm_forward if kind == "ssm" else rec_forward
+        if cache is None:
+            o = fwd(p[kind], cfg, h)
+        else:
+            o, cache[i] = fwd(p[kind], cfg, h, return_state=True)
+    else:
+        o = attention_forward(p["attn"], cfg, h, positions,
+                              window=_window(cfg, kind),
+                              cache=None if cache is None
+                              else _entry(cache, i))
+    return _residuals(p, cfg, kind, x, o, aux)
+
+
+def _records(params) -> bool:
+    """True if autograd records a function of ``params``: grad mode is on
+    and a leaf of the tree requires its gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    leaves = []
+    _map_tree(params, lambda _, x: leaves.append(x))
+    return any(x.requires_grad for x in leaves)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its intermediate tensors freed after the forward and
+    ``fn`` run again where the backward needs them (non-reentrant
+    ``torch.utils.checkpoint``: ``args`` and the tensors ``fn`` closes
+    over are kept).  The recompute runs ``fn`` whole (no early stop), so a
+    step runs, and ``StepCost`` counts, each region's forward twice, as
+    the reference's rematerialised scan body does; nothing in the model
+    draws random numbers, so no RNG state is kept."""
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _regions(cfg: ModelConfig):
+    """The layer indices of each of the reference's scanned blocks: the
+    block layout's ``len(cfg.block_layout)`` layers ``n_blocks`` times,
+    then the trailing layout's layers as one more block."""
+    n, m = len(cfg.block_layout), cfg.n_blocks
+    out = [range(j * n, (j + 1) * n) for j in range(m)]
+    if cfg.trailing_layout:
+        out.append(range(n * m, len(cfg.layer_kinds)))
+    return out
+
+
 def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
                    prefix_embeds=None, aux=None):
-    """The hidden states [B,P+S,d] after every layer (P prefix positions,
-    0 without ``prefix_embeds``); with ``cache``, each global attention
-    layer's K/V (or MLA's latent rows) land in its rows [0, P+S), each
-    local layer's ring keeps the last of them, and each Mamba-2 or RG-LRU
-    layer's state after the prompt replaces its entry.  ``aux``, a list,
-    receives each MoE layer's load-balance loss in layer order."""
+    """(the hidden states [B,P+S,d] after every layer and the final norm,
+    P prefix positions, 0 without ``prefix_embeds``; ``aux``, an f32 zero,
+    plus each MoE layer's load-balance loss in layer order, or None when
+    ``aux`` is None).  With ``cache``, each global attention layer's K/V
+    (or MLA's latent rows) land in its rows [0, P+S), each local layer's
+    ring keeps the last of them, and each Mamba-2 or RG-LRU layer's state
+    after the prompt replaces its entry.  With ``cfg.remat``, no cache
+    and autograd recording, each of the reference's scanned blocks
+    (``_regions``) runs checkpointed (``_checkpointed``), as the
+    reference wraps its scan body in ``jax.checkpoint``: a block keeps
+    only its input until the backward runs it again.  A block casts its
+    layers' leaves by the load rule itself (``cast_params``; a no-op on a
+    tree already cast), as the reference casts at use inside its scan
+    body: f32 masters' activation-dtype copies are not kept through the
+    forward either, and their gradients reach the masters as soon as the
+    block's backward has run."""
     check_config(cfg)
     x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
-                                      params["blocks"]["s0"])):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
-        if _is_mla(cfg, kind):
-            if cache is None:
-                o = mla_forward(p["mla"], cfg, h, positions)
-            else:
-                o, rows = mla_forward(p["mla"], cfg, h, positions,
-                                      return_cache=True)
-                for full, new in zip(cache[i], rows):
-                    full[:, :s].copy_(new)
-        elif kind in ("ssm", "rec"):
-            fwd = ssm_forward if kind == "ssm" else rec_forward
-            if cache is None:
-                o = fwd(p[kind], cfg, h)
-            else:
-                o, cache[i] = fwd(p[kind], cfg, h, return_state=True)
-        else:
-            o = attention_forward(p["attn"], cfg, h, positions,
-                                  window=_window(cfg, kind),
-                                  cache=None if cache is None
-                                  else _entry(cache, i))
-        x = _residuals(p, cfg, kind, x, o, aux)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
+    layers = list(zip(cfg.layer_kinds, params["blocks"]["s0"]))
+    if cfg.remat and cache is None and _records(params):
+        for region in _regions(cfg):
+            def block(x, aux, region=region):
+                for i in region:
+                    kind, p = layers[i]
+                    x, aux = _layer(cast_params(cfg, p), cfg, kind, x,
+                                    positions, aux)
+                return x, aux
+            x, aux = _checkpointed(block, x, aux)
+    else:
+        for i, (kind, p) in enumerate(layers):
+            x, aux = _layer(p, cfg, kind, x, positions, aux, cache, i)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps,
+                    plus_one=True), aux
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -416,6 +493,19 @@ def _decoder_step(params, cfg: ModelConfig, token, cache):
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
 
 
+def _hidden(params, cfg: ModelConfig, tokens, prefix_embeds, aux: bool):
+    """(the hidden states after the final norm, the MoE layers'
+    load-balance losses summed in layer order from an f32 zero, or None
+    without ``aux``; an encdec model's is zero)."""
+    zero = (torch.zeros((), dtype=torch.float32,
+                        device=params["final_norm"].device) if aux else None)
+    if cfg.family == "encdec":
+        return _decoder_prompt(params, cfg, tokens,
+                               encode(params, cfg, prefix_embeds)), zero
+    return _prompt_layers(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                          aux=zero)
+
+
 def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
             return_aux: bool = False):
     """Full-sequence logits [B, P+S, V] (f32).  tokens [B, S] int;
@@ -424,18 +514,30 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
     the encoder, and the logits are the text's [B, S, V].  With
     ``return_aux``, (logits, the MoE layers' load-balance losses summed
     in layer order from an f32 zero: zero without experts)."""
-    aux = [] if return_aux else None
-    if cfg.family == "encdec":
-        x = _decoder_prompt(params, cfg, tokens,
-                            encode(params, cfg, prefix_embeds))
-    else:
-        x = _prompt_layers(params, cfg, tokens, prefix_embeds=prefix_embeds,
-                           aux=aux)
+    x, aux = _hidden(params, cfg, tokens, prefix_embeds, return_aux)
     logits = unembed(params["embed"], x, cap=cfg.final_softcap)
-    if not return_aux:
-        return logits
-    return logits, sum(aux, torch.zeros((), dtype=torch.float32,
-                                        device=logits.device))
+    return (logits, aux) if return_aux else logits
+
+
+def _head_nll(table, cap, x, labels):
+    """``nll_sum`` of the tied unembedding's f32 logits of rows x [n, d]
+    (softcapped at ``cap``) against ``labels`` [n]."""
+    return nll_sum(unembed({"table": table}, x, cap=cap), labels)
+
+
+def _chunked_cross_entropy(table, cfg: ModelConfig, x, labels):
+    """``cross_entropy(unembed(x), labels)`` over the rows of x [B, S, d]
+    in checkpointed chunks of ``LOSS_CHUNK_ROWS`` rows: each chunk's nll
+    sum is its own region (``_checkpointed``), so only one chunk's f32
+    logits, and in the backward their gradient, are alive at a time; the
+    sums are added in row order and divided once by the labels' count."""
+    rows, flat = x.reshape(-1, x.shape[-1]), labels.reshape(-1)
+    total = None
+    for xs, ls in zip(torch.split(rows, LOSS_CHUNK_ROWS),
+                      torch.split(flat, LOSS_CHUNK_ROWS)):
+        part = _checkpointed(_head_nll, table, cfg.final_softcap, xs, ls)
+        total = part if total is None else total + part
+    return total / torch.clamp((flat != -1).sum(), min=1)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -445,16 +547,31 @@ def loss_fn(params, cfg: ModelConfig, batch):
     ``AUX_WEIGHT`` times the MoE load-balance loss.  ``params`` are f32
     masters (``keep_f32=True``), cast here once by ``cast_params``, or a
     tree already in the load rule's dtypes.  A vlm batch's labels get -1
-    over the prefix rows."""
-    logits, aux = forward(cast_params(cfg, params), cfg, batch["tokens"],
-                          batch.get("prefix_embeds"), return_aux=True)
+    over the prefix rows.  With ``cfg.remat`` and autograd recording, the
+    layers run in checkpointed blocks that cast their own leaves
+    (``_prompt_layers``; an encdec model's are cast here and not
+    checkpointed, as in the reference) and the head in checkpointed row
+    chunks (``_chunked_cross_entropy``), every family alike."""
+    remat = cfg.remat and _records(params)
+    if remat and "blocks" in params:
+        # each checkpointed block casts its own layers (``_prompt_layers``)
+        p = dict(cast_params(cfg, {k: v for k, v in params.items()
+                                   if k != "blocks"}),
+                 blocks=params["blocks"])
+    else:
+        p = cast_params(cfg, params)
+    x, aux = _hidden(p, cfg, batch["tokens"], batch.get("prefix_embeds"),
+                     True)
     labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:  # vlm prefix: no labels there
-        pad = torch.full((labels.shape[0],
-                          logits.shape[1] - labels.shape[1]), -1,
-                         dtype=labels.dtype, device=labels.device)
+    if x.shape[1] != labels.shape[1]:  # vlm prefix: no labels there
+        pad = torch.full((labels.shape[0], x.shape[1] - labels.shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    ce = cross_entropy(logits, labels)
+    if remat:
+        ce = _chunked_cross_entropy(p["embed"]["table"], cfg, x, labels)
+    else:
+        ce = cross_entropy(unembed(p["embed"], x, cap=cfg.final_softcap),
+                           labels)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
@@ -483,8 +600,8 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
         x = _decoder_prompt(params, cfg, tokens,
                             encode(params, cfg, prefix_embeds), cache)
     else:
-        x = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
-                           prefix_embeds)
+        x, _ = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
+                              prefix_embeds)
     cache["pos"] = s
     return unembed(params["embed"], x[:, -1:], cap=cfg.final_softcap), cache
 
@@ -533,5 +650,5 @@ def _layers_step(params, cfg: ModelConfig, token, cache):
         else:
             o = attention_decode(p["attn"], cfg, h, entries[i], pos,
                                  positions, lengths[entries[i].k.shape[2]])
-        x = _residuals(p, cfg, kind, x, o)
+        x, _ = _residuals(p, cfg, kind, x, o)
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
