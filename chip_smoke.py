@@ -180,7 +180,8 @@ Phases, each printed as it ends; any failure exits non-zero:
     the SLO summary, window records and autoscaler events equal to the
     same replay on the CPU; its wall time and the device's busy share;
 26. the trained testbed: the eight detectors trained on the card,
-    ``TRAIN_STEPS`` AdamW steps of 16 fresh scenes (the reference's run)
+    ``TRAIN_STEPS`` AdamW steps of 16 fresh scenes (half the reference's
+    run)
     into a fresh
     directory under ``chiprun_out/`` (cuDNN's deterministic algorithms,
     so the testbed repeats run to run; ``tools/training_probe.py``
@@ -384,7 +385,9 @@ Phases, each printed as it ends; any failure exits non-zero:
     count, the step's peak on the meta device),
     llama3-8b's ``long_500k`` skip row; each
     kernel's launches counted per call and held to the rows' layers
-    (warm-up, 3 timed and 1 counted step a row, a training row's once a
+    (the warm-up, which is counted, and ``DRYRUN_REPS`` = 1 timed step a
+    row, a
+    training row's once a
     micro-batch, twice in the forward under remat); one line a row
     (batch, counted
     operations and bytes, each roofline term, t_step, the measured step
@@ -418,15 +421,39 @@ Phases, each printed as it ends; any failure exits non-zero:
     for the backward); then one loss and gradient at that size with and
     without remat from the same masters (``moe_remat_against_kept``):
     expert ids equal in the forward, its recompute and the kept run, the
-    gradients bit for bit or within the bf16 bar.
+    gradients bit for bit or within ``REMAT_BAR`` (3.5e-2 of a leaf's
+    largest |value|: the head's chunks against one product).
+50. The production mesh of the dense family (``mesh_phase``): (a) the
+    1x1 mesh over NCCL bit for bit against the unsharded path
+    (llama3-8b's prefill and 8 decode steps at full width and depth,
+    qwen2.5-3b's training step at phase 45's 8 x 128; the kernels at the
+    shapes these mesh runs launched them at against their plain
+    versions); (b) llama3-8b's
+    decode_32k cache of a card in 16 sequence shards through the decode
+    kernel with its softmax statistics, merged by the reference's
+    formula, against one call over the whole, and the statistics against
+    ``ref.py``'s; (d) the dry run's mesh rows in processes of their own,
+    side by side, under the fake process group: the train_4k rows of the
+    five dense archs one card skips and llama3-8b's prefill_32k and
+    decode_32k at 16 x 16, llama3-8b's prefill_32k at 2 x 16 x 16, each
+    ``ok`` with its collective term and rank 0's peak under 3/4 of the
+    card, its flash and decode launches (counted in its process, forward
+    and backward) equal to its layers times its steps, read back by the
+    pool table's default mesh; (c) the flash kernel and its backward, and
+    the decode kernel with its statistics, at every shape (d)'s rows
+    launched them at (recorded in their processes: rank 0's heads of a
+    16-way 'model' axis, e.g. llama3-8b 2 over 1 KV head, gemma2-9b 1 over
+    1 at D 256, window 4096, softcap 50, and its sequence shard of the
+    decode cache) against the plain versions.
 
 Phases 10, 14, 18, 30, 35, 38, 40 and 42 also hold every route to the
 same policy's decision on the CPU.  It then prints one JSON line with
 every kernel (the LLM kernels' launches summed over the services of
 phases 10, 14, 18, 30, 31, 35, 38, 40 and 42, the training runs of
-phases 45, 47 and 49 and the dry run of phase 48; the backward kernels'
-from phases 45, 47, 48 and 49), the card line, and last ``{"ok": true, "device":
-{...}}``.
+phases 45, 47 and 49, the dry run of phase 48, phase 50 (a)'s mesh
+runs and (d)'s rows; the backward kernels' from phases 45, 47, 48, 49 and
+50 (d)), the card
+line, and last ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -595,6 +622,12 @@ TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "10", "--batch",
 #: they would run the every-expert form)
 MOE_TRAIN_ARGV = ["--arch", GRANITE, "--full", "--steps", "10", "--batch",
                   "8", "--seq", "512", "--device", "cuda"]
+#: phase 49's bar on remat against kept, of each gradient leaf's largest
+#: |value|: the gap is the head's chunks against one product over every
+#: row (the layers' recompute is bit-exact; ``tools/remat_head_probe.py``
+#: measured 2.97e-2 at ``blocks/s0/0/norm1`` on an H100 80GB HBM3, 700 W),
+#: with a margin of a sixth; the bf16 bar it replaces was 6.25e-2
+REMAT_BAR = 3.5e-2
 #: phase 44's bf16 MoE step: 2 x 2048 tokens, the sorted form on the card
 MOE_BF16_BATCH = (2, 2048)
 #: phase 44's llava-next-34b prefix: 64 embeddings in place of 2880 (two
@@ -1813,12 +1846,15 @@ def decay_reference(cfg, master, batch, grads, opt):
 def kernel_counts(mods):
     """{name: (forward, backward launches)} of the wrapper modules
     ``mods`` ({name: module})."""
-    return {k: (m.launches, m.backward_launches) for k, m in mods.items()}
+    return {k: (m.launches, getattr(m, "backward_launches", 0))
+            for k, m in mods.items()}
 
 
 def zero_counts(mods) -> None:
     for m in mods.values():
-        m.launches = m.backward_launches = 0
+        m.launches = 0
+        if hasattr(m, "backward_launches"):
+            m.backward_launches = 0
 
 
 def recomputes(cfg) -> int:
@@ -2373,9 +2409,9 @@ def moe_remat_against_kept() -> None:
     and batch.  Each MoE layer's expert ids equal in the forward and in
     its recompute (``Routes``: the forward's calls in layer order, then
     the backward's in reverse) and in the kept run; the gradients bit for
-    bit, else each leaf within the bf16 bar, 6.25e-2 of its largest
-    |value| (the leaves that differ and the largest difference printed);
-    each run's time and peak memory."""
+    bit, else each leaf within ``REMAT_BAR`` of its largest |value| (the
+    leaves that differ and the largest difference printed); each run's
+    time and peak memory."""
     import dataclasses
     import gc
     import numpy as np
@@ -2427,20 +2463,416 @@ def moe_remat_against_kept() -> None:
         err, scale = leaf_error(a, w)
         differ.append(path)
         worst = max(worst, err / scale)
-        if err > 6.25e-2 * scale:
+        if err > REMAT_BAR * scale:
             fail(f"phase 49: {GRANITE}'s remat gradient {path} differs by "
-                 f"{err} from the kept run's (bar 6.25e-2 of {scale})")
+                 f"{err} from the kept run's (bar {REMAT_BAR} of {scale})")
     print(f"phase 49: {GRANITE} at full depth, bf16 layers, {b} x {s} "
           f"tokens, remat against kept: loss {l1:.6f} / {l0:.6f}; expert "
           f"ids of {n} MoE layers equal in the forward, its recompute and "
           f"the kept run; gradients bit-equal in {len(paths) - len(differ)} "
           f"of {len(paths)} leaves, the rest within {worst:.2e} of their "
-          f"largest |value| (bar 6.25e-2; the first that differ: "
+          f"largest |value| (bar {REMAT_BAR}; the first that differ: "
           f"{differ[:4]}); loss and gradient {s1:.2f} s / {s0:.2f} s, peak "
           f"{p1 / 2**30:.2f} / {p0 / 2**30:.2f} GiB over the masters (host "
           f"clock, {card_line()})")
     del masters, leaves, runs, g1, g0
     torch.cuda.empty_cache()
+
+
+#: phase 50 (d)'s training rows at 16 x 16: the dense family's rows that
+#: one card skips ("state")
+MESH_TRAIN_ARCHS = ("deepseek-7b", "gemma2-9b", "gemma2-9b-swa",
+                    "llama3-8b", "llama3-8b-swa")
+#: phase 50 (d)'s dry runs, one process each, side by side: (archs,
+#: shapes, mesh)
+MESH_ROWS = ([((arch,), ("train_4k",), "16x16") for arch in MESH_TRAIN_ARCHS]
+             + [(("llama3-8b",), ("prefill_32k", "decode_32k"), "16x16"),
+                (("llama3-8b",), ("prefill_32k",), "2x16x16")])
+#: the kernels a dense mesh row launches, and those with a backward
+MESH_KERNELS = ("flash_attention", "decode_attention")
+MESH_TRAINED = ("flash_attention",)
+#: phase 50 (b): llama3-8b's decode_32k cache a card at 16 x 16 (8 rows of
+#: the 128), cut into the 16 sequence shards of the 'model' axis
+SEQ_DECODE = (8, 32, 8, 32768, 128, 16)
+#: phase 50 (c): (name, (B, H, KV, S, T, D), options) of flash launches on
+#: one rank's heads of a 16-way 'model' axis at train_4k (2 sequences a
+#: micro-batch a card) that (d)'s rows must have made
+LOCAL_FLASH = [("llama3-8b", (2, 2, 1, 4096, 4096, 128), {}),
+               ("gemma2-9b", (2, 1, 1, 4096, 4096, 256),
+                {"window": 4096, "softcap": 50.0})]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def host_mesh_equal(dev):
+    """Phase 50 (a): the 1x1 mesh over NCCL (``make_host_mesh``) against
+    the unsharded path, bit for bit: llama3-8b at full width and depth, a
+    prefill of 2 x 256 tokens and 8 decode steps of fixed tokens (every
+    logit equal, the flash kernel launched once a layer, the decode kernel
+    once a layer a step on the mesh run), then one qwen2.5-3b training step
+    at phase 45's 8 x 128 tokens from the same f32 masters (the metrics
+    equal, and every updated parameter and moment, by a 64-bit sum of its
+    32-bit words a leaf); the flash kernel and its backward, and the
+    decode kernel, at every shape the mesh runs launched them at against
+    their plain versions (``MainPathShapes``).  Returns the mesh runs'
+    (flash, decode) launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import shard_params
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         tree_leaves)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        cfg = get_config("llama3-8b")
+        params = init_params(cfg, seed=50, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(50)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                               device=dev)
+        nxt = torch.randint(0, cfg.vocab_size, (8, 2, 1), generator=gen,
+                            device=dev)
+
+        def serve(p):
+            with torch.no_grad():
+                logits, cache = prefill(p, cfg, prompt, max_seq=264)
+                outs = [logits]
+                for tok in nxt:
+                    logits, cache = decode_step(p, cfg, tok, cache)
+                    outs.append(logits)
+            return outs
+        plain = serve(params)
+        fl_ops.launches = dec_ops.launches = 0
+        shapes = MainPathShapes({"flash_attention": fl_ops,
+                                 "decode_attention": dec_ops},
+                                trained=MESH_TRAINED)
+        with shapes, st.on_mesh(mesh, "serve"):
+            meshed = serve(shard_params(cfg, params, mesh, "serve"))
+        launches = (fl_ops.launches, dec_ops.launches)
+        torch.cuda.synchronize()
+        if launches != (cfg.num_layers, 8 * cfg.num_layers):
+            fail(f"phase 50 (a): the 1x1 mesh's llama3-8b run launched "
+                 f"(flash, decode) {launches}")
+        if not all(torch.equal(a, b) for a, b in zip(plain, meshed)):
+            fail("phase 50 (a): llama3-8b's logits on the 1x1 mesh differ "
+                 "from the unsharded path's")
+        del params, plain, meshed
+        torch.cuda.empty_cache()
+        cfg = get_config("qwen2.5-3b")
+        batch = {k: torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                                  device=dev) for k in ("tokens", "labels")}
+
+        def train(on):
+            masters = init_params(cfg, seed=50, device=dev, keep_f32=True)
+            step = st.make_train_step(cfg, AdamWConfig(), mesh=on)
+            p, o, m = step(masters, init_opt_state(masters), batch)
+            words = torch.stack([x.view(torch.int32).sum(dtype=torch.int64)
+                                 for x in tree_leaves((p, o.mu, o.nu))])
+            return words, {k: v.clone() for k, v in m.items()}
+        w0, m0 = train(None)
+        torch.cuda.empty_cache()
+        with shapes:
+            w1, m1 = train(mesh)
+        torch.cuda.empty_cache()
+        if not torch.equal(w0, w1) or not all(torch.equal(m0[k], m1[k])
+                                              for k in m0):
+            fail(f"phase 50 (a): qwen2.5-3b's step on the 1x1 mesh differs "
+                 f"from the unsharded step's: loss {float(m1['loss'])} / "
+                 f"{float(m0['loss'])}, {int((w0 != w1).sum())} leaves")
+        print(f"phase 50 (a): the 1x1 mesh over NCCL == the unsharded path, "
+              f"bit for bit: llama3-8b's prefill of 2 x 256 tokens and 8 "
+              f"decode steps ({launches[0]} flash, {launches[1]} decode "
+              f"launches), qwen2.5-3b's training step at 8 x 128 (loss "
+              f"{float(m1['loss']):.6f}, {len(w0)} leaves of parameters "
+              f"and moments); each kernel at the {len(shapes.seen)} (shape,"
+              f" options) the mesh runs launched it at, against its plain "
+              f"version:")
+        shapes.check(dev)
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def decode_stats_close(where, got, want) -> None:
+    """The decode kernel's softmax statistics (out, m, l) against
+    ``ref.py``'s: m within 1e-3 + 1e-3 |m|, l within 1e-3 relative."""
+    (_, m, ll), (_, wm, wl) = got, want
+    if not bool(((m - wm).abs() <= 1e-3 + 1e-3 * wm.abs()).all()) or \
+            not bool(((ll - wl).abs() <= 1e-3 * wl.abs()).all()):
+        fail(f"{where}: the decode kernel's statistics differ from "
+             f"ref.py's: m by {float((m - wm).abs().max())}, l by "
+             f"{float(((ll - wl) / wl).abs().max())} relative")
+
+
+def seq_decode_merge(dev) -> float:
+    """Phase 50 (b): ``SEQ_DECODE``, llama3-8b's decode_32k cache of a
+    card, in bf16: the decode kernel over each of 16 sequence shards with
+    its softmax statistics, merged by the reference's formula (the max of
+    the shards' maxima m, then the sums of l e^(m - max) and of the
+    outputs scaled by it), against one call over the whole cache and
+    against the f32 plain version at the decode bar (``attention_close``:
+    each shard's output is rounded to bf16 before the merge); the
+    statistics against ``ref.py``'s (m
+    within 1e-3 + 1e-3 |m|, l within 1e-3 relative), from the kernel's
+    split merge, from its one split (``BLOCKS_PER_SM`` 0) and from the f32
+    kernel.  Returns the largest error of the merged output."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    b, h, kv, t, d, n = SEQ_DECODE
+    q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)],
+                    torch.bfloat16, 50, dev)
+    full = lambda rows: torch.full((b,), rows, dtype=torch.int32,
+                                   device=dev)
+    whole = dec_ops.decode(q, k, v, full(t))
+    rows = t // n
+    parts = [dec_ops.decode(q, k[:, :, i * rows:(i + 1) * rows],
+                            v[:, :, i * rows:(i + 1) * rows], full(rows),
+                            stats=True) for i in range(n)]
+    top = torch.stack([m for _, m, _ in parts]).amax(0)
+    w = [ll * torch.exp(m - top) for _, m, ll in parts]
+    merged = sum(o.float() * x[..., None] for (o, _, _), x in
+                 zip(parts, w)) / torch.clamp(sum(w), min=1e-30)[..., None]
+    err = attention_close("phase 50 (b) merged against one call", merged,
+                          whole)
+    want32 = dec_ref.decode_reference(q.float(), k.float(), v.float(),
+                                      full(t))
+    err32 = attention_close("phase 50 (b) merged against f32 plain",
+                            merged, want32.to(torch.bfloat16))
+
+    def stats_close(where, got, want):
+        decode_stats_close(f"phase 50 (b) {where}", got, want)
+    sk, sv = k[:, :, :rows], v[:, :, :rows]
+    want = dec_ref.decode_reference(q.float(), sk.float(), sv.float(),
+                                    full(rows), stats=True)
+    stats_close("(bf16, split)", parts[0], want)
+    saved = dec_ops.BLOCKS_PER_SM
+    dec_ops.BLOCKS_PER_SM = 0
+    try:
+        stats_close("(bf16, one split)", dec_ops.decode(
+            q, sk, sv, full(rows), stats=True), want)
+        stats_close("(f32, one split)", dec_ops.decode(
+            q.float(), sk.float(), sv.float(), full(rows), stats=True), want)
+    finally:
+        dec_ops.BLOCKS_PER_SM = saved
+    stats_close("(f32, split)", dec_ops.decode(
+        q.float(), sk.float(), sv.float(), full(rows), stats=True), want)
+    print(f"phase 50 (b): llama3-8b's decode_32k cache ({b}, {h}, {kv}, "
+          f"{t}, {d}) in {n} sequence shards through the kernel, merged: "
+          f"max |err| {err:.3g} against one call (atol 2e-2, rtol 1e-2), "
+          f"{err32:.3g} against the f32 plain version (the same bar);"
+          f" statistics == ref.py's (bf16 and f32, split and one split)")
+    return err
+
+
+def mesh_rows_child(index: int, out: Path) -> None:
+    """Phase 50 (d)'s child process (``chip_smoke.py --mesh-rows I OUT``):
+    ``MESH_ROWS[I]`` through ``dryrun.main`` into ``OUT``, one call a
+    shape, ``DRYRUN_REPS`` timed steps a row; each kernel's (forward,
+    backward) launches set to 0 before a call and read after it, and every
+    (shape, options) the kernels were launched at (``MainPathShapes``, the
+    decode kernel's lengths with them), written to ``OUT``/kernels.json
+    for the parent's checks.  Exits with ``dryrun.main``'s code."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    archs, shapes, mesh = MESH_ROWS[index]
+    mods = {k: m for k, m in llm_kernel_ops().items() if k in MESH_KERNELS}
+    seen = MainPathShapes(mods, trained=MESH_TRAINED)
+    calls, rc = [], 0
+    with seen:
+        for arch in archs:
+            for shape in shapes:
+                zero_counts(mods)
+                rc |= dryrun.main(["--arch", arch, "--shape", shape,
+                                   "--mesh", mesh, "--reps",
+                                   str(DRYRUN_REPS), "--out", str(out)])
+                calls.append({"arch": arch, "shape": shape,
+                              "launches": kernel_counts(mods)})
+
+    def plain(x):
+        if isinstance(x, tuple):
+            return [plain(v) for v in x]
+        return str(x) if isinstance(x, torch.dtype) else x
+    (out / "kernels.json").write_text(json.dumps({"calls": calls, "seen": [
+        [name, bwd, plain(key), None if n is None else n.tolist()]
+        for (name, bwd, key), n in seen.seen.items()]}))
+    sys.exit(rc)
+
+
+def launch_key(x):
+    """A ``MainPathShapes`` key from its json form (``mesh_rows_child``)."""
+    import torch
+    if isinstance(x, list):
+        return tuple(launch_key(v) for v in x)
+    if isinstance(x, str) and x.startswith("torch."):
+        return getattr(torch, x[len("torch."):])
+    return x
+
+
+def mesh_dry_run(dev):
+    """Phase 50 (d): the dry run's mesh rows, each in a process of its own
+    (``mesh_rows_child``) under the fake process group (rank 0's step on
+    the card), the processes side by side (``MESH_ROWS``):
+    ``MESH_TRAIN_ARCHS``' train_4k and llama3-8b's prefill_32k and
+    decode_32k at 16 x 16, llama3-8b's prefill_32k at 2 x 16 x 16.  Every
+    row ``ok`` with 256 or 512 chips, a collective term above 0 and rank
+    0's peak (its own process's) under 3/4 of the card; each row's flash
+    and decode launches, forward and backward, equal to its layers times
+    its steps (``dryrun_launches``: a training row's per micro-batch,
+    twice in the forward under remat); the serve driver's pool table reads
+    the 16 x 16 rows with its default mesh.  The processes share the card
+    and the host, so the rows' measured steps here are not rank 0's alone
+    (``PERF.md``'s come from the rows run one at a time).  Returns the
+    launch keys the rows recorded ({(name, backward, key): lengths}) and
+    the rows' launches ({name: (forward, backward)})."""
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.serving.pool import pool_table_from_dryrun
+    torch.cuda.empty_cache()   # the card for the rows' processes
+    out = ROOT / "chiprun_out" / "dryrun-mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    artifact = out / "dryrun.jsonl"
+    artifact.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t1 = time.perf_counter()
+    procs = []
+    try:
+        for i, (archs, shapes, mesh) in enumerate(MESH_ROWS):
+            sub = out / f"rows-{i}"
+            sub.mkdir(exist_ok=True)
+            for name in ("dryrun.jsonl", "kernels.json"):
+                (sub / name).unlink(missing_ok=True)
+            log = open(out / f"log-{i}-{mesh}-{shapes[0]}.txt", "w")
+            procs.append((archs, shapes, mesh, sub, log, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rows",
+                 str(i), str(sub)], env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
+        for archs, shapes, mesh, sub, log, proc in procs:
+            rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter()
+                                                  - t1)))
+            log.close()
+            print(f"phase 50 (d): {mesh} rows of {', '.join(archs)} at "
+                  f"{', '.join(shapes)}: exit {rc} at "
+                  f"{time.perf_counter() - t1:.1f} s")
+            if rc:
+                fail(f"phase 50 (d): the {mesh} dry run of {archs} failed:"
+                     f"\n{Path(log.name).read_text()[-3000:]}")
+    finally:
+        for *_, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    seen, total = {}, {k: (0, 0) for k in MESH_KERNELS}
+    with open(artifact, "w") as f:
+        for *_, sub, _, _ in procs:
+            f.write((sub / "dryrun.jsonl").read_text())
+            made = json.loads((sub / "kernels.json").read_text())
+            for r, call in zip((json.loads(x) for x in (
+                    sub / "dryrun.jsonl").read_text().splitlines()),
+                    made["calls"]):
+                cfg = get_config(r["arch"])
+                shape = dryrun.INPUT_SHAPES[r["shape"]]
+                fwd, bwd = dryrun_launches(cfg, shape.kind, 1 + DRYRUN_REPS,
+                                           dryrun.microbatches(cfg, shape))
+                want = {k: (fwd[k], bwd.get(k, 0)) for k in MESH_KERNELS}
+                got = {k: tuple(v) for k, v in call["launches"].items()}
+                if (r["arch"], r["shape"]) != (call["arch"], call["shape"]) \
+                        or got != want:
+                    fail(f"phase 50 (d): row {r['arch']} {r['shape']} "
+                         f"{r['mesh']} launched (forward, backward) {got}, "
+                         f"not {want}")
+                print(f"  {r['arch']} {r['shape']} {r['mesh']}: launches "
+                      f"(forward, backward) {got} == its layers x steps")
+                total = {k: (total[k][0] + got[k][0], total[k][1] + got[k][1])
+                         for k in total}
+            for name, bwd, key, lengths in made["seen"]:
+                seen.setdefault((name, bwd, launch_key(key)), None if
+                                lengths is None else torch.tensor(
+                                    lengths, dtype=torch.int32, device=dev))
+    rows = [json.loads(ln) for ln in artifact.read_text().splitlines()]
+    want = {(a, s, m) for archs, shapes, m in MESH_ROWS for a in archs
+            for s in shapes}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
+    room = 0.75 * torch.cuda.get_device_properties(0).total_memory / 2**30
+    for r in rows:
+        chips = {"16x16": 256, "2x16x16": 512}[r["mesh"]]
+        if r["status"] != "ok" or r["chips"] != chips or not \
+                r["t_collective_s"] > 0 or not r["peak_memory_gb"] < room:
+            fail(f"phase 50 (d): row {r}")
+        print(f"mesh row {r['arch']} {r['shape']} {r['mesh']}: flops/chip "
+              f"{r['flops_per_chip']:.4e}, bytes/chip "
+              f"{r['bytes_per_chip']:.4e}, collective {r['coll_by_kind']};"
+              f" compute {r['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.3f} ms; rank 0 measured "
+              f"{r['measured_step_s'] * 1e3:.3f} ms beside the other rows' "
+              f"processes, peak {r['peak_memory_gb']:.2f} GiB "
+              f"({card_line()})")
+    if got != want or len(rows) != len(want):
+        fail(f"phase 50 (d): rows {sorted(got)}, not {sorted(want)}")
+    table = pool_table_from_dryrun(str(artifact), device="cpu")
+    if not any(e.model == "llama3-8b" for e in table.entries):
+        fail("phase 50 (d): the pool table read no 16x16 row")
+    return seen, total
+
+
+def mesh_kernels(dev, seen) -> None:
+    """Phase 50 (c): the flash kernel and its backward, and the decode
+    kernel, at every (shape, options) (d)'s rows launched them at (rank
+    0's heads of a 16-way 'model' axis and its batch rows; the decode
+    kernel over a sequence shard of the cache, with its statistics), on
+    seeded inputs, against their plain versions (``MainPathShapes.check``:
+    the forward at the JAX tests' bar and the f32 plain version's, the
+    backward at phase 43's, the statistics at phase 50 (b)'s); among them
+    ``LOCAL_FLASH``'s shapes, forward and backward."""
+    import torch
+    mods = {k: m for k, m in llm_kernel_ops().items() if k in MESH_KERNELS}
+    for name, (b, h, kv, s, t, d), kw in LOCAL_FLASH:
+        key = ((b, h, s, d), (b, kv, t, d), torch.bfloat16, True,
+               kw.get("window"), kw.get("softcap"))
+        if not all(("flash_attention", bwd, key) in seen
+                   for bwd in (False, True)):
+            fail(f"phase 50 (c): (d)'s rows made no flash launch, forward "
+                 f"and backward, on {name}'s heads of one rank {key}")
+    checks = MainPathShapes(mods, trained=MESH_TRAINED)
+    checks.seen = seen
+    print(f"phase 50 (c): each kernel at the {len(seen)} (shape, options) "
+          f"(d)'s rows launched it at, on seeded inputs, against its plain "
+          f"version:")
+    checks.check(dev)
+
+
+def mesh_phase(dev):
+    """Phase 50: the production mesh of the dense family (``host_mesh_equal``,
+    ``seq_decode_merge``, ``mesh_dry_run``, ``mesh_kernels``).  Returns the
+    flash and decode launches ({name: (forward, backward)}) of (a)'s mesh
+    runs and (d)'s rows."""
+    t0 = time.perf_counter()
+    flash, decode = host_mesh_equal(dev)
+    seq_decode_merge(dev)
+    seen, launches = mesh_dry_run(dev)
+    mesh_kernels(dev, seen)
+    phase("50 the production mesh of the dense family", t0)
+    f, b = launches["flash_attention"]
+    launches["flash_attention"] = (f + flash, b)
+    f, b = launches["decode_attention"]
+    launches["decode_attention"] = (f + decode, b)
+    return launches
 
 
 def moe_layer_check(dev) -> None:
@@ -4056,10 +4488,11 @@ def traffic_plane(params, dev, canny_ops):
     return n_canny
 
 
-#: phase 26: the reference's training run (700 steps a detector), and the
-#: paper's router matrix (benchmarks/common.py's router_matrix) over
-#: Figs. 6-8's datasets
-TRAIN_STEPS = 700
+#: phase 26: half the reference's training run (700 steps a detector; cut
+#: for phase 50's time: the relations held at 350), and the paper's
+#: router matrix (benchmarks/common.py's router_matrix) over Figs. 6-8's
+#: datasets
+TRAIN_STEPS = 350
 PAPER_ROWS = ("Orc", "RR", "Rnd", "LE", "LI", "HM", "HMG", "ED", "SF", "OB")
 FIGURES = (("fig6", "full_dataset", dict(n=300, seed=31)),
            ("fig7", "balanced_sorted_dataset", dict(per_group=50, seed=32)),
@@ -4795,6 +5228,10 @@ def examples_on_card(testbed, canny_ops, canny_ref, device="cuda",
 #: mamba2-370m's training and 500k-token rows, the training rows of
 #: granite-moe-1b-a400m, whisper-small, qwen2.5-3b and recurrentgemma-2b
 #: (the last two fit under remat), and llama3-8b's skip row
+#: the timed steps a row of phases 48 and 50 after its warm-up (which is
+#: counted): one, not the dry run's ``REPS`` (3), for the script's time
+#: limit
+DRYRUN_REPS = 1
 DRYRUN_CALLS = (("pool", None, ("prefill_32k", "decode_32k")),
                 ("mamba2", ("mamba2-370m",), ("train_4k", "long_500k")),
                 ("train", (GRANITE, WHISPER, "qwen2.5-3b",
@@ -4844,8 +5281,9 @@ class MainPathShapes:
             q, k = args[:2]
             return (tuple(q.shape), tuple(k.shape), q.dtype, *args[-3:])
         if name == "decode_attention":
-            q, k, _, _, window, softcap = args
-            return tuple(q.shape), tuple(k.shape), q.dtype, window, softcap
+            q, k, _, _, window, softcap = args[:6]
+            return (tuple(q.shape), tuple(k.shape), q.dtype, window, softcap,
+                    len(args) > 6 and bool(args[6]))
         if name == "ssd_scan":
             x, B = args[0], args[3]
             if len(args) == 7:                        # forward: the chunk
@@ -4992,14 +5430,22 @@ def lru_bwd_at(dev, key, _):
 def decode_at(dev, key, lengths):
     """The decode kernel at a main-path launch's shapes, options and
     lengths on seeded inputs, against its plain version: the JAX tests'
-    bar and, in bf16, the f32 plain version's."""
+    bar and, in bf16, the f32 plain version's; where the launch returned
+    the softmax statistics, those against ``ref.py``'s
+    (``decode_stats_close``)."""
     import torch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
-    qs, ks, dtype, window, softcap = key
+    qs, ks, dtype, window, softcap, stats = key
     q, k, v = randn([qs, ks, ks], dtype, 48, dev)
     kw = dict(window=window, softcap=softcap)
-    got = dec_ops.decode(q, k, v, lengths, **kw)
+    got = dec_ops.decode(q, k, v, lengths, stats=stats, **kw)
+    if stats:
+        decode_stats_close(f"decode at {qs} over {ks}", got,
+                           dec_ref.decode_reference(
+                               q.float(), k.float(), v.float(), lengths,
+                               stats=True, **kw))
+        got = got[0]
     err = attention_close(f"decode at {qs} over {ks}", got,
                           dec_ref.decode_reference(q, k, v, lengths, **kw))
     err32 = err
@@ -5010,7 +5456,8 @@ def decode_at(dev, key, lengths):
     lens = sorted(set(lengths.tolist()))
     return (f"{qs} over {ks} {dtype} lengths {lens[0]}..{lens[-1]} window "
             f"{window} softcap {softcap}: max err {err:.3g} (plain in "
-            f"{dtype}), {err32:.3g} (f32)")
+            f"{dtype}), {err32:.3g} (f32)"
+            + ("; statistics == ref.py's" if stats else ""))
 
 
 def ssd_at(dev, key, _):
@@ -5214,7 +5661,7 @@ def dry_run(dev):
     t0 = time.perf_counter()
     mods = llm_kernel_ops()
     out_dir = ROOT / "chiprun_out" / f"dryrun-{time.strftime('%H%M%S')}"
-    steps = 1 + dryrun.REPS + 1   # warm-up, timed, counted
+    steps = 1 + DRYRUN_REPS   # the warm-up, which is counted, and timed
     total = {k: (0, 0) for k in mods}
     rows, bases = [], []
     shapes_seen = MainPathShapes(mods, trained=("flash_attention",
@@ -5228,8 +5675,8 @@ def dry_run(dev):
         t1 = time.perf_counter()
         base = torch.cuda.memory_allocated()
         with shapes_seen:
-            rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--out",
-                              str(out_dir)])
+            rc = dryrun.main(["--arch", *archs, "--shape", *shapes, "--reps",
+                              str(DRYRUN_REPS), "--out", str(out_dir)])
         got = {k: (m.launches, getattr(m, "backward_launches", 0))
                for k, m in mods.items()}
         lines = (out_dir / "dryrun.jsonl").read_text().splitlines()
@@ -5727,6 +6174,12 @@ def main() -> None:
     served_launches["flash_attention"] += moe_fwd
     trained_bwd["flash_attention"] += moe_bwd
 
+    # 50 ----------------------- the production mesh of the dense family
+    for k, (f, b) in mesh_phase(dev).items():
+        served_launches[k] += f
+        if b:
+            trained_bwd[k] = trained_bwd.get(k, 0) + b
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
@@ -5801,4 +6254,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rows"]:
+        mesh_rows_child(int(sys.argv[2]), Path(sys.argv[3]))
     main()

@@ -50,6 +50,13 @@
 // eight splits at a time, and the wrapper cuts the cache at D = 256 (G =
 // 10: 10 KB of partials a split) into 64-row splits, not 32.
 //
+// Softmax statistics (a sequence-sharded cache merges its shards'
+// outputs with them): with a stats pointer, a second instantiation of each
+// kernel (STATS) also writes each (row, head)'s largest score and the sum
+// of exp(score - that max) over its keys, where the single split writes
+// its output or the last block its merge; the kernels without them are
+// the ones they were.
+//
 // f32 (the parity runs against the CPU): decode_kernel, the CUDA cores,
 // from 64-row K/V tiles in shared memory (16-byte loads, one-word padding
 // against bank conflicts), 128 threads.  Its shared memory grows with D
@@ -91,7 +98,7 @@ constexpr size_t smem_bytes() {
 // G = H / KV is a template parameter so that each thread's share of the
 // group (its scores and its output columns) is a register array of exact
 // size, with no predicated work for heads it does not have.
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool STATS>
 __global__ void __launch_bounds__(NT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ lengths,
@@ -99,7 +106,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     long long q_h, long long k_b, long long k_h, long long k_s, long long v_b,
     long long v_h, long long v_s, long long o_b, long long o_h, float scale,
     int window, float cap, int chunk, float* __restrict__ part,
-    unsigned* __restrict__ tickets) {
+    unsigned* __restrict__ tickets, float* __restrict__ stats) {
   constexpr int LK = D + 1;
   constexpr int LP = BK + 1;
   constexpr int SG = NT / BK;  // threads per cache row in the score phase
@@ -237,6 +244,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           ob[g * o_h + d + c * DW] =
               repro_torch::from_f32<T>(acc[i][c] / fmaxf(l_s[g], 1e-30f));
     }
+    if constexpr (STATS)
+      for (int g = tid; g < G; g += NT) {
+        stats[bh * G + g] = m_s[g];
+        stats[(gridDim.x + bh) * G + g] = l_s[g];
+      }
     return;
   }
 
@@ -287,6 +299,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int c = 0; c < DC; ++c)
       ob[g * o_h + d + c * DW] =
           repro_torch::from_f32<T>(num[c] / fmaxf(den, 1e-30f));
+    if constexpr (STATS)
+      if (d == 0) {
+        stats[bh * G + g] = mx;
+        stats[(gridDim.x + bh) * G + g] = den;
+      }
   }
 }
 
@@ -295,6 +312,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 // ------------------------------------------------------ bf16, tensor cores
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;  // the statistics' max leaves
+                                             // log2 units
 constexpr int MMA_STAGES = 3;  // ring depth of each warp's K/V tiles
 
 // the tile geometry of decode_kernel_mma at head dim D
@@ -309,7 +328,7 @@ struct Mma {
   static constexpr size_t smem = 2ull * TILE + ring_bytes;
 };
 
-template <int D, int G>
+template <int D, int G, bool STATS>
 __global__ void __launch_bounds__(Mma<D>::NT) decode_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
@@ -317,7 +336,7 @@ __global__ void __launch_bounds__(Mma<D>::NT) decode_kernel_mma(
     long long q_h, long long k_b, long long k_h, long long k_s, long long v_b,
     long long v_h, long long v_s, long long o_b, long long o_h, float scale,
     int window, float cap, int chunk, float* __restrict__ part,
-    unsigned* __restrict__ tickets) {
+    unsigned* __restrict__ tickets, float* __restrict__ stats) {
   using repro_torch::cp_async16;
   using repro_torch::exp2_approx;
   using repro_torch::ldmatrix_x4;
@@ -539,6 +558,11 @@ __global__ void __launch_bounds__(Mma<D>::NT) decode_kernel_mma(
       st.x = *reinterpret_cast<uint32_t*>(&lo2);
       st.y = *reinterpret_cast<uint32_t*>(&hi2);
       *reinterpret_cast<uint2*>(ob + g * o_h + d) = st;
+      if constexpr (STATS)
+        if (d == 0) {
+          stats[bh * G + g] = mx * LN2;
+          stats[(gridDim.x + bh) * G + g] = den;
+        }
     } else {
       *reinterpret_cast<float4*>(mine + i) = num;
       if (d == 0) {
@@ -580,7 +604,13 @@ __global__ void __launch_bounds__(Mma<D>::NT) decode_kernel_mma(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       den += __shfl_xor_sync(0xffffffffu, den, off);
-    if (lane == 0) inv[g] = 1.f / fmaxf(den, 1e-30f);
+    if (lane == 0) {
+      inv[g] = 1.f / fmaxf(den, 1e-30f);
+      if constexpr (STATS) {
+        stats[bh * G + g] = mx * LN2;
+        stats[(gridDim.x + bh) * G + g] = den;
+      }
+    }
   }
   __syncthreads();
   for (int i = 4 * tid; i < G * D; i += 4 * NT) {
@@ -633,31 +663,33 @@ int with_shape(int d, int g, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The kernel of a dtype at (D, G): its threads and dynamic shared memory;
-// bf16 takes the tensor cores, f32 the CUDA cores.
-template <bool BF16, int D, int G>
+// The kernel of a dtype at (D, G), with or without the statistics (a
+// template argument, so that the kernel without them is the one it was):
+// its threads and dynamic shared memory; bf16 takes the tensor cores, f32
+// the CUDA cores.
+template <bool BF16, int D, int G, bool STATS>
 struct Kernel;
-template <int D, int G>
-struct Kernel<false, D, G> {
+template <int D, int G, bool STATS>
+struct Kernel<false, D, G, STATS> {
   static const void* fn() {
-    return reinterpret_cast<const void*>(decode_kernel<float, D, G>);
+    return reinterpret_cast<const void*>(decode_kernel<float, D, G, STATS>);
   }
   static constexpr int threads = NT;
   static constexpr size_t smem = smem_bytes<D, G>();
 };
-template <int D, int G>
-struct Kernel<true, D, G> {
+template <int D, int G, bool STATS>
+struct Kernel<true, D, G, STATS> {
   static const void* fn() {
-    return reinterpret_cast<const void*>(decode_kernel_mma<D, G>);
+    return reinterpret_cast<const void*>(decode_kernel_mma<D, G, STATS>);
   }
   static constexpr int threads = Mma<D>::NT;
   static constexpr size_t smem = Mma<D>::smem;
 };
 
 // lets the kernel take its dynamic shared memory (above 48 KB), once
-template <bool BF16, int D, int G>
+template <bool BF16, int D, int G, bool STATS>
 cudaError_t allow_smem() {
-  using K = Kernel<BF16, D, G>;
+  using K = Kernel<BF16, D, G, STATS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(K::smem));
@@ -670,35 +702,40 @@ struct Args {
   void* o;
   int t, nsplit, chunk;
   const DecodePlan* p;
+  float* stats;
 };
 
-template <bool BF16>
+template <bool BF16, bool STATS>
 int launch(int d, int g, const Args& a) {
   using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
   return with_shape(d, g, [&](auto dc, auto gc) {
     constexpr int D = decltype(dc)::value, G = decltype(gc)::value;
-    using K = Kernel<BF16, D, G>;
+    using K = Kernel<BF16, D, G, STATS>;
     // the bf16 kernel's last block keeps each split's weight a head where
     // the warps' rings were
     if (BF16 && sizeof(float) * G * (a.nsplit + 1) > Mma<D>::ring_bytes)
       return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t attr = allow_smem<BF16, D, G>();
+    const cudaError_t attr = allow_smem<BF16, D, G, STATS>();
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const DecodePlan& p = *a.p;
     const long long* st = p.st;
     const dim3 grid(p.b * p.kv, a.nsplit);
     if constexpr (BF16)
-      decode_kernel_mma<D, G><<<grid, K::threads, K::smem, p.stream>>>(
+      decode_kernel_mma<D, G, STATS><<<grid, K::threads, K::smem,
+                                       p.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.o), p.kv,
           a.t, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-          st[9], p.scale, p.window, p.cap, a.chunk, p.part, p.tickets);
+          st[9], p.scale, p.window, p.cap, a.chunk, p.part, p.tickets,
+          a.stats);
     else
-      decode_kernel<T, D, G><<<grid, K::threads, K::smem, p.stream>>>(
+      decode_kernel<T, D, G, STATS><<<grid, K::threads, K::smem,
+                                      p.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.o), p.kv,
           a.t, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-          st[9], p.scale, p.window, p.cap, a.chunk, p.part, p.tickets);
+          st[9], p.scale, p.window, p.cap, a.chunk, p.part, p.tickets,
+          a.stats);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -707,8 +744,8 @@ template <bool BF16>
 int blocks_per_sm(int d, int g, int* blocks) {
   return with_shape(d, g, [&](auto dc, auto gc) {
     constexpr int D = decltype(dc)::value, G = decltype(gc)::value;
-    using K = Kernel<BF16, D, G>;
-    cudaError_t err = allow_smem<BF16, D, G>();
+    using K = Kernel<BF16, D, G, false>;
+    cudaError_t err = allow_smem<BF16, D, G, false>();
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, K::fn(), K::threads, K::smem);
@@ -722,16 +759,23 @@ int blocks_per_sm(int d, int g, int* blocks) {
 // the device, in f32 (p->bf16 == 0) or bf16 (p->bf16 == 1), (d, h / kv)
 // one of with_shape's pairs; rows are 16-byte aligned.  The cache's t
 // rows are cut into nsplit pieces of `chunk` rows; with nsplit > 1,
-// p->part holds b * kv * nsplit * (h / kv) * (d + 2) floats.  Launches on
+// p->part holds b * kv * nsplit * (h / kv) * (d + 2) floats.  stats, when
+// not null, gets each (row, head)'s softmax statistics over its keys, f32
+// [2][b][h]: the largest scaled (and softcapped) score, then the sum of
+// exp(score - that max); a row with no key gets -1e30 and 0.  Launches on
 // p->stream and returns cudaGetLastError() (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* lengths, void* o, int t,
-                                int nsplit, int chunk,
-                                const DecodePlan* p) {
+                                int nsplit, int chunk, const DecodePlan* p,
+                                float* stats) {
   if (p->h % p->kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, lengths, o, t, nsplit, chunk, p};
-  return p->bf16 ? launch<true>(p->d, p->h / p->kv, a)
-                 : launch<false>(p->d, p->h / p->kv, a);
+  const Args a{q, k, v, lengths, o, t, nsplit, chunk, p, stats};
+  const int g = p->h / p->kv;
+  if (stats)
+    return p->bf16 ? launch<true, true>(p->d, g, a)
+                   : launch<false, true>(p->d, g, a);
+  return p->bf16 ? launch<true, false>(p->d, g, a)
+                 : launch<false, false>(p->d, g, a);
 }
 
 // *blocks: how many blocks of the kernel at head dim d and group g fit on

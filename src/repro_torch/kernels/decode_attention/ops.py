@@ -53,8 +53,10 @@ BLOCKS_PER_SM = None
 #: launch plans by (device, dtypes, shapes but T, strides, window, softcap)
 _PLANS = {}
 
-#: q, k, v, lengths, o, t, nsplit, chunk and the plan's _Static
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+#: q, k, v, lengths, o, t, nsplit, chunk, the plan's _Static and the
+#: statistics (null when not asked for)
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
+             + (ctypes.c_void_p,) * 2)
 
 
 class _Static(ctypes.Structure):
@@ -195,7 +197,7 @@ def _plan(q, k, v, window, softcap) -> _Plan:
     return plan
 
 
-def _launch(q, k, v, lengths, window, softcap):
+def _launch(q, k, v, lengths, window, softcap, stats=False):
     plan = _plan(q, k, v, window, softcap)
     # what the plan does not fix: devices, the shapes of v and lengths,
     # the pointers' alignment
@@ -216,8 +218,14 @@ def _launch(q, k, v, lengths, window, softcap):
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_rows(name, x)
     o = torch.empty_like(q)
+    st = (torch.empty((2,) + tuple(q.shape[:2]), dtype=torch.float32,
+                      device=dev) if stats else None)
     t = k.shape[2]
     if o.numel() == 0 or t == 0:
+        if stats:
+            st[0].fill_(ref.NEG_INF)
+            st[1].zero_()
+            return o.zero_(), st[0], st[1]
         return o.zero_()
     if plan.fn is None:
         plan.resolve()
@@ -226,42 +234,48 @@ def _launch(q, k, v, lengths, window, softcap):
     stream = plan.get_stream(index)
     if stream != plan.stream:
         plan.set_stream(stream)
+    sp = None if st is None else st.data_ptr()
     if plan.get_device() == index:
         rc = plan.fn(qp, kp, vp, lengths.data_ptr(), o.data_ptr(), t, nsplit,
-                     chunk, plan.address)
+                     chunk, plan.address, sp)
     else:
         with torch.cuda.device(index):
             rc = plan.fn(qp, kp, vp, lengths.data_ptr(), o.data_ptr(), t,
-                         nsplit, chunk, plan.address)
+                         nsplit, chunk, plan.address, sp)
     if rc != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {rc}")
     _build.count_launch(__name__)
-    return o
+    return o if st is None else (o, st[0], st[1])
 
 
-def cost(q, k, v, lengths, *, window=None, softcap=None):
+def cost(q, k, v, lengths, *, window=None, softcap=None, stats=False):
     """(operations, bytes) of a call, from the shapes: every row attends
     the cache's T rows (or the window), never read from ``lengths``; 4 a
-    (head, key, d); those K/V rows and q read, the output written, the
-    lengths read."""
+    (head, key, d); those K/V rows and q read, the output (and the
+    statistics, 8 bytes a (row, head)) written, the lengths read."""
     b, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     keys = b * min(t, window or t)
     return (4 * h * d * keys, q.element_size() * (
-        2 * kv * d * keys + 2 * b * h * d) + lengths.element_size() * b)
+        2 * kv * d * keys + 2 * b * h * d) + lengths.element_size() * b
+        + 8 * b * h * stats)
 
 
 @_build.counted(cost)
-def decode(q, k, v, lengths, *, window=None, softcap=None):
+def decode(q, k, v, lengths, *, window=None, softcap=None, stats=False):
     """Scale D ** -0.5.  q [B,H,D]; k, v [B,KV,T,D]; lengths [B] int32 ->
     [B,H,D] in q's dtype, on q's device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  Row b attends to the cache
-    positions < lengths[b] (and >= lengths[b] - window when windowed)."""
+    positions < lengths[b] (and >= lengths[b] - window when windowed).
+    With ``stats``, (out, m, l): each (row, head)'s largest scaled (and
+    softcapped) score over its keys and the sum of exp(score - m), f32
+    [B,H] (-1e30 and 0 for a row with no key), which merge the outputs of
+    calls over disjoint key sets (a sequence-sharded cache)."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None; got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None; got {softcap}")
     if q.device.type == "cpu":
         return ref.decode_reference(q, k, v, lengths, window=window,
-                                    softcap=softcap)
-    return _launch(q, k, v, lengths, window, softcap)
+                                    softcap=softcap, stats=stats)
+    return _launch(q, k, v, lengths, window, softcap, stats)

@@ -13,7 +13,9 @@ is its own kernel and its operands cross HBM, so ``StepCost``, a
 - bytes: every tensor the op reads and every tensor it writes, once;
 - views and allocations (``empty*``) add nothing, nor does a copy
   between devices (a scalar made on the host and sent to the card): it
-  crosses the bus, not the card's memory, and a step on the CPU has none.
+  crosses the bus, not the card's memory, and a step on the CPU has none;
+- nor do the collectives (the ``c10d`` ops): ``sharding/comm.py`` counts
+  their bytes, the roofline's collective term.
 
 The hand-written kernels are ctypes launches the mode does not see: each
 entry point adds its own analytic operations and bytes (the counts
@@ -93,7 +95,8 @@ class StepCost(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        if self.held or func.is_view or name in _FREE:
+        if self.held or func.is_view or name in _FREE or \
+                func.namespace == "c10d":
             return out
         if name in _COPIES and len(
                 {x.device for x in _tensors((args, kwargs, out))}) > 1:

@@ -8,10 +8,13 @@ Three terms per (arch x shape x card), in seconds:
   collective = collective bytes / link bytes per second
 
 The counts come from ``launch/cost.py`` (the reference reads them from
-the compiled HLO).  One card has no link and moves no collective bytes,
-so its collective term is 0 by definition.  ``h100`` is the card's
-record: the data sheet's bf16 and HBM rates, and the power limit and idle
-draw read from the card by ``nvidia-smi``.
+the compiled HLO) and the collective bytes from ``sharding/comm.py`` (a
+mesh row's; one card moves none, so its collective term is 0).
+``h100`` is the card's record: the data sheet's bf16, HBM and NVLink
+rates, and the power limit and idle draw read from the card by
+``nvidia-smi``.  The link rate is one card's NVLink to the others of its
+node: a mesh of 256 cards spans 32 nodes of 8, and the network between
+nodes, slower than NVLink, is not modelled.
 """
 from __future__ import annotations
 
@@ -42,6 +45,9 @@ class Chip:
 #: NVIDIA's data sheet for one H100 SXM: dense bf16 and HBM3
 H100_PEAK_FLOPS = 989e12
 H100_HBM_BW = 3.35e12
+#: the same data sheet's NVLink (4th generation): 900 GB/s a card, both
+#: directions together, so 450 GB/s each way
+H100_LINK_BW = 450e9
 #: the data sheet's power limit, for a rehearsal on the CPU (no card to
 #: read); its idle draw is taken as 0 W there
 H100_POWER_LIMIT = 700.0
@@ -79,7 +85,7 @@ def h100(device="cuda") -> Chip:
     dev = torch.device(device)
     if dev.type != "cuda":
         return Chip("NVIDIA H100 data sheet (no card read)",
-                    H100_PEAK_FLOPS, H100_HBM_BW, None, 0.0,
+                    H100_PEAK_FLOPS, H100_HBM_BW, H100_LINK_BW, 0.0,
                     H100_POWER_LIMIT)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     torch.cuda.synchronize(index)
@@ -88,8 +94,8 @@ def h100(device="cuda") -> Chip:
         time.sleep(REST_INTERVAL_S)
         name, limit, draw = _query(index)
         draws.append(_watts(draw))
-    return Chip(f"{name}, {limit}", H100_PEAK_FLOPS, H100_HBM_BW, None,
-                min(draws), _watts(limit),
+    return Chip(f"{name}, {limit}", H100_PEAK_FLOPS, H100_HBM_BW,
+                H100_LINK_BW, min(draws), _watts(limit),
                 float(torch.cuda.get_device_properties(index).total_memory))
 
 
@@ -117,8 +123,9 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        """0 on a chip without a link: it moves no collective bytes."""
-        if not self.chip.link_bw:
+        """0 on a chip without a link, and for a row of one chip: it has
+        no peer to move collective bytes to."""
+        if not self.chip.link_bw or self.chips == 1:
             return 0.0
         return self.coll_bytes / self.chip.link_bw
 

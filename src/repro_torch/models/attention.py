@@ -32,7 +32,25 @@ of 128 suit neither kernel.  Prefill expands the keys and values
 scores, probabilities cast to the values' dtype); decode attends in the
 latent space with the up-projections absorbed (``mla_decode_v2``, the
 reference's one-device carry path: the old latent rows merged with the
-new token's).  The sharded paths are not ported.
+new token's).
+
+On a mesh (``sharding.ctx``) the GQA layers are tensor-parallel over its
+'model' axis of m ranks, the reference's specs: ``wq`` (and ``bq``) a
+column shard of the rank's H / m query heads, ``wo`` a row shard whose
+output is all-reduced, the input's gradient all-reduced
+(``comm.reduce_grad``).  Where the KV heads divide m, ``wk`` and ``wv``
+are column shards of the rank's KV heads; where they do not, each rank
+gathers them whole over 'model' and computes the KV heads its query
+heads read (every head where it fills a sequence-split cache), the
+function GSPMD gives the reference.  Both kernels run on the rank's
+heads.  A decode step's cache follows ``decode_cache_layout``: ``kv``
+runs as one device does on the rank's heads; ``seq`` gathers every query
+head of the new token, runs the decode kernel over the rank's rows with
+its softmax statistics and merges the ranks' outputs by the reference's
+formula (max over the ranks, then the sums of l e^(m - max) and of the
+scaled outputs), then keeps the rank's heads; ``none`` (a replicated
+cache) the same without the merge.  The sharded MLA paths are not
+ported.
 """
 from __future__ import annotations
 
@@ -42,6 +60,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.sharding import comm, ctx
+from repro_torch.sharding import specs as sp
 
 from .base import ModelConfig
 from .layers import apply_rope, dense_init, softcap
@@ -69,68 +89,156 @@ def init_mla(gen, cfg: ModelConfig, dtype, device=None):
                                 ("w_uv", (r, h * dv)), ("wo", (h * dv, d)))}
 
 
-def _project(p, cfg: ModelConfig, x, positions):
-    """q [B,S,H,hd] and k [B,S,KV,hd] after RoPE (none without
-    ``cfg.use_rope``: ``positions`` unused), v [B,S,KV,hd]."""
+class _Heads:
+    """A rank's share of a GQA layer's heads on the 'model' axis (one
+    rank: all of them): m ranks, this one r, its ``hl`` query heads, and
+    the KV heads [k0, k1) they read, which it computes from its column
+    shard (``split``) or from ``wk``, ``wv`` gathered whole."""
+
+    def __init__(self, cfg: ModelConfig):
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        self.m = comm.size("model")
+        self.r = (sp.axis_coords(ctx.current_mesh())["model"]
+                  if self.m > 1 else 0)
+        self.hl = h // self.m
+        self.split = kv % self.m == 0
+        g = h // kv
+        self.k0 = self.r * self.hl // g
+        self.k1 = ((self.r + 1) * self.hl - 1) // g + 1
+
+
+def _whole(w, n: int, dim: int = -1):
+    """``w`` gathered over 'model' along ``dim`` unless it has ``n`` there
+    already (a leaf the spec keeps whole)."""
+    if w.shape[dim] == n:
+        return w
+    return comm.all_gather(w, "model", dim % w.dim())
+
+
+def _project(p, cfg: ModelConfig, x, positions, kv_all: bool = False):
+    """q [B,S,Hr,hd] and k [B,S,KVr,hd] after RoPE (none without
+    ``cfg.use_rope``: ``positions`` unused), v [B,S,KVr,hd]: every head
+    on one device; on a mesh the rank's query heads and the KV heads
+    they read (all of them with ``kv_all``, where they do not divide the
+    axis; ``_Heads``)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    tp = _Heads(cfg)
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
+    if tp.m > 1:
+        x = comm.reduce_grad(x, "model")
+        if not tp.split:
+            lo, hi = (0, kv) if kv_all else (tp.k0, tp.k1)
+            wk, wv = (_whole(w, kv * hd)[:, lo * hd:hi * hd]
+                      for w in (wk, wv))
+            if cfg.qkv_bias:
+                bk, bv = (_whole(w, kv * hd)[lo * hd:hi * hd]
+                          for w in (bk, bv))
+    q, k, v = x @ p["wq"], x @ wk, x @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k = q.view(b, s, h, hd), k.view(b, s, kv, hd)
+        q, k, v = q + p["bq"], k + bk, v + bv
+    q, k = q.view(b, s, -1, hd), k.view(b, s, -1, hd)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v.view(b, s, kv, hd)
+    return q, k, v.view(b, s, -1, hd)
 
 
-def _fill_ring(cache, k, v) -> None:
+def _out(p, o):
+    """The layer's output o [B,S,Hr*hd] @ ``wo``, summed over 'model' (a
+    row shard on a mesh)."""
+    return comm.all_reduce(o @ p["wo"], "model")
+
+
+def _fill_ring(cache, k, v, r=None, lo=0) -> None:
     """Write the last min(S, T) rows of the prompt's k, v [B,KV,S,hd] into
-    ``cache`` of T rows, position p at slot p % T (the JAX package's
-    ``_prefill_fill_attn``)."""
-    s, r = k.shape[2], cache.k.shape[2]
+    a cache of T rows (``r``; the cache's own unless given), position p at
+    slot p % T (the JAX package's ``_prefill_fill_attn``); ``cache`` holds
+    the slots [lo, lo + its rows) of them (a sequence shard)."""
+    s, rows = k.shape[2], cache.k.shape[2]
+    r = r or rows
     n = min(s, r)
     start = (s - n) % r
     head = min(n, r - start)
-    for ring, new in zip(cache, (k, v)):
-        ring[:, :, start:start + head].copy_(new[:, :, s - n:s - n + head])
-        ring[:, :, :n - head].copy_(new[:, :, s - n + head:])
+    for dst, src, count in ((start, s - n, head), (0, s - n + head,
+                                                    n - head)):
+        a, b = max(dst, lo), min(dst + count, lo + rows)
+        if a < b:
+            for ring, new in zip(cache, (k, v)):
+                ring[:, :, a - lo:b - lo].copy_(
+                    new[:, :, src + a - dst:src + b - dst])
+
+
+def _layout(cfg: ModelConfig, rows) -> str:
+    """This layer's ``decode_cache_layout`` on the current mesh (``kv``:
+    the rank's KV heads, as one device holds them all)."""
+    if comm.size("model") == 1:
+        return "kv"
+    return sp.decode_cache_layout(cfg.num_kv_heads, rows, ctx.current_mesh())
 
 
 def attention_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
-                      window=None, cache=None):
+                      window=None, cache=None, rows=None):
     """Full-sequence self-attention (forward / prefill), causal unless
     ``causal`` is False (whisper's encoder), over the last ``window``
     positions when windowed.  x [B,S,d]; ``cache`` (optional) is this
-    layer's (k, v) [B,KV,T,hd], which keeps the last min(S, T) of the
-    prompt's K/V."""
+    layer's (k, v) [B,KV,T,hd] of ``rows`` rows (on a mesh the rank's
+    shard), which keeps the last min(S, T) of the prompt's K/V."""
     b, s, _ = x.shape
-    q, k, v = _project(p, cfg, x, positions)
+    layout = "kv" if cache is None else _layout(cfg, rows)
+    q, k, v = _project(p, cfg, x, positions, kv_all=layout != "kv")
     k, v = k.transpose(1, 2), v.transpose(1, 2)
+    if cache is not None:
+        tp = _Heads(cfg)
+        lo = tp.r * cache.k.shape[2] if layout == "seq" else 0
+        _fill_ring(cache, k, v, rows, lo)
+        if layout != "kv":   # the KV heads this rank's query heads read
+            k, v = k[:, tp.k0:tp.k1], v[:, tp.k0:tp.k1]
     out = flash_ops.attention(q.transpose(1, 2), k, v, causal=causal,
                               window=window, softcap=cfg.attn_softcap)
-    if cache is not None:
-        _fill_ring(cache, k, v)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return _out(p, out.transpose(1, 2).reshape(b, s, -1))
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, positions,
-                     lengths):
+                     lengths, rows=None):
     """One-token decode.  x [B,1,d]; ``positions`` [B,1] holds pos (for
-    RoPE); ``cache`` is this layer's (k, v) [B,KV,T,hd], written in place
+    RoPE); ``cache`` is this layer's (k, v) [B,KV,T,hd] of ``rows`` rows
+    (on a mesh the rank's shard, the module docstring), written in place
     at slot pos % T.  ``lengths`` [B] int32 holds the rows every batch row
     attends, min(pos + 1, T)."""
     b = x.shape[0]
-    q, k, v = _project(p, cfg, x, positions)
+    layout = _layout(cfg, rows)
+    q, k, v = _project(p, cfg, x, positions, kv_all=layout != "kv")
     ck, cv = cache
     t = ck.shape[2]
-    ck[:, :, pos % t].copy_(k[:, 0])
-    cv[:, :, pos % t].copy_(v[:, 0])
-    rows = min(pos + 1, t)
-    # only the filled rows: the kernel sizes its splits from T
-    out = decode_ops.decode(q[:, 0], ck[:, :, :rows], cv[:, :, :rows],
-                            lengths, softcap=cfg.attn_softcap)
-    return out.reshape(b, 1, -1) @ p["wo"]
+    if layout == "kv":
+        ck[:, :, pos % t].copy_(k[:, 0])
+        cv[:, :, pos % t].copy_(v[:, 0])
+        n = min(pos + 1, t)
+        # only the filled rows: the kernel sizes its splits from T
+        out = decode_ops.decode(q[:, 0], ck[:, :, :n], cv[:, :, :n],
+                                lengths, softcap=cfg.attn_softcap)
+        return _out(p, out.reshape(b, 1, -1))
+    tp = _Heads(cfg)
+    lo = tp.r * t if layout == "seq" else 0
+    slot = pos % rows - lo
+    if 0 <= slot < t:
+        ck[:, :, slot].copy_(k[:, 0])
+        cv[:, :, slot].copy_(v[:, 0])
+    n = min(max(min(pos + 1, rows) - lo, 0), t)
+    q_all = comm.all_gather(q[:, 0], "model", dim=1)         # [B, H, hd]
+    mine = torch.full((b,), n, dtype=torch.int32, device=x.device)
+    out, mx, ll = decode_ops.decode(q_all, ck[:, :, :n], cv[:, :, :n], mine,
+                                    softcap=cfg.attn_softcap, stats=True)
+    if layout == "seq":   # the reference's merge over the rows' shards
+        top = comm.all_reduce_max(mx, "model")
+        w = ll * torch.exp(mx - top)
+        acc = comm.all_reduce(out.float() * w[..., None], "model")
+        den = comm.all_reduce(w, "model")
+        out = (acc / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+    out = out[:, tp.r * tp.hl:(tp.r + 1) * tp.hl]
+    return _out(p, out.reshape(b, 1, -1))
 
 
 def encode_cross_kv(p, cfg: ModelConfig, enc, cache=None):

@@ -47,12 +47,20 @@ the port keeps them in the layout of its other K/V caches, the one the
 kernels read with each (batch, KV head)'s rows contiguous.
 
 The cache is written in place by ``prefill`` and ``decode_step``.
+
+On a mesh (``init_cache(..., mesh)``) a rank holds its shard of each
+attention layer's K/V by ``sharding.specs.decode_cache_layout``: its KV
+heads (``kv``: the KV heads divide the 'model' axis), its rows of every
+head (``seq``: rank r the rows [r T/m, (r+1) T/m) of T), or all of them
+(``none``); the caller passes the rank's batch rows.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple
 
 import torch
+
+from repro_torch.sharding import specs
 
 from .base import ModelConfig
 from .rglru import rec_init_state
@@ -86,12 +94,20 @@ def bounded_by_max_seq(cfg: ModelConfig) -> bool:
 
 
 def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, dtype,
-               device) -> Dict[str, Any]:
+               device, mesh=None) -> Dict[str, Any]:
     """Zeroed cache for ``decode_step``; ``pos`` (a Python int) counts the
-    tokens so far.  ``max_seq`` sizes the attention caches only."""
+    tokens so far.  ``max_seq`` sizes the attention caches only.  On
+    ``mesh`` the K/V are this rank's shard (the module docstring); ``bsz``
+    is the rank's batch."""
     def kv(rows, *layers):
         """K/V of ``rows`` rows, [*layers, B, KV, rows, hd]."""
-        shape = (*layers, bsz, cfg.num_kv_heads, rows, cfg.head_dim)
+        heads = cfg.num_kv_heads
+        if mesh is not None:
+            m = specs.axis_sizes(mesh).get("model", 1)
+            layout = specs.decode_cache_layout(heads, rows, mesh)
+            heads //= m if layout == "kv" else 1
+            rows //= m if layout == "seq" else 1
+        shape = (*layers, bsz, heads, rows, cfg.head_dim)
         return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
                          v=torch.zeros(shape, dtype=dtype, device=device))
 

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding import comm
+
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None,
                device=None) -> torch.Tensor:
@@ -122,11 +124,22 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device=None):
 
 
 def embed(params, tokens, *, scale_by_sqrt_dim: bool = False,
-          adtype=torch.bfloat16):
+          adtype=torch.bfloat16, vocab_lo=None):
     """The table's rows in the activation dtype; with ``scale_by_sqrt_dim``
     (the gemma family) times sqrt(d) rounded to that dtype first, as the
-    JAX package multiplies."""
-    out = params["table"][tokens].to(adtype)
+    JAX package multiplies.  With ``vocab_lo`` the table holds the rows
+    [vocab_lo, vocab_lo + rows) of a vocabulary split over the mesh's
+    'model' axis: each rank gives its tokens' rows, zero for the others,
+    and the ranks' rows are summed over the axis."""
+    table = params["table"]
+    if vocab_lo is None:
+        out = table[tokens].to(adtype)
+    else:
+        local = tokens - vocab_lo
+        hit = (local >= 0) & (local < table.shape[0])
+        out = (table[torch.where(hit, local, 0)].to(adtype)
+               * hit[..., None].to(adtype))
+        out = comm.all_reduce(out, "model")
     if scale_by_sqrt_dim:
         out = out * torch.full((), math.sqrt(params["table"].shape[1]),
                                dtype=adtype, device=out.device)
@@ -138,17 +151,31 @@ def unembed(params, x, *, cap: Optional[float] = None):
     return softcap((x @ params["table"].to(x.dtype).T).float(), cap)
 
 
-def _nll(logits, labels, mask):
+def _nll(logits, labels, mask, vocab_lo=None):
     """Each row's negative log-likelihood of its label under f32 logits
-    [..., V], zero where ``mask`` is False."""
-    gold = torch.gather(logits, -1, torch.where(mask, labels, 0)[..., None])
-    return (torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask
+    [..., V], zero where ``mask`` is False.  With ``vocab_lo`` the logits
+    are the columns [vocab_lo, vocab_lo + V) of a vocabulary split over
+    the mesh's 'model' axis: the softmax's max and sum and the label's
+    logit are all-reduced over it."""
+    if vocab_lo is None:
+        gold = torch.gather(logits, -1,
+                            torch.where(mask, labels, 0)[..., None])
+        return (torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask
+    top = comm.all_reduce_max(logits.detach().amax(dim=-1), "model")
+    total = comm.all_reduce(torch.exp(logits - top[..., None]).sum(dim=-1),
+                            "model")
+    local = labels - vocab_lo
+    hit = mask & (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(hit, local, 0)[..., None])
+    gold = comm.all_reduce(gold[..., 0] * hit, "model")
+    return (top + torch.log(total) - gold) * mask
 
 
-def nll_sum(logits, labels, *, ignore_id: int = -1):
+def nll_sum(logits, labels, *, ignore_id: int = -1, vocab_lo=None):
     """The summed next-token negative log-likelihood of f32 logits [..., V]
-    over the labels [...] that are not ``ignore_id``."""
-    return _nll(logits, labels, labels != ignore_id).sum()
+    over the labels [...] that are not ``ignore_id`` (``vocab_lo``:
+    ``_nll``'s)."""
+    return _nll(logits, labels, labels != ignore_id, vocab_lo).sum()
 
 
 def cross_entropy(logits, labels, *, ignore_id: int = -1):

@@ -53,6 +53,18 @@ loss head runs in checkpointed chunks of ``LOSS_CHUNK_ROWS`` rows; the
 encdec family's blocks, ``prefill``, ``decode_step`` and anything under
 ``no_grad`` are not checkpointed.
 
+On a mesh (the sharding context that ``launch/steps.py`` enters; the
+dense family, ``check_mesh``) the tree is a rank's shards by the
+reference's rules (``sharding/specs.py``; ``shard_params``,
+``init_shards``): each leaf FSDP splits over 'data' is gathered at use
+(``_use_leaf``; under remat inside its block's or head chunk's
+checkpoint, so the recompute gathers again) and its gradient
+reduce-scattered back into the shard; attention and the MLP are
+tensor-parallel over 'model' (``attention.py``; the MLP's input and
+output through ``comm``), the embedding and the head
+vocabulary-parallel (``layers.embed``, ``layers.nll_sum``); a rank's
+loss is its rows' part of the batch's.
+
 The variants with experts outside the moe family, positions without RoPE
 or a GELU MLP outside the encdec family, or other layouts raise
 ``ValueError``.  A config with a global ``"attn"`` layer (an encdec
@@ -62,6 +74,7 @@ package (``kvcache.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple
 
 import numpy as np
@@ -69,16 +82,18 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import comm, ctx
+from repro_torch.sharding import specs as sp
 
 from .attention import (attention_decode, attention_forward,
                         cross_attention_decode, cross_attention_forward,
                         encode_cross_kv, init_attention, init_mla,
                         mla_decode_v2, mla_forward)
 from .base import ModelConfig
-from .kvcache import AttnCache, bounded_by_max_seq, init_cache
-from .layers import (apply_mlp, cross_entropy, dense_init, embed,
-                     init_embedding, init_mlp, nll_sum, position_embedding,
-                     rms_norm, sinusoidal_positions, unembed)
+from .kvcache import AttnCache, bounded_by_max_seq, init_cache, ring_rows
+from .layers import (apply_mlp, dense_init, embed, init_embedding,
+                     init_mlp, nll_sum, position_embedding, rms_norm,
+                     sinusoidal_positions, unembed)
 from .moe import apply_moe, init_moe
 from .rglru import init_rec, rec_decode_step, rec_forward
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
@@ -257,6 +272,138 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda", *,
     return params if keep_f32 else cast_params(cfg, params)
 
 
+# ------------------------------------------------------------------ the mesh
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise ``ValueError`` naming what of ``cfg`` the sharded path does
+    not run on ``mesh``: it shards the dense family, with heads, MLP width
+    and vocabulary split evenly over 'model' and KV heads that divide it
+    or that it divides (each rank then computes the KV heads its query
+    heads read)."""
+    m = sp.axis_sizes(mesh).get("model", 1)
+    kv = cfg.num_kv_heads
+    bad = [what for what, b in (
+        (f"family {cfg.family!r} (the dense family is sharded)",
+         cfg.family != "dense"),
+        (f"{cfg.num_heads} heads", cfg.num_heads % m),
+        (f"{kv} KV heads", kv % m and m % kv),
+        (f"d_ff {cfg.d_ff}", cfg.d_ff % m),
+        (f"vocabulary {cfg.vocab_size}", cfg.vocab_size % m)) if b]
+    if bad:
+        raise ValueError(f"{cfg.name} on a {m}-way model axis: not ported "
+                         f"yet: {', '.join(bad)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_tree(cfg: ModelConfig, mode: str, sizes: tuple):
+    return sp.param_specs(init_params(cfg, device="meta"), mode=mode,
+                          mesh=dict(sizes))
+
+
+def mesh_specs(cfg: ModelConfig, mesh, mode: str):
+    """``sharding.specs.param_specs`` of ``cfg``'s tree on ``mesh`` in
+    ``mode`` ("train" or "serve"), worked out once."""
+    check_mesh(cfg, mesh)
+    return _spec_tree(cfg, mode, tuple(sorted(sp.axis_sizes(mesh).items())))
+
+
+def leaf_specs(specs) -> list:
+    """The specs of a spec tree in ``optim.adamw.tree_leaves``' order (a
+    dict's keys sorted, a list in order; a spec, a tuple, is a leaf)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in leaf_specs(specs[k])]
+    if isinstance(specs, list):
+        return [x for t in specs for x in leaf_specs(t)]
+    return [specs]
+
+
+def _mesh_specs(cfg: ModelConfig):
+    """The current mesh's specs (``ctx``), or None outside a mesh."""
+    mesh = ctx.current_mesh()
+    return None if mesh is None else mesh_specs(cfg, mesh,
+                                                ctx.current_mode())
+
+
+def _use_leaf(x, spec):
+    """A rank's shard ``x`` of spec ``spec`` as the layers use it: made
+    whole over 'data' (FSDP: all-gathered, its gradient reduce-scattered
+    back into the shard), its gradient summed over each batch axis the
+    leaf is replicated over; the 'model' split is the layers'."""
+    for a in sp.BATCH_AXES:
+        if a not in spec:
+            x = comm.reduce_grad(x, a)
+    for dim, a in enumerate(spec):
+        if a == "data":
+            x = comm.all_gather(x, "data", dim)
+    return x
+
+
+def _at_use(p, specs, i):
+    """Layer i's leaves ``p`` through ``_use_leaf`` (as they are outside a
+    mesh, ``specs`` None)."""
+    if specs is None:
+        return p
+    spec = specs["blocks"]["s0"][i]
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        return _use_leaf(t, s)
+    return walk(p, spec)
+
+
+def _vocab_lo(cfg: ModelConfig):
+    """The first vocabulary row of this rank's table shard, or None when
+    'model' has one rank."""
+    m = comm.size("model")
+    if m == 1:
+        return None
+    return sp.axis_coords(ctx.current_mesh())["model"] * (cfg.vocab_size // m)
+
+
+def shard_params(cfg: ModelConfig, params, mesh, mode: str):
+    """This rank's shards (views) of the full tree ``params`` on
+    ``mesh``."""
+    specs = mesh_specs(cfg, mesh, mode)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, x) for v, x in zip(t, s)]
+        return sp.local_slice(t, s, mesh)
+    return walk(params, specs)
+
+
+def init_shards(cfg: ModelConfig, mesh, seed: int = 0, device="cuda", *,
+                keep_f32: bool = False):
+    """This rank's shards of a seeded random tree on ``mesh``, drawn at
+    their own sizes (the full tree is never made): norms zero, every
+    other leaf normal with ``dense_init``'s fan-in scale, in the dtypes
+    of ``init_params(cfg, keep_f32=keep_f32)``; training specs with
+    ``keep_f32``, serving ones without.  Their values are not the full
+    tree's slices (``shard_params`` of ``init_params`` gives those)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = init_params(cfg, device="meta", keep_f32=keep_f32)
+    specs = mesh_specs(cfg, mesh, "train" if keep_f32 else "serve")
+
+    def walk(t, s, name=""):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k], k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, x, name) for v, x in zip(t, s)]
+        out = torch.empty(sp.local_shape(t.shape, s, mesh), dtype=t.dtype,
+                          device=dev)
+        if t.dim() < 2 or name.startswith("norm"):
+            return out.zero_()
+        std = (cfg.d_model ** -0.5 if name == "table"
+               else t.shape[0] ** -0.5)
+        return out.normal_(generator=gen).mul_(std)
+    return walk(meta, specs)
+
+
 def _has_prefix(cfg: ModelConfig) -> bool:
     """True if ``cfg`` projects prefix embeddings (``vision_proj``)."""
     return cfg.family == "vlm" or bool(cfg.num_prefix_embeds)
@@ -294,8 +441,10 @@ def _residuals(p, cfg: ModelConfig, kind, x, o, aux=None):
         aux = aux + a
     elif "moe" in p:
         h = apply_moe(p["moe"], cfg, h)
-    else:
-        h = apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    else:   # on a mesh: column-parallel in, row-parallel out over 'model'
+        h = apply_mlp(p["mlp"], comm.reduce_grad(h, "model"),
+                      cfg.mlp_variant)
+        h = comm.all_reduce(h, "model")
     return x + _post_norm(p, cfg, "norm2b", h), aux
 
 
@@ -306,8 +455,32 @@ def _entry(c, i):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale,
-                 adtype=cfg.adtype)
+    """The tokens' embeddings; on a mesh the table's shard, cast to the
+    activation dtype and gathered over 'data' where FSDP splits it, looked
+    up vocabulary-parallel over 'model' (``layers.embed``)."""
+    specs = _mesh_specs(cfg)
+    if specs is None:
+        return embed(params["embed"], tokens,
+                     scale_by_sqrt_dim=cfg.embed_scale, adtype=cfg.adtype)
+    table, spec = params["embed"]["table"], specs["embed"]["table"]
+    if "data" in spec and comm.size("data") > 1:
+        table = table.to(cfg.adtype)   # gathered in the activation dtype
+    return embed({"table": _use_leaf(table, spec)}, tokens,
+                 scale_by_sqrt_dim=cfg.embed_scale, adtype=cfg.adtype,
+                 vocab_lo=_vocab_lo(cfg))
+
+
+def _logits(params, cfg: ModelConfig, x):
+    """The tied unembedding's f32 logits [..., V] of x; on a mesh each
+    rank's vocabulary columns, gathered over 'model'."""
+    specs = _mesh_specs(cfg)
+    if specs is None:
+        return unembed(params["embed"], x, cap=cfg.final_softcap)
+    table = _use_leaf(params["embed"]["table"].to(x.dtype),
+                      specs["embed"]["table"])
+    logits = unembed({"table": table}, comm.reduce_grad(x, "model"),
+                     cap=cfg.final_softcap)
+    return comm.all_gather(logits, "model", dim=logits.dim() - 1)
 
 
 def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
@@ -321,10 +494,12 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     return torch.cat([pre, x], dim=1)
 
 
-def _layer(p, cfg: ModelConfig, kind, x, positions, aux, cache=None, i=0):
+def _layer(p, cfg: ModelConfig, kind, x, positions, aux, cache=None, i=0,
+           max_seq=None):
     """Layer i of ``kind`` (parameters ``p``) over x [B,S,d]: (x, aux)
     after it (``_residuals``); with ``cache``, its K/V, latent rows or
-    state land in entry i (``_prompt_layers``)."""
+    state land in entry i (``_prompt_layers``; ``max_seq`` sizes the
+    layer's cache, which a mesh may split)."""
     s = x.shape[1]
     h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
     if _is_mla(cfg, kind):
@@ -345,8 +520,17 @@ def _layer(p, cfg: ModelConfig, kind, x, positions, aux, cache=None, i=0):
         o = attention_forward(p["attn"], cfg, h, positions,
                               window=_window(cfg, kind),
                               cache=None if cache is None
-                              else _entry(cache, i))
+                              else _entry(cache, i),
+                              rows=_rows(cfg, kind, max_seq))
     return _residuals(p, cfg, kind, x, o, aux)
+
+
+def _rows(cfg: ModelConfig, kind, max_seq):
+    """The rows of a ``kind`` layer's K/V cache for ``max_seq``
+    (``kvcache.py``)."""
+    if max_seq is None:
+        return None
+    return max_seq if kind == "attn" else ring_rows(cfg, max_seq)
 
 
 def _records(params) -> bool:
@@ -366,10 +550,17 @@ def _checkpointed(fn, *args):
     over are kept).  The recompute runs ``fn`` whole (no early stop), so a
     step runs, and ``StepCost`` counts, each region's forward twice, as
     the reference's rematerialised scan body does; nothing in the model
-    draws random numbers, so no RNG state is kept."""
+    draws random numbers, so no RNG state is kept.  It runs in the
+    sharding context of the forward (``ctx.snapshot``), wherever the
+    backward runs it."""
+    state = ctx.snapshot()
+
+    def again(*a):
+        with ctx.restored(state):
+            return fn(*a)
     with torch.utils.checkpoint.set_checkpoint_early_stop(False):
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            again, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _regions(cfg: ModelConfig):
@@ -384,7 +575,7 @@ def _regions(cfg: ModelConfig):
 
 
 def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
-                   prefix_embeds=None, aux=None):
+                   prefix_embeds=None, aux=None, max_seq=None):
     """(the hidden states [B,P+S,d] after every layer and the final norm,
     P prefix positions, 0 without ``prefix_embeds``; ``aux``, an f32 zero,
     plus each MoE layer's load-balance loss in layer order, or None when
@@ -400,9 +591,13 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
     tree already cast), as the reference casts at use inside its scan
     body: f32 masters' activation-dtype copies are not kept through the
     forward either, and their gradients reach the masters as soon as the
-    block's backward has run."""
+    block's backward has run.  On a mesh each layer's shards are made
+    whole where FSDP splits them (``_use``) at use, inside its block's
+    region, so the recompute gathers again."""
     check_config(cfg)
-    x = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    specs = _mesh_specs(cfg)
+    x = ctx.constrain_batch(_embed_inputs(params, cfg, tokens,
+                                          prefix_embeds))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     layers = list(zip(cfg.layer_kinds, params["blocks"]["s0"]))
@@ -411,15 +606,19 @@ def _prompt_layers(params, cfg: ModelConfig, tokens, cache=None,
             def block(x, aux, region=region):
                 for i in region:
                     kind, p = layers[i]
-                    x, aux = _layer(cast_params(cfg, p), cfg, kind, x,
-                                    positions, aux)
-                return x, aux
+                    x, aux = _layer(_at_use(cast_params(cfg, p), specs, i),
+                                    cfg, kind, x, positions, aux)
+                return ctx.constrain_batch(x), aux
             x, aux = _checkpointed(block, x, aux)
     else:
         for i, (kind, p) in enumerate(layers):
-            x, aux = _layer(p, cfg, kind, x, positions, aux, cache, i)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps,
-                    plus_one=True), aux
+            x, aux = _layer(_at_use(p, specs, i), cfg, kind, x, positions,
+                            aux, cache, i, max_seq)
+            x = ctx.constrain_batch(x)
+    final = params["final_norm"]
+    if specs is not None:
+        final = _use_leaf(final, specs["final_norm"])
+    return rms_norm(x, final, cfg.norm_eps, plus_one=True), aux
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -515,29 +714,42 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
     ``return_aux``, (logits, the MoE layers' load-balance losses summed
     in layer order from an f32 zero: zero without experts)."""
     x, aux = _hidden(params, cfg, tokens, prefix_embeds, return_aux)
-    logits = unembed(params["embed"], x, cap=cfg.final_softcap)
+    logits = _logits(params, cfg, x)
     return (logits, aux) if return_aux else logits
 
 
-def _head_nll(table, cap, x, labels):
-    """``nll_sum`` of the tied unembedding's f32 logits of rows x [n, d]
-    (softcapped at ``cap``) against ``labels`` [n]."""
-    return nll_sum(unembed({"table": table}, x, cap=cap), labels)
+def _head_nll(table, cfg: ModelConfig, x, labels):
+    """``nll_sum`` of the tied unembedding's f32 logits of rows x [..., d]
+    (softcapped at ``cfg.final_softcap``) against ``labels`` [...]; the
+    table cast to x's dtype here (inside each checkpointed chunk of
+    ``_chunked_nll``, from the f32 master, as the blocks cast theirs) and,
+    on a mesh, gathered over 'data' and vocabulary-parallel over 'model':
+    the softmax's max and sum, and the labels' logits, all-reduced."""
+    table = table.to(x.dtype)
+    specs = _mesh_specs(cfg)
+    if specs is None:
+        return nll_sum(unembed({"table": table}, x, cap=cfg.final_softcap),
+                       labels)
+    table = _use_leaf(table, specs["embed"]["table"])
+    logits = unembed({"table": table}, comm.reduce_grad(x, "model"),
+                     cap=cfg.final_softcap)
+    return nll_sum(logits, labels, vocab_lo=_vocab_lo(cfg))
 
 
-def _chunked_cross_entropy(table, cfg: ModelConfig, x, labels):
-    """``cross_entropy(unembed(x), labels)`` over the rows of x [B, S, d]
-    in checkpointed chunks of ``LOSS_CHUNK_ROWS`` rows: each chunk's nll
-    sum is its own region (``_checkpointed``), so only one chunk's f32
-    logits, and in the backward their gradient, are alive at a time; the
-    sums are added in row order and divided once by the labels' count."""
+def _chunked_nll(table, cfg: ModelConfig, x, labels):
+    """``_head_nll`` over the rows of x [B, S, d] in checkpointed chunks
+    of ``LOSS_CHUNK_ROWS`` rows: each chunk is its own region
+    (``_checkpointed``), so only one chunk's f32 logits, and in the
+    backward their gradient, are alive at a time, and each chunk's table
+    gradient reaches the f32 master through its own cast; the sums are
+    added in row order."""
     rows, flat = x.reshape(-1, x.shape[-1]), labels.reshape(-1)
     total = None
     for xs, ls in zip(torch.split(rows, LOSS_CHUNK_ROWS),
                       torch.split(flat, LOSS_CHUNK_ROWS)):
-        part = _checkpointed(_head_nll, table, cfg.final_softcap, xs, ls)
+        part = _checkpointed(_head_nll, table, cfg, xs, ls)
         total = part if total is None else total + part
-    return total / torch.clamp((flat != -1).sum(), min=1)
+    return total
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -551,13 +763,18 @@ def loss_fn(params, cfg: ModelConfig, batch):
     layers run in checkpointed blocks that cast their own leaves
     (``_prompt_layers``; an encdec model's are cast here and not
     checkpointed, as in the reference) and the head in checkpointed row
-    chunks (``_chunked_cross_entropy``), every family alike."""
+    chunks that cast the table (``_chunked_nll``), every family alike.
+    On a mesh (the sharding context) the batch is this rank's shard and
+    the loss its part: its rows' summed loss over the labels counted
+    over every batch shard, so the parts sum to the reference's loss."""
     remat = cfg.remat and _records(params)
     if remat and "blocks" in params:
-        # each checkpointed block casts its own layers (``_prompt_layers``)
+        # each checkpointed block casts its own layers (``_prompt_layers``),
+        # each head chunk the table (``_head_nll``)
+        kept = ("blocks", "embed")
         p = dict(cast_params(cfg, {k: v for k, v in params.items()
-                                   if k != "blocks"}),
-                 blocks=params["blocks"])
+                                   if k not in kept}),
+                 **{k: params[k] for k in kept})
     else:
         p = cast_params(cfg, params)
     x, aux = _hidden(p, cfg, batch["tokens"], batch.get("prefix_embeds"),
@@ -567,11 +784,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
         pad = torch.full((labels.shape[0], x.shape[1] - labels.shape[1]),
                          -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    if remat:
-        ce = _chunked_cross_entropy(p["embed"]["table"], cfg, x, labels)
-    else:
-        ce = cross_entropy(unembed(p["embed"], x, cap=cfg.final_softcap),
-                           labels)
+    table = p["embed"]["table"]
+    total = (_chunked_nll if remat else _head_nll)(table, cfg, x, labels)
+    count = comm.sum_over((labels != -1).sum(), ctx.batch_axes() or ())
+    ce = total / torch.clamp(count, min=1)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
@@ -595,15 +811,15 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeds=None, *,
                          f"{max_seq} (the global layers' wrapping ring is "
                          "not ported)")
     cache = init_cache(cfg, b, max_seq, cfg.adtype,
-                       params["embed"]["table"].device)
+                       params["embed"]["table"].device, ctx.current_mesh())
     if cfg.family == "encdec":
         x = _decoder_prompt(params, cfg, tokens,
                             encode(params, cfg, prefix_embeds), cache)
     else:
         x, _ = _prompt_layers(params, cfg, tokens, cache["blocks"]["s0"],
-                              prefix_embeds)
+                              prefix_embeds, max_seq=max_seq)
     cache["pos"] = s
-    return unembed(params["embed"], x[:, -1:], cap=cfg.final_softcap), cache
+    return _logits(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache):
@@ -619,14 +835,15 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     step = _decoder_step if cfg.family == "encdec" else _layers_step
     x = step(params, cfg, token, cache)
     cache["pos"] += 1
-    return unembed(params["embed"], x, cap=cfg.final_softcap), cache
+    return _logits(params, cfg, x), cache
 
 
 def _layers_step(params, cfg: ModelConfig, token, cache):
     """The hidden state [B,1,d] after every layer and the final norm, for
     one decode step of the token at ``cache["pos"]``."""
     pos, c = cache["pos"], cache["blocks"]["s0"]
-    x = _embed(params, cfg, token)
+    specs = _mesh_specs(cfg)
+    x = ctx.constrain_batch(_embed(params, cfg, token))
     b = x.shape[0]
     entries = [_entry(c, i) if kind in ("attn", "local")
                and not _is_mla(cfg, kind) else None
@@ -638,6 +855,7 @@ def _layers_step(params, cfg: ModelConfig, token, cache):
                for n in {e.k.shape[2] for e in entries if e is not None}}
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds,
                                       params["blocks"]["s0"])):
+        p = _at_use(p, specs, i)
         h = rms_norm(x, p["norm1"], cfg.norm_eps, plus_one=True)
         if _is_mla(cfg, kind):
             o, c_col, kr_col = mla_decode_v2(p["mla"], cfg, h, c[i].c[:, :pos],
@@ -649,6 +867,8 @@ def _layers_step(params, cfg: ModelConfig, token, cache):
             o, c[i] = step(p[kind], cfg, h, c[i])
         else:
             o = attention_decode(p["attn"], cfg, h, entries[i], pos,
-                                 positions, lengths[entries[i].k.shape[2]])
+                                 positions, lengths[entries[i].k.shape[2]],
+                                 _rows(cfg, kind, cache["max_seq"]))
         x, _ = _residuals(p, cfg, kind, x, o)
+        x = ctx.constrain_batch(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)

@@ -115,11 +115,18 @@ def init_opt_state(params) -> OptState:
                     mu=zeros(), nu=zeros())
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, replicas=None, reduce=None) -> torch.Tensor:
     """sqrt of the sum over the leaves, in tree order, of each leaf's sum
-    of squares in f32."""
-    return _rounded(torch.sqrt, sum(x.float().square().sum()
-                                    for x in tree_leaves(tree)))
+    of squares in f32.  On a mesh the leaves are a rank's shards:
+    ``replicas`` gives each leaf's count of ranks that hold the same
+    shard (a power of two, so the division is exact), ``reduce`` sums the
+    ranks' totals, once, so that each leaf counts once."""
+    leaves = tree_leaves(tree)
+    parts = (x.float().square().sum() for x in leaves)
+    if replicas is not None:
+        parts = (x / n if n > 1 else x for x, n in zip(parts, replicas))
+    total = sum(parts)
+    return _rounded(torch.sqrt, total if reduce is None else reduce(total))
 
 
 def _chunks(*xs):
@@ -137,7 +144,7 @@ def decays_matrices(path, leaf) -> bool:
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
-                 decays=decays_matrices):
+                 decays=decays_matrices, replicas=None, reduce=None):
     """(params, new state, {"lr", "grad_norm"}); the norm is the one
     before clipping.  ``params``, ``grads`` and the moments are trees of
     one structure (nested dicts, lists, tuples); ``decays(path, leaf)``
@@ -145,12 +152,15 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
     The caller hands over ``params`` and ``state``, as the reference's
     jitted steps donate them: their tensors are updated in place, leaf by
     leaf, each in pieces of at most ``CHUNK`` elements, so the update's
-    temporaries stay that small.  Nothing leaves the device."""
+    temporaries stay that small.  Nothing leaves the device.  On a mesh
+    the trees are a rank's shards and the update runs on them;
+    ``replicas`` and ``reduce`` make the norm global (``global_norm``), and
+    ``decays`` sees the shards, whose dims the full leaves share."""
     decay = [decays(path, x) for path, x in _walk(params)]
     p, g = tree_leaves(params), tree_leaves(grads)
     mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, replicas, reduce)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(_f32(cfg.clip_norm, gnorm) / (gnorm + 1e-9),

@@ -86,9 +86,11 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
     split over the requests it served: its ``global_batch`` (a row of the
     port's dry run), else its shape's (the reference's rows).  The step
     is the measured one where the row has it (``measured_step_s`` and
-    ``measured_energy_j``, the port's rows), else the roofline estimate
-    (``t_step_s`` and ``energy_j``).  The profile state lives on
-    ``device``."""
+    ``measured_energy_j``, the port's one-card rows), else the roofline
+    estimate (``t_step_s`` and ``energy_j``): the reference's rows, and the
+    port's mesh rows, whose measured step is rank 0's compute alone
+    (``measured_scope``), without the collectives' term.  The profile
+    state lives on ``device``."""
     with open(dryrun_jsonl) as f:
         rows = [json.loads(line) for line in f]
     entries: List[ProfileEntry] = []
@@ -101,7 +103,7 @@ def pool_table_from_dryrun(dryrun_jsonl: str,
         n_req = r.get("global_batch") or {
             "prefill_32k": 32, "decode_32k": 128, "long_500k": 1,
             "train_4k": 256}[r["shape"]]
-        if "measured_step_s" in r:
+        if "measured_step_s" in r and "measured_scope" not in r:
             time_ms = r["measured_step_s"] * 1e3 / n_req
             energy_mwh = r["measured_energy_j"] / 3.6 / n_req
         else:

@@ -149,7 +149,7 @@ def test_the_card_record_reads_its_rest(monkeypatch):
     chip = rl.h100(torch.device("cuda", 0))
     assert chip.name == "NVIDIA H100 80GB HBM3, 700.00 W"
     assert (chip.power_idle, chip.power_peak) == (135.4, 700.0)
-    assert chip.memory_bytes == 85e9 and chip.link_bw is None
+    assert chip.memory_bytes == 85e9 and chip.link_bw == rl.H100_LINK_BW
     assert len(calls) == rl.REST_SAMPLES and "--id=0" in calls[0]
 
     def broken(cmd, **kw):
@@ -571,6 +571,31 @@ def test_pool_table_routes_a_port_row_on_its_measured_step(tmp_path):
     got = {e.model: (e.time_ms, e.energy_mwh) for e in table.entries}
     assert got == {"qwen2.5-3b": (0.9 * 1e3, 270.0 / 3.6),
                    "llama3-8b": (0.04 * 1e3 / 8, 8.0 / 3.6 / 8)}
+
+
+def test_pool_table_routes_a_mesh_row_on_its_roofline_step(tmp_path):
+    """A mesh row's measured step is rank 0's compute alone
+    (``measured_scope``), so the pool, with its default mesh, routes it on
+    the roofline's step and energy, which count the collectives' term;
+    the 1x1 row beside it keeps its measured step."""
+    rows = [dict(arch="llama3-8b", mesh="16x16", shape="prefill_32k",
+                 chips=256, status="ok", t_step_s=0.36, energy_j=900.0,
+                 t_collective_s=0.156, measured_step_s=0.1,
+                 measured_energy_j=300.0, measured_scope=dryrun.MESH_SCOPE,
+                 params_active=6_979_588_096, global_batch=32),
+            dict(arch="qwen2.5-3b", mesh="1x1", shape="prefill_32k",
+                 status="ok", t_step_s=0.3, energy_j=90.0,
+                 measured_step_s=0.9, measured_energy_j=270.0,
+                 params_active=2_774_773_760, global_batch=1)]
+    path = tmp_path / "dryrun.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    table = pool.pool_table_from_dryrun(str(path), device="cpu")
+    assert {(e.model, e.time_ms, e.energy_mwh, e.device)
+            for e in table.entries} == {
+        ("llama3-8b", 0.36 * 1e3 / 32, 900.0 / 3.6 / 32, "pod-16x16")}
+    table = pool.pool_table_from_dryrun(str(path), mesh="1x1", device="cpu")
+    assert {(e.model, e.time_ms) for e in table.entries} == {
+        ("qwen2.5-3b", 0.9 * 1e3)}
 
 
 def test_flash_cpu_gradients_keep_the_inputs_strides():

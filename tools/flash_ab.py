@@ -2,7 +2,7 @@
 """Times one tree's flash-attention kernel, or its backward, at the main
 path's shapes, so that two versions can be compared in turns on one card.
 
-    python3 tools/flash_ab.py SRC LABEL [backward]
+    python3 tools/flash_ab.py SRC LABEL [backward | decode]
 
 SRC is the ``src`` directory of a tree of the port (this checkout's, or a
 ``git archive`` of another commit unpacked into a git-ignored directory),
@@ -24,10 +24,14 @@ the median of back-to-back calls) and the device time (profiler).  The
 forward runs at ``SHAPES``; shapes without the causal mask need a tree
 whose wrapper takes ``causal``.  The backward runs ``_launch_backward``
 at the bf16 shapes of ``chip_smoke.FLASH_BWD`` (phase 43), its device
-time the sum of its two kernels, each also apart.
+time the sum of its two kernels, each also apart.  ``decode`` times the
+flash-decode kernel (``decode_attention``) at ``DECODE``'s bf16 shapes,
+and again with its softmax statistics where the tree's wrapper takes
+``stats``.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import sys
@@ -117,12 +121,40 @@ def backward(label: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
+#: (name, (B, H, KV, T, D)): one decode step over a full cache of T rows
+#: at the dry run's decode_32k batches a card (at 16 x 16: 8 rows), and a
+#: 16-way sequence shard of llama3-8b's
+DECODE = [("llama3-8b decode_32k", (8, 32, 8, 32768, 128)),
+          ("llama3-8b, one of 16 sequence shards", (8, 32, 8, 2048, 128)),
+          ("gemma2-9b decode_32k", (8, 16, 8, 32768, 256)),
+          ("qwen2.5-3b decode_32k", (8, 16, 2, 32768, 128))]
+
+
+def decode(label: str, dev) -> None:
+    from repro_torch.kernels.decode_attention import ops as dec
+    _build.build(["decode_attention"])
+    has_stats = "stats" in inspect.signature(dec.decode).parameters
+    for name, (b, h, kv, t, d) in DECODE:
+        q, k, v = randn([(b, h, d), (b, kv, t, d), (b, kv, t, d)],
+                        torch.bfloat16, 29, dev)
+        lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
+        for stats in (False, True) if has_stats else (False,):
+            kw = {"stats": True} if stats else {}
+            fn = lambda: dec.decode(q, k, v, lengths, **kw)  # noqa: E731
+            call = median_ms(fn, reps=10, inner=10)
+            dev_ms = device_ms(fn, "decode_kernel", reps=5)
+            print(json.dumps({"tree": label, "shape": name, "stats": stats,
+                              "call_ms": call, "device_ms": dev_ms}))
+
+
 def main() -> None:
     label = sys.argv[2]
     print(card_line())
     dev = torch.device("cuda")
     if sys.argv[3:] == ["backward"]:
         backward(label, dev)
+    elif sys.argv[3:] == ["decode"]:
+        decode(label, dev)
     else:
         forward(label, dev)
 
